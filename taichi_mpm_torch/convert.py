@@ -1,0 +1,65 @@
+"""Carry state across from the JAX package, through numpy only.
+
+An MPM scene has no weights: its parameters are the particle state, the
+configuration and the collider specs. Tests build the inputs of both
+packages from the same numpy arrays through these functions, so this
+module needs no JAX import.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from taichi_mpm_torch.config import SimConfig
+from taichi_mpm_torch.core.state import FIELDS, Particles
+from taichi_mpm_torch.ops.rows import NCH
+
+_INT_FIELDS = ("mat", "states")
+_BOOL_FIELDS = ("active", "near_b")
+
+
+def config_from_dict(d: dict) -> SimConfig:
+    """SimConfig from a field dict (e.g. dataclasses.asdict of the JAX
+    package's SimConfig); sequences become tuples."""
+    names = {f.name for f in dataclasses.fields(SimConfig)}
+    kw = {k: tuple(v) if isinstance(v, (list, tuple, np.ndarray)) else v
+          for k, v in d.items() if k in names}
+    return SimConfig(**kw)
+
+
+def particles_from_numpy(arrays: dict, device="cpu") -> Particles:
+    """Particles from a dict of numpy arrays keyed by field name."""
+    out = {}
+    for name in FIELDS:
+        a = np.asarray(arrays[name])
+        if name in _INT_FIELDS:
+            a = a.astype(np.int32)
+        elif name in _BOOL_FIELDS:
+            a = a.astype(bool)
+        else:
+            a = a.astype(np.float32)
+        out[name] = torch.as_tensor(np.array(a, order="C"), device=device)
+    return Particles(**out)
+
+
+def particles_to_numpy(p) -> dict:
+    """Dict of numpy arrays keyed by field name, from the port's Particles
+    or any object with the same field names (the JAX package's)."""
+    def host(a):
+        return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    return {name: host(getattr(p, name)) for name in FIELDS}
+
+
+def packed_from_numpy(st, device="cpu") -> torch.Tensor:
+    """(NCH, Pw) float32 packed state from a numpy array in either form
+    the JAX package carries: (NCH, Pw) or flat (NCH * Pw,)."""
+    a = np.asarray(st, np.float32)
+    if a.ndim == 1:
+        a = a.reshape(NCH, -1)
+    if a.ndim != 2 or a.shape[0] != NCH:
+        raise ValueError(f"expected ({NCH}, Pw) or flat, got {a.shape}")
+    return torch.as_tensor(np.array(a, np.float32, order="C"), device=device)

@@ -1,0 +1,196 @@
+// Fused prep + P2G for Hopper (sm_90a).
+//
+// Replaces the TPU kernel taichi_mpm_tpu/ops/fused_pallas.py p2g_fused
+// (_p2g_fused_kernel, _build_pd, with p2g_pallas._chunk_ops and
+// tile_correct): for each active block slot, build every particle's P2G
+// operand from the packed (48, Pw) state (m*v, m, the fused affine
+// A = invD*m*C - invD*inv_dx*dt*force with the JELLY fixed-corotated
+// force, block-local position) and accumulate the slot's 7^3 halo tile of
+// momentum and mass with quadratic B-spline weights.
+//
+// Semantics: tile node (i, j, k) is block-local node (i-1, j-1, k-1);
+//   tile[c] += w * (m*v_c + sum_a A[c][a] * (pos_a - node_a))   c = 0..2
+//   tile[3] += w * m
+// where w is the tensor product of the dense per-axis weights over nodes
+// -1..5 (a contribution outside the tile is dropped, as in the reference).
+//
+// What bounds it on the H100: at 8M particles the function reads 32 of the
+// 48 state rows of each particle once (act, x, v, F, C, mass, vol, mu,
+// lambda, origin: ~1.02 GB) and writes K halo tiles of 5.5 KB (~0.16 GB),
+// 0.35 ms at 3.35 TB/s; its ~1.8 kflop per particle (polar Newton, force,
+// 27-node scatter) take 0.22 ms at 67 TFLOP/s. So the memory rate bounds
+// it. What the design does about it: one CUDA block per slot streams
+// the slot's contiguous sorted range [s, e) in coalesced 128-lane chunks,
+// computes each particle once (one thread each) and stages the 16-value
+// operand and 21 axis weights in shared memory, so the state is read
+// exactly once. Then each thread owns fixed halo nodes (3 of the 343) and
+// sums the staged particles in sorted order in registers. That order is
+// fixed, so the kernel is deterministic: the same input gives the same
+// bits, as in the reference. The node-owner loop visits every (node,
+// particle) pair, 343 per particle where 27 carry weight, and skips zero
+// weights: it is the simple form, not the fast one, and that loop, not
+// memory, sets its time (chip_smoke.py prints it beside the bound).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+using namespace mpm;
+
+constexpr int THREADS = 128;  // one staged particle per thread
+constexpr int NPT = 3;        // halo nodes per thread: 3 * 128 >= 343
+constexpr int NV = 16;        // staged values: m*v (3), m, A (9), pos (3)
+constexpr int NW = 24;        // staged weights: 7 per axis, padded to 24
+
+struct P2GParams {
+  float inv_dx;
+  float invD;
+  float cf_scale;  // invD * inv_dx * dt
+  float gdt[3];    // gravity * dt, used when particle_gravity
+  int particle_gravity;
+};
+
+__device__ __forceinline__ void stage_particle(const float* __restrict__ st, long long pw,
+                                               long long p, const P2GParams& prm,
+                                               float* __restrict__ sv,
+                                               float* __restrict__ sw) {
+  const float* S = st + p;
+  auto R = [&](int r) { return S[(long long)r * pw]; };
+  const bool act = R(RACT) > 0.5f;
+  float F[9], C[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    F[k] = R(RF + k);
+    C[k] = R(RC + k);
+  }
+  const float mass = R(RMASS), vol = R(RVOL);
+  const float mu = R(RPAR), lam = R(RPAR + 1);
+
+  // JELLY force -vol * [2 mu (F - R) F^T + lam (J - 1) J I]
+  // (materials/cforms.force_jelly / _pft_fixed_corotated)
+  float Rm[9];
+  polar_newton(F, Rm);
+  const float J = det3(F);
+  const float diag = lam * (J - 1.0f) * J;
+  const float two_mu = 2.0f * mu;
+  float A[9];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      float pft = (F[3 * i] - Rm[3 * i]) * F[3 * j] +
+                  (F[3 * i + 1] - Rm[3 * i + 1]) * F[3 * j + 1] +
+                  (F[3 * i + 2] - Rm[3 * i + 2]) * F[3 * j + 2];
+      pft = pft * two_mu + (i == j ? diag : 0.0f);
+      const float force = pft * -vol;
+      A[3 * i + j] = act ? prm.invD * mass * C[3 * i + j] - prm.cf_scale * force : 0.0f;
+    }
+  }
+  const float m = act ? mass : 0.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float v = R(RV + c);
+    if (prm.particle_gravity) v += prm.gdt[c];
+    sv[c] = m * v;
+  }
+  sv[3] = m;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) sv[4 + k] = A[k];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    // __fmul_rn: no FMA contraction, so the block-local position rounds
+    // as in the plain version and the JAX reference (x * inv_dx, then
+    // minus the origin); a fused multiply-add moves it by up to one ulp
+    // of x * inv_dx (~4e-6 cells at res 125), ~1e-5 of a weight.
+    const float pos = __fmul_rn(R(RX + a), prm.inv_dx) - R(RORG + a);
+    sv[13 + a] = pos;
+#pragma unroll
+    for (int i = 0; i < TILE; ++i) sw[a * TILE + i] = quad_w(pos - (float)(i - 1));
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+p2g_kernel(const float* __restrict__ st, long long pw, const int* __restrict__ s_arr,
+           const int* __restrict__ e_arr, float* __restrict__ out, P2GParams prm) {
+  __shared__ float sv[THREADS][NV];
+  __shared__ float sw[THREADS][NW];
+  const int slot = blockIdx.x;
+  const int tid = threadIdx.x;
+  // ranges clipped to the state, so a bad range reads nothing outside it
+  const int s = max(s_arr[slot], 0);
+  const int e = (int)min((long long)e_arr[slot], pw);
+
+  int ni[NPT], nj[NPT], nk[NPT];
+  bool own[NPT];
+  float acc[NPT][4];
+#pragma unroll
+  for (int q = 0; q < NPT; ++q) {
+    const int n = tid + q * THREADS;
+    own[q] = n < TILE_NODES;
+    const int nn = own[q] ? n : 0;
+    ni[q] = nn / (TILE * TILE);
+    nj[q] = (nn / TILE) % TILE;
+    nk[q] = nn % TILE;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[q][c] = 0.0f;
+  }
+
+  for (int base = s; base < e; base += THREADS) {
+    const int cnt = min(THREADS, e - base);
+    if (tid < cnt) stage_particle(st, pw, (long long)base + tid, prm, sv[tid], sw[tid]);
+    __syncthreads();
+    for (int p = 0; p < cnt; ++p) {
+      const float* w = sw[p];
+      const float* v = sv[p];
+#pragma unroll
+      for (int q = 0; q < NPT; ++q) {
+        const float wq = w[ni[q]] * w[TILE + nj[q]] * w[2 * TILE + nk[q]];
+        if (own[q] && wq != 0.0f) {
+          const float dx = v[13] - (float)(ni[q] - 1);
+          const float dy = v[14] - (float)(nj[q] - 1);
+          const float dz = v[15] - (float)(nk[q] - 1);
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const float mom = v[c] + v[4 + 3 * c] * dx + v[5 + 3 * c] * dy + v[6 + 3 * c] * dz;
+            acc[q][c] += wq * mom;
+          }
+          acc[q][3] += wq * v[3];
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  float4* dst = reinterpret_cast<float4*>(out + (size_t)slot * TILE_NODES * 4);
+#pragma unroll
+  for (int q = 0; q < NPT; ++q) {
+    if (own[q]) dst[tid + q * THREADS] = make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+  }
+}
+
+}  // namespace
+
+// Launch on `stream`. st: (48, pw) f32 packed state, rows 43-45 holding the
+// sort-time block origins; s_arr/e_arr: (K,) i32 sorted particle ranges;
+// out: (K, 7, 7, 7, 4) f32 halo tiles [i, j, k, c]. Returns cudaGetLastError().
+extern "C" int p2g_fused_launch(const float* st, long long pw, const int* s_arr,
+                                const int* e_arr, int K, float* out, float inv_dx,
+                                float invD, float cf_scale, float gdt0, float gdt1,
+                                float gdt2, int particle_gravity, void* stream) {
+  P2GParams prm;
+  prm.inv_dx = inv_dx;
+  prm.invD = invD;
+  prm.cf_scale = cf_scale;
+  prm.gdt[0] = gdt0;
+  prm.gdt[1] = gdt1;
+  prm.gdt[2] = gdt2;
+  prm.particle_gravity = particle_gravity;
+  if (K > 0) {
+    p2g_kernel<<<K, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(st, pw, s_arr, e_arr,
+                                                                      out, prm);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

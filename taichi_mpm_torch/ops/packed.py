@@ -1,0 +1,264 @@
+"""Packed channel-major particle pipeline: the blocked fixed-dt frame
+(torch counterpart of ``taichi_mpm_tpu.ops.packed``, fused path only).
+
+The particle state is one ``(NCH, Pw)`` float32 tensor (row map in
+``ops/rows.py``), sorted by grid block. One substep is
+
+    p2g_fused (kernel) -> merge_tiles -> grid_update_flat -> windows
+    -> g2p_fused (kernel, in place) [-> particle collision, clean boundary]
+
+and a frame repeats it, re-sorting lazily: the sort and page map are
+kept while the accumulated drift ``sum(dt * inv_dx * max|v|)`` stays
+below 0.45 cell, so every particle stays within half a cell of its
+sort-time block (whose origin is in rows 43-45) and inside its slot's
+halo tile. The drift check reads max |v| on the host: one
+device-to-host sync per substep.
+
+The specifications the kernels follow, ``prep_packed`` and
+``finish_packed``, live beside them in ``ops/p2g.py`` and ``ops/g2p.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from taichi_mpm_torch.config import SimConfig
+from taichi_mpm_torch.core.levelset import DirichletRegion
+from taichi_mpm_torch.core.state import Particles
+from taichi_mpm_torch.ops import blocked, g2p, p2g
+from taichi_mpm_torch.ops.blocked import BLOCK
+from taichi_mpm_torch.ops.substep import grid_update_flat
+from taichi_mpm_torch.ops.rows import (
+    RACT, RAUX, RBDIST, RBN, RC, RF, RMASS, RMAT, RMATF, RNEARB, RORG, RPAR,
+    RSTATES, RV, RVOL, RX,
+)
+
+DRIFT_BOUND = np.float32(0.45)  # cells of drift allowed between sorts
+
+
+# -- conversions ------------------------------------------------------------
+
+
+def pack_particles(p: Particles) -> torch.Tensor:
+    """Particles -> (NCH, P) channel-major state (int rows bitcast)."""
+    P = p.capacity
+    zero = torch.zeros((P,), dtype=torch.float32, device=p.device)
+    rows = [p.x[:, k] for k in range(3)]
+    rows += [p.v[:, k] for k in range(3)]
+    rows += [p.F[:, i, j] for i in range(3) for j in range(3)]
+    rows += [p.C[:, i, j] for i in range(3) for j in range(3)]
+    rows += [p.aux, p.mass, p.vol, p.mat.view(torch.float32)]
+    rows += [p.params[:, k] for k in range(8)]
+    rows += [p.active.to(torch.float32), p.states.view(torch.float32), p.bdist]
+    rows += [p.bnormal[:, k] for k in range(3)]
+    rows += [p.near_b.to(torch.float32)]
+    rows += [zero] * (RMATF - len(rows))
+    rows += [p.mat.to(torch.float32)]  # row 47: material id as a value
+    return torch.stack(rows)
+
+
+def unpack_particles(st: torch.Tensor, capacity: int) -> Particles:
+    """Packed state -> Particles (lanes in the state's order)."""
+
+    def s(r):
+        return st[r, :capacity].clone()
+
+    def ints(r):
+        return st[r, :capacity].view(torch.int32).clone()
+
+    def m33(r0):
+        return st[r0 : r0 + 9, :capacity].t().reshape(capacity, 3, 3).clone()
+
+    return Particles(
+        x=st[RX : RX + 3, :capacity].t().clone(),
+        v=st[RV : RV + 3, :capacity].t().clone(),
+        F=m33(RF),
+        C=m33(RC),
+        aux=s(RAUX),
+        mass=s(RMASS),
+        vol=s(RVOL),
+        mat=ints(RMAT),
+        params=st[RPAR : RPAR + 8, :capacity].t().clone(),
+        active=st[RACT, :capacity] > 0.5,
+        states=ints(RSTATES),
+        bdist=s(RBDIST),
+        bnormal=st[RBN : RBN + 3, :capacity].t().clone(),
+        near_b=st[RNEARB, :capacity] > 0.5,
+    )
+
+
+# -- sort + page map --------------------------------------------------------
+
+
+def _keys_of(st, cfg: SimConfig):
+    """Padded block id per lane (sentinel = total for inactive lanes)."""
+    nbp = blocked.num_blocks_padded(cfg)
+    total = blocked.total_blocks_padded(cfg)
+    act = st[RACT] > 0.5
+    bid = torch.zeros(st.shape[1], dtype=torch.int32, device=st.device)
+    for k, n in enumerate(nbp):
+        cell = torch.clamp(torch.floor(st[RX + k] * cfg.inv_dx), 0, cfg.res[k] - 1)
+        bid = bid * n + cell.to(torch.int32) // BLOCK
+    return torch.where(act, bid, total)
+
+
+def sort_packed(st, cfg: SimConfig):
+    """Stable sort of the lanes by block id: a column gather of the whole
+    (NCH, Pw) state. Returns (sorted state, sorted keys)."""
+    keys = _keys_of(st, cfg)
+    keys_sorted, order = torch.sort(keys, stable=True)
+    return st[:, order], keys_sorted
+
+
+def _origin_rows(keys, cfg: SimConfig):
+    """Padded block id -> block origin (grid units) per lane, (3, Pw)."""
+    nbx, nby, nbz = blocked.num_blocks_padded(cfg)
+    safe = torch.clamp(keys, max=nbx * nby * nbz - 1)
+    bz = safe % nbz
+    by = (safe // nbz) % nby
+    bx = safe // (nbz * nby)
+    return torch.stack([bx, by, bz]).to(torch.float32) * float(BLOCK)
+
+
+def annotate_origins(st, keys, cfg: SimConfig):
+    """Write rows 43-45 = each lane's sort-time block origin, in place."""
+    st[RORG : RORG + 3] = _origin_rows(keys, cfg)
+    return st
+
+
+def build_page_map_packed(keys, cfg: SimConfig, K: int):
+    """Page map, neighbour table and per-lane slot keys."""
+    total = blocked.total_blocks_padded(cfg)
+    ids, n_act, slot_map, s_arr, e_arr = blocked.build_page_map(keys, cfg, K)
+    nbr = blocked.neighbor_slots(ids, slot_map, cfg)
+    slot_keys = slot_map[torch.clamp(keys, max=total).long()]
+    return dict(ids=ids, n_act=n_act, s_arr=s_arr, e_arr=e_arr, nbr=nbr,
+                slot_keys=slot_keys, slot_map=slot_map)
+
+
+def grown_capacity(n_act: int, cfg: SimConfig) -> int:
+    """Page-map capacity after an overflow: 2x the occupancy, rounded up
+    to a multiple of 64, at most the whole padded block space."""
+    return int(min(blocked.total_blocks_padded(cfg), -(-2 * n_act // 64) * 64))
+
+
+def sort_and_map(st, cfg: SimConfig, K: int):
+    """Sort + origin annotation + page map: the one (re)sort entry.
+
+    Growth on overflow happens here, where the occupancy is known: if
+    the dilated occupancy exceeds K, the page map is rebuilt at once with
+    a larger K. (The JAX driver instead re-runs the whole frame with a
+    larger K. The G2P kernel here updates the state in place, so a re-run
+    would need a saved copy of the state; growing at the sort gives the
+    same frame without one, because K only sizes the map: the live slots,
+    ranges and neighbours do not depend on it.) The capacity in use is
+    pm["ids"].shape[0]."""
+    st, keys = sort_packed(st, cfg)
+    st = annotate_origins(st, keys, cfg)
+    pm = build_page_map_packed(keys, cfg, K)
+    n_act = int(pm["n_act"])
+    if n_act > K:
+        pm = build_page_map_packed(keys, cfg, grown_capacity(n_act, cfg))
+    return st, keys, pm
+
+
+# -- per-particle boundary passes ---------------------------------------------
+
+
+def clean_boundary_packed(st, cfg: SimConfig):
+    """Deactivate lanes within 7 cells of the domain edge, in place."""
+    act = st[RACT] > 0.5
+    near = torch.zeros_like(act)
+    for k in range(3):
+        pos = st[RX + k] * cfg.inv_dx
+        near = near | (pos < 7.0) | (pos > cfg.res[k] - 7.0)
+    st[RACT] = (act & ~near).to(torch.float32)
+    return st
+
+
+def particle_collision_packed(st, cfg: SimConfig, colliders, t):
+    """Per-particle levelset projection on rows, in place."""
+    act = st[RACT] > 0.5
+    x = [st[RX + k] for k in range(3)]
+    v = [st[RV + k] for k in range(3)]
+    xg = torch.stack(x, -1)
+    for c in colliders:
+        if isinstance(c, DirichletRegion):
+            continue
+        phi = c.sdf(xg, t)
+        grad = c.normal(xg, t, eps=0.5 * cfg.dx)
+        hit = act & (phi < 0.0)
+        g = [grad[..., k] for k in range(3)]
+        x = [torch.where(hit, xi - gi * phi, xi) for xi, gi in zip(x, g)]
+        vn = sum(gi * vi for gi, vi in zip(g, v))
+        v = [torch.where(hit, vi - vn * gi, vi) for vi, gi in zip(v, g)]
+        xg = torch.stack(x, -1)
+    st[RX : RX + 3] = torch.stack(x)
+    st[RV : RV + 3] = torch.stack(v)
+    return st
+
+
+# -- the substep / frame ------------------------------------------------------
+
+
+def fused_substep_presorted(st, pm, t, cfg: SimConfig, colliders, dt):
+    """One substep on a sorted state (origins annotated by sort_and_map);
+    `st` is updated in place. Returns ((st, t + dt), n_act, vmax, plast)
+    with vmax and plast as 0-d device tensors."""
+    tiles = p2g.p2g_fused(pm["s_arr"], pm["e_arr"], st, dt, cfg)
+    rec = blocked.merge_tiles(tiles, pm["nbr"])
+    vrec = grid_update_flat(rec, pm["ids"], cfg, colliders, t, dt)
+    win = blocked.windows(vrec, pm["nbr"])
+    vmax, plast = g2p.g2p_fused(pm["slot_keys"], st, win, dt, cfg)
+    if cfg.particle_collision:
+        particle_collision_packed(st, cfg, colliders, t)
+    if cfg.clean_boundary:
+        clean_boundary_packed(st, cfg)
+    return (st, np.float32(t) + np.float32(dt)), pm["n_act"], vmax, plast
+
+
+def packed_frame_carry(carry, t, cfg: SimConfig, colliders, dt, n_substeps: int):
+    """A frame over a persistent packed carry (st, keys, pm, drift): the
+    lazy re-sort discipline continues across frames. Two-level loop:
+    substeps run while the drift stays below 0.45 cell; then the state is
+    re-sorted (also after the last substep, so the next frame starts
+    sorted), exactly the (substep, resort) sequence of the reference.
+    Returns (carry, t, max n_act, n_sorts, plast_count)."""
+    st, keys, pm, drift = carry
+    drift = np.float32(drift)
+    step_drift = np.float32(dt * cfg.inv_dx)
+    n = nsorts = 0
+    nmax = int(pm["n_act"])
+    plast = torch.zeros((), dtype=torch.int32, device=st.device)
+    while n < n_substeps or drift >= DRIFT_BOUND:
+        while n < n_substeps and drift < DRIFT_BOUND:
+            (st, t), _, vmax, dplast = fused_substep_presorted(
+                st, pm, t, cfg, colliders, dt)
+            # the one host sync per substep: the drift bound needs max|v|
+            drift = drift + step_drift * np.float32(vmax.item())
+            plast += dplast
+            n += 1
+        if drift >= DRIFT_BOUND:
+            st, keys, pm = sort_and_map(st, cfg, pm["ids"].shape[0])
+            drift = np.float32(0.0)
+            nsorts += 1
+            nmax = max(nmax, int(pm["n_act"]))
+    return (st, keys, pm, drift), t, nmax, nsorts, plast
+
+
+def pack_carry(p: Particles, cfg: SimConfig, K: int):
+    """The persistent packed carry of a Particles set: packed, sorted,
+    page-mapped, zero drift."""
+    st, keys, pm = sort_and_map(pack_particles(p), cfg, K)
+    return (st, keys, pm, np.float32(0.0))
+
+
+def packed_frame(p: Particles, t, cfg: SimConfig, colliders, dt, n_substeps: int, K: int):
+    """A frame from and to a Particles set (pack, sort and unpack at the
+    frame edges). Returns (p, t, max n_act, n_sorts, plast_count); the
+    sort count includes the initial sort."""
+    carry = pack_carry(p, cfg, K)
+    carry, t, nmax, nsorts, plast = packed_frame_carry(
+        carry, t, cfg, colliders, dt, n_substeps)
+    return unpack_particles(carry[0], p.capacity), t, nmax, nsorts + 1, plast

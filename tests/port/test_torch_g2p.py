@@ -1,0 +1,83 @@
+"""Port vs JAX: the fused G2P + finish.
+
+The port's G2P (on the CPU its plain twin ``g2p_fused_plain``) and the
+JAX kernel ``fused_pallas.g2p_fused`` in interpret mode get the same
+sorted packed state, slot keys and velocity records (random, seeded);
+each package assembles its own windows. Held to the bounds the reference
+sets between its own paths (``tests/test_fused.py``): x 5e-6, v 5e-5,
+F 5e-6, C 5e-4, aux 5e-6 absolute; vmax to 1e-6 relative; the active
+mask and the plasticity count exactly. One lane starts with a NaN in F
+(the scrub must deactivate and reset it) and the last active lane
+carries the overflow key K (it must gather v = B = 0 and still finish).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from taichi_mpm_tpu.ops import blocked as jblocked
+from taichi_mpm_tpu.ops import fused_pallas
+from taichi_mpm_tpu.ops import packed as jpacked
+from taichi_mpm_torch import convert
+from taichi_mpm_torch.ops import blocked as tblocked
+from taichi_mpm_torch.ops import g2p as tg2p
+from taichi_mpm_torch.ops.rows import RACT, RAUX, RC, RF, RV, RX
+
+from port_helpers import configs, jax_particles, max_err, scene_arrays
+
+torch.set_num_threads(1)
+
+K = 64
+BOUNDS = ((RX, 3, 5e-6), (RV, 3, 5e-5), (RF, 9, 5e-6), (RC, 9, 5e-4), (RAUX, 1, 5e-6))
+
+
+@pytest.mark.parametrize("material", ["jelly", "water"])
+def test_g2p_matches_jax(material):
+    a, mids = scene_arrays(1200, seed=31, mats=(material,))
+    jcfg, tcfg = configs(mids)
+    jst, _, jpm = jpacked.pack_carry(jax_particles(a), jcfg, K, two_d=True)[:3]
+    st = np.array(jst)
+    keys = np.array(jpm["slot_keys"])
+    n = int(a["active"].sum())
+    st[RF, 5] = np.nan  # sorted lane 5: scrubbed by the finish
+    keys[n - 1] = K  # last active lane: overflow key, gathers zero
+    rng = np.random.default_rng(32)
+    n_act = int(jpm["n_act"])
+    vrec = (0.3 * rng.standard_normal((K, 192))).astype(np.float32)
+    vrec[n_act:] = 0.0
+    dt = jcfg.base_dt
+
+    gtiles = jblocked.windows_mm(jnp.asarray(vrec), jpm["nbr"])
+    jnew, jvmax, jplast = fused_pallas.g2p_fused(
+        jnp.asarray(keys)[None, :], jnp.asarray(st), gtiles,
+        jnp.asarray([K], jnp.int32), dt, jcfg, interpret=True)
+    jnew = np.asarray(jnew)
+
+    tst = convert.packed_from_numpy(st)
+    win = tblocked.windows(torch.as_tensor(vrec), torch.as_tensor(np.array(jpm["nbr"])))
+    tvmax, tplast = tg2p.g2p_fused(torch.as_tensor(keys), tst, win, dt, tcfg)
+    tnew = tst.numpy()
+
+    assert np.array_equal(jnew[RACT], tnew[RACT])
+    assert jnew[RACT, 5] == 0.0 and np.all(tnew[RF:RF + 9, 5] == np.eye(3).ravel())
+    for r0, nr, bound in BOUNDS:
+        assert max_err(jnew[r0:r0 + nr], tnew[r0:r0 + nr]) <= bound, r0
+    assert np.array_equal(jnew[25:], tnew[25:])  # untouched rows, bit for bit
+    jv = float(np.max(np.asarray(jvmax)))
+    assert abs(jv - float(tvmax)) <= 1e-6 * jv
+    assert int(np.sum(np.asarray(jplast))) == int(tplast)
+    if material == "water":
+        assert int(tplast) > 0  # the count is exercised, not only zero
+
+
+def test_g2p_wrapper_checks_inputs():
+    a, mids = scene_arrays(100, seed=33)
+    _, tcfg = configs(mids)
+    st = torch.zeros((48, 100))
+    win = torch.zeros((4, 3, 7, 7, 7))
+    with pytest.raises(ValueError, match="keys"):
+        tg2p.g2p_fused(torch.zeros(100, dtype=torch.int64), st, win, 2e-4, tcfg)
+    with pytest.raises(ValueError, match="windows"):
+        tg2p.g2p_fused(torch.zeros(100, dtype=torch.int32), st, win[:, :2], 2e-4, tcfg)
