@@ -9,7 +9,7 @@ CUDA toolkit:
 Phases, each printed as one JSON line:
 
 1. ``card``: the card's name and power limit (nvidia-smi), then ``build``:
-   both CUDA kernels compiled from ``taichi_mpm_torch/csrc`` (one nvcc per
+   the CUDA kernels compiled from ``taichi_mpm_torch/csrc`` (one nvcc per
    source, started together).
 2. ``cube25``: ``benchmark_cube(cells=25)`` (125k jelly particles), one
    frame of 6 substeps on the card and the same frame on the CPU (the
@@ -20,30 +20,59 @@ Phases, each printed as one JSON line:
    (see ``stirred``) so that C and F - I are far from 0. P2G records to
    1e-5 x max|record| and bit-identical over two launches (the kernel is
    deterministic); G2P rows to x 5e-6, v 5e-5, F 5e-6, C 5e-4 and
-   1e-3 x max|C|, the other rows exactly, vmax to 1e-5 relative, the
-   plasticity count exactly; max|v|, max|F - I| and max|C| are printed
-   beside the errors.
+   1e-3 x max|C|, aux 5e-6, the other rows exactly, vmax to 1e-5
+   relative, the plasticity count exactly; the gather-only G2P's rows v to
+   5e-5 and B to min(5e-4, 1e-3 x max|B|); max|v|, max|F - I| and max|C|
+   are printed beside the errors. ``water25``: the same kernel checks on a
+   125k water cube after one card frame, stirred with aux (the water's J)
+   spread around 1, so that the equation-of-state force and the return
+   map are far from rest; then on that state with every other lane jelly,
+   through the kernels compiled for a scene of both materials.
 3. ``main_path``: ``benchmark_cube(cells=100, res=125)``, the 8M-particle
    jelly cube, with frame_dt = 20 base_dt: every launch count set to 0, one
    warm-up frame and 15 timed frames (host clock, fenced by
-   torch.cuda.synchronize), the counts read right after. Each kernel must
-   have launched once per substep; all 8,000,000 particles must stay
-   active, with finite positions inside [0, res dx].
+   torch.cuda.synchronize), the counts read right after. Each kernel of
+   the path must have launched once per substep; all 8,000,000 particles
+   must stay active, with finite positions inside [0, res dx].
 4. ``breakdown``: CUDA-event times of each stage of a substep at 8M;
    ``profile``: one more frame under torch.profiler, the device's busy
    time against the frame's wall time (the idle share) and the kernels
    that take the most of it.
-5. ``kernel_checks``: the checks of phase 2 on the 8M state, stirred;
-   then the ``kernels`` line: per kernel its launches on the main path,
-   its CUDA-event time at the 8M shapes, its plain version's time, its
-   max abs error against the plain version there (from
-   ``kernel_checks``), and its bound (bytes over 3.35 TB/s or float32
-   operations over 67 TFLOP/s, the larger; the halo tiles and windows
-   counted for the live slots only, as no other slot is read).
+5. ``kernel_checks``: the checks of phase 2 on the 8M state, stirred,
+   and the kernels' times there; ``unported_bounds``: the bound of the
+   TPU P2G kernels still to port (``p2g_blocked``, ``p2g_blocked_batched``)
+   for the same state.
+6. ``cpic_check``: the CPIC frame on a small wheel scene (10,000 water
+   particles placed on the wheel's paddles, falling at 1 m/s, res 96, the
+   lazy rigid page map on): 6 substeps on the card and on the CPU, held
+   to x 5e-6, v 5e-4, F 5e-5, states and near_b exactly, body vel and
+   omega 1e-5, pos 1e-6, the counts of the frame equal; a second card run
+   must give the same bits.
+7. ``cpic_path``: ``scenes.cpic_wheel()`` (100,000 water particles over a
+   hub and a 6-paddle wheel joined by a rotation articulation, res 96),
+   frames of 20 substeps: every launch count set to 0, warm-up frames
+   until the water has reached the wheel, then timed frames, the counts
+   read right after. Each kernel of the path must have launched once per
+   substep; all 100,000 particles active, finite and in the domain; the
+   wheel must turn (omega_z != 0). Then the kernel checks of phase 2 on
+   the wheel's state, stirred with aux spread around 1: the P2G kernel's
+   water branch and the gather-only G2P at the shapes this path gives
+   them. Printed: ms/substep, particle-substeps per second, host syncs
+   per substep, the largest near sets (exact and coarse) and the rigid
+   page map's occupancy against its capacity Kr. ``cpic_breakdown``:
+   CUDA-event time of each stage of a
+   coupled substep, per substep over one frame; ``cpic_profile``: the
+   idle share of one frame.
 
-Then the card's name and power limit once more, and last
-``{"ok": true, "device": {...}}``. Any failed check raises, so the script
-exits non-zero; without a CUDA device it exits 2 and prints no result.
+Then the ``kernels`` line: per kernel its launches on each main path, its
+CUDA-event time at the 8M shapes, its plain version's time, its max abs
+error against the plain version there (from ``kernel_checks``), and its
+bound (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the
+larger; the state rows counted for the scene's materials, the halo tiles
+and windows for the live slots only, as no other slot is read). Then the card's name and power limit once more, and
+last ``{"ok": true, "device": {...}}``. Any failed check raises, so the
+script exits non-zero; without a CUDA device it exits 2 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -59,6 +88,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 N_TIMED_FRAMES = 15
 SUBSTEPS_PER_FRAME = 20
+CPIC_WARM_FRAMES = 50  # 1000 substeps: the water falls onto the wheel
+CPIC_TIMED_FRAMES = 5
 
 # float32 operations per particle, counted from the kernels' formulas (an
 # FMA is 2): see the notes in taichi_mpm_torch/csrc/p2g.cu and g2p.cu.
@@ -66,8 +97,48 @@ P2G_OPS_PREP = 6 * 115 + 146 + 135  # polar Newton (6 iterations), force + A, we
 P2G_OPS_SCATTER = 27 * 31  # 27 support nodes: weight, offset, 3 + 1 channel FMAs
 G2P_OPS_GATHER = 6 + 54 + 27 * 29  # position, weights, 27 nodes: v and B FMAs
 G2P_OPS_FINISH = 150  # damping, cdg, F <- cdg F, advection, checks
-P2G_ROWS_READ = 32  # act, x, v, F, C, mass, vol, mu, lambda, origin
-G2P_ROWS_READ, G2P_ROWS_WRITTEN = 15, 24  # x, origin, F (+ key) / x, v, F, C
+# state rows each kernel must read and write per particle, by material
+# (ids of taichi_mpm_torch.materials.cforms). The kernels are compiled for
+# the scene's material set: one material reads its own rows only, and only
+# a mixed set also reads the material row 47 (see material_rows).
+JELLY, WATER = 1, 3
+P2G_ROWS_READ = {  # act, x, v, C, mass, vol, 2 parameters, origin, and
+    JELLY: 32,  # F
+    WATER: 24,  # aux
+}
+G2P_ROWS_READ = {JELLY: 15, WATER: 16}  # x, origin, F (+ aux), besides act and the key
+G2P_ROWS_WRITTEN = {JELLY: 24, WATER: 16}  # x, v, C and F (jelly) or aux (water)
+GATHER_ROWS_READ, GATHER_ROWS_WRITTEN = 6, 12  # x, origin (+ key) / v, B
+
+
+def material_rows(st, lanes, table, read=True):
+    """State rows the kernel must move for the lanes `lanes` (bool (Pw,)),
+    by each lane's material (row 47) and `table`; where it reads them, row
+    47 itself for every lane when the lanes hold more than one material."""
+    import torch
+
+    mat = st[47][lanes].to(torch.int64)
+    counts = {m: int((mat == m).sum()) for m in table}
+    if sum(counts.values()) != int(lanes.sum()):
+        fail("a lane of a material the kernels do not run")
+    rows = sum(table[m] * n for m, n in counts.items())
+    mixed = sum(1 for n in counts.values() if n) > 1
+    return rows + (int(lanes.sum()) if read and mixed else 0)
+
+
+def counters():
+    from taichi_mpm_torch.ops import g2p, p2g
+
+    return {"p2g_fused": p2g.stats, "g2p_fused": g2p.stats, "g2p_blocked": g2p.blocked_stats}
+
+
+def zero_counts():
+    for c in counters().values():
+        c.launches = 0
+
+
+def read_counts():
+    return {name: c.launches for name, c in counters().items()}
 
 
 def emit(obj):
@@ -110,21 +181,23 @@ def max_abs(a, b):
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-ROW_BOUNDS = (("x", 0, 3, 5e-6), ("v", 3, 3, 5e-5), ("F", 6, 9, 5e-6), ("C", 15, 9, 5e-4))
+ROW_BOUNDS = (("x", 0, 3, 5e-6), ("v", 3, 3, 5e-5), ("F", 6, 9, 5e-6), ("C", 15, 9, 5e-4),
+              ("aux", 24, 1, 5e-6))
 C_REL = 1e-3  # G2P's C is also held to this share of max|C|
 SPIN = 50.0  # rad/s, the stirred state's spin
 
 
-def stirred(st, seed=0):
-    """A copy of the sorted state `st` on which both kernels meet values
+def stirred(st, seed=0, aux_sd=0.0):
+    """A copy of the sorted state `st` on which the kernels meet values
     far from rest: every particle spins at SPIN rad/s about a tilted axis
     through the particles' centre (on top of its own v), F gets N(0, 0.05)
-    and C N(0, 0.01) noise. A falling cube keeps C near 0 and F near I,
-    where a wrong C or F could pass an absolute bound. Positions and
-    everything else stay, so the page map still holds."""
+    and C N(0, 0.01) noise, and aux (water's J) N(0, aux_sd) noise. A
+    falling cube keeps C near 0, F near I and J near 1, where a wrong C,
+    F or force could pass an absolute bound. Positions and everything
+    else stay, so the page map still holds."""
     import torch
 
-    from taichi_mpm_torch.ops.rows import RACT, RC, RF, RV, RX
+    from taichi_mpm_torch.ops.rows import RACT, RAUX, RC, RF, RV, RX
 
     gen = torch.Generator(device=st.device).manual_seed(seed)
     act = st[RACT] > 0.5
@@ -136,20 +209,24 @@ def stirred(st, seed=0):
     out[RV:RV + 3] += torch.linalg.cross(w, r, dim=0)
     out[RF:RF + 9] += 0.05 * torch.randn((9, st.shape[1]), generator=gen, device=st.device)
     out[RC:RC + 9] += 0.01 * torch.randn((9, st.shape[1]), generator=gen, device=st.device)
+    if aux_sd:
+        out[RAUX] += aux_sd * torch.randn((st.shape[1],), generator=gen, device=st.device)
     return out
 
 
-def compare_kernels(sim, st, failures):
+def compare_kernels(sim, st, failures, cfg=None):
     """Each kernel against its plain version on the same CUDA inputs: the
-    sorted state `st` on the page map of `sim`. Returns the errors and the
-    scales of what G2P wrote; a broken bound is appended to `failures`."""
+    sorted state `st` on the page map of `sim`, under `cfg` (default
+    sim.cfg). Returns the errors and the scales of what G2P wrote; a
+    broken bound is appended to `failures`."""
     import torch
 
     from taichi_mpm_torch.ops import blocked, g2p, p2g
     from taichi_mpm_torch.ops.rows import RACT, RC, RF, RV
     from taichi_mpm_torch.ops.substep import grid_update_flat
 
-    cfg, dt = sim.cfg, sim.cfg.base_dt
+    cfg = cfg or sim.cfg
+    dt = cfg.base_dt
     pm = sim.packed_carry[2]
     tiles = p2g.p2g_fused(pm["s_arr"], pm["e_arr"], st, dt, cfg)
     tiles2 = p2g.p2g_fused(pm["s_arr"], pm["e_arr"], st, dt, cfg)
@@ -183,23 +260,37 @@ def compare_kernels(sim, st, failures):
         errs[name] = max_abs(st_k[r0:r0 + n], st_p[r0:r0 + n])
         if not errs[name] <= bound:
             failures.append(f"G2P row {name} differs by {errs[name]} > {bound}")
-    if not torch.equal(st_k[24:].view(torch.int32), st_p[24:].view(torch.int32)):
+    if not torch.equal(st_k[25:].view(torch.int32), st_p[25:].view(torch.int32)):
         failures.append("G2P changed rows it must leave alone")
     vk, vp = float(vmax), float(vmax_p)
     if not abs(vk - vp) <= 1e-5 * vp:
         failures.append(f"vmax {vk} vs plain {vp}")
     if int(plast) != int(plast_p):
         failures.append(f"plasticity count {int(plast)} vs plain {int(plast_p)}")
+
+    out = g2p.g2p_blocked(pm["slot_keys"], st, win, cfg)
+    out2 = g2p.g2p_blocked(pm["slot_keys"], st, win, cfg)
+    out_p = g2p.g2p_blocked_plain(pm["slot_keys"], st, win, cfg)
+    torch.cuda.synchronize()
+    if not torch.equal(out.view(torch.int32), out2.view(torch.int32)):
+        failures.append("the gather-only G2P gave other bits on a second launch")
+    b_scale = float(out_p[3:].abs().max())
+    gather_err = {"v": max_abs(out[:3], out_p[:3]), "B": max_abs(out[3:], out_p[3:])}
+    for name, bound in (("v", 5e-5), ("B", min(5e-4, C_REL * b_scale))):
+        if not gather_err[name] <= bound:
+            failures.append(f"gather-only G2P row {name} differs by {gather_err[name]} > {bound}")
     return dict(p2g_max_abs_err=p2g_err, p2g_record_scale=scale,
                 g2p_max_abs_err=max(errs.values()), g2p_row_err=errs, g2p_scale=g2p_scale,
-                vmax=vk, vmax_plain=vp, plast=int(plast))
+                vmax=vk, vmax_plain=vp, plast=int(plast), plast_plain=int(plast_p),
+                g2p_blocked_max_abs_err=max(gather_err.values()),
+                g2p_blocked_row_err=gather_err, max_abs_B=b_scale)
 
 
-def cube(cells, device, substeps):
+def cube(cells, device, substeps, material="jelly"):
     from taichi_mpm_torch import scenes
 
-    sim = scenes.benchmark_cube(cells=cells, res=125, material="jelly", E=2e4,
-                                nu=0.35, device=device)
+    kw = dict(E=2e4, nu=0.35) if material == "jelly" else {}
+    sim = scenes.benchmark_cube(cells=cells, res=125, material=material, device=device, **kw)
     sim.frame_dt = substeps * sim.cfg.base_dt
     return sim
 
@@ -240,6 +331,47 @@ def phase_cube25():
     raise_failures(failures)
 
 
+def mixed(st):
+    """A copy of `st` with every other lane turned jelly (rows 27 and 47),
+    for the kernels compiled for a scene of jelly and water."""
+    import torch
+
+    from taichi_mpm_torch.ops.rows import RMAT, RMATF
+
+    out = st.clone()
+    lanes = torch.arange(st.shape[1], device=st.device) % 2 == 0
+    out[RMAT].view(torch.int32)[lanes] = JELLY
+    out[RMATF, lanes] = float(JELLY)
+    return out
+
+
+def phase_water25():
+    """One 6-substep frame of a 125k water cube on the card (the kernels'
+    water branches on the main loop), then the kernels against their plain
+    versions on that state stirred, with aux spread around 1; then again
+    with every other lane jelly, on the kernels compiled for both."""
+    import torch
+
+    from taichi_mpm_torch.ops.rows import RACT, RAUX
+
+    sim = cube(25, "cuda", 6, material="water")
+    sim.step()
+    st = stirred(sim.packed_carry[0], aux_sd=0.1)
+    live = st[RAUX, st[RACT] > 0.5]
+    failures = []
+    out = dict(phase="water25", particles=int((st[RACT] > 0.5).sum()),
+               aux_min=float(live.min()), aux_max=float(live.max()),
+               frame_plast=sim.plasticity_counter)
+    out.update(compare_kernels(sim, st, failures))
+    if out["plast"] == 0:
+        failures.append("the water state made no plastic event: the return map went untested")
+    out["jelly_and_water"] = compare_kernels(sim, mixed(st), failures,
+                                             cfg=sim.cfg.with_materials((JELLY, WATER)))
+    torch.cuda.synchronize()
+    emit(dict(out, failures=failures))
+    raise_failures(failures)
+
+
 def phase_main_path(card):
     """The 8M-particle jelly cube: warm-up frame, timed frames, checks."""
     import torch
@@ -253,7 +385,7 @@ def phase_main_path(card):
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
 
-    p2g.stats.launches = g2p.stats.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     sim.step()  # warm-up: pack, first sort, page map
     sim.sync()
@@ -263,11 +395,11 @@ def phase_main_path(card):
         sim.step()
     sim.sync()
     timed_s = time.perf_counter() - t0
-    launches = {"p2g_fused": p2g.stats.launches, "g2p_fused": g2p.stats.launches}
+    launches = read_counts()
 
     substeps = (1 + N_TIMED_FRAMES) * SUBSTEPS_PER_FRAME
-    failures = [f"{name} launched {n} times in {substeps} substeps"
-                for name, n in launches.items() if n != substeps]
+    failures = [f"{name} launched {launches[name]} times in {substeps} substeps"
+                for name in ("p2g_fused", "g2p_fused") if launches[name] != substeps]
     p = sim.particles
     n_active = int(p.active.sum())
     if n_active != 8_000_000:
@@ -319,10 +451,10 @@ def phase_breakdown(sim, card):
               substep_stages_ms=sum(v for k, v in stages.items() if k != "sort_and_map")))
 
 
-def phase_profile(sim, card):
-    """One frame (20 substeps) under torch.profiler: the device's busy
-    time (the sum of its kernels' and copies' times) over the frame's
-    wall time, and the kernels that take the most of it."""
+def phase_profile(sim, card, phase="profile"):
+    """One frame under torch.profiler: the device's busy time (the sum of
+    its kernels' and copies' times) over the frame's wall time, and the
+    kernels that take the most of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -340,16 +472,16 @@ def phase_profile(sim, card):
         by_name[e.key[:80]] = by_name.get(e.key[:80], 0.0) + e.self_device_time_total / 1e3
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
     emit(dict(
-        phase="profile", card=card, frame_wall_ms=wall_ms, device_busy_ms=busy_ms,
+        phase=phase, card=card, frame_wall_ms=wall_ms, device_busy_ms=busy_ms,
         idle_share=(1.0 - busy_ms / wall_ms) if busy_ms > 0 else None,
         top_ms_per_frame=top,
     ))
 
 
-def phase_kernels(sim, launches, card):
+def phase_kernels(sim, card):
     """Each kernel at the 8M shapes: its time, its plain version's time,
     its error against the plain version (on the state stirred), and its
-    bound."""
+    bound. Returns the measurements of each kernel."""
     import torch
 
     from taichi_mpm_torch.ops import blocked, g2p, p2g
@@ -361,46 +493,265 @@ def phase_kernels(sim, launches, card):
     n_live = min(int(pm["n_act"]), K)  # slots whose tiles and windows are read
     pw = st.shape[1]
     n_in = int((pm["e_arr"] - pm["s_arr"]).sum())  # particles in slot ranges
-    n_act = int((st[36] > 0.5).sum())
+    in_ranges = torch.zeros((pw,), dtype=torch.bool, device=st.device)
+    in_ranges[p2g._slot_lanes(pm["s_arr"], pm["e_arr"])[1]] = True
+    act = st[36] > 0.5
+    n_act = int(act.sum())
+    n_keyed = int((pm["slot_keys"] < K).sum())  # lanes whose window the gather reads
 
     rec = blocked.merge_tiles(p2g.p2g_fused(pm["s_arr"], pm["e_arr"], st, dt, cfg), pm["nbr"])
     win = blocked.windows(
         grid_update_flat(rec, pm["ids"], cfg, tuple(sim.colliders), sim.t, dt), pm["nbr"])
     scratch = st.clone()
-    p2g_ms = cuda_ms(lambda: p2g.p2g_fused(pm["s_arr"], pm["e_arr"], st, dt, cfg), 10)
-    p2g_plain_ms = cuda_ms(lambda: p2g.p2g_fused_plain(pm["s_arr"], pm["e_arr"], st, dt, cfg), 3)
-    g2p_ms = cuda_ms(lambda: g2p.g2p_fused(pm["slot_keys"], scratch, win, dt, cfg), 10)
-    g2p_plain_ms = cuda_ms(lambda: g2p.g2p_fused_plain(pm["slot_keys"], scratch, win, dt, cfg), 3)
+    keys = pm["slot_keys"]
+    times = {
+        "p2g_fused": (cuda_ms(lambda: p2g.p2g_fused(pm["s_arr"], pm["e_arr"], st, dt, cfg), 10),
+                      cuda_ms(lambda: p2g.p2g_fused_plain(pm["s_arr"], pm["e_arr"], st, dt, cfg),
+                              3)),
+        "g2p_fused": (cuda_ms(lambda: g2p.g2p_fused(keys, scratch, win, dt, cfg), 10),
+                      cuda_ms(lambda: g2p.g2p_fused_plain(keys, scratch, win, dt, cfg), 3)),
+        "g2p_blocked": (cuda_ms(lambda: g2p.g2p_blocked(keys, st, win, cfg), 10),
+                        cuda_ms(lambda: g2p.g2p_blocked_plain(keys, st, win, cfg), 3)),
+    }
     del rec, win, scratch
 
     failures = []
     checks = compare_kernels(sim, stirred(st), failures)
-    emit(dict(phase="kernel_checks", card=card, particles=n_act, **checks, failures=failures))
+    emit(dict(phase="kernel_checks", card=card, particles=n_act, **checks,
+              ms={k: v[0] for k, v in times.items()},
+              plain_ms={k: v[1] for k, v in times.items()}, failures=failures))
     raise_failures(failures)
     torch.cuda.synchronize()
 
-    p2g_bytes = 4 * (P2G_ROWS_READ * n_in + 2 * K + n_live * 343 * 4)
-    p2g_ops = (P2G_OPS_PREP + P2G_OPS_SCATTER) * n_in
-    g2p_bytes = 4 * (pw + (G2P_ROWS_READ + 1 + G2P_ROWS_WRITTEN) * n_act + n_live * 3 * 343)
-    g2p_ops = (G2P_OPS_GATHER + G2P_OPS_FINISH) * n_act
-
-    def entry(name, source, replaces, ms, plain_ms, err, nbytes, ops):
+    windows_bytes = n_live * 3 * 343
+    work = {
+        "p2g_fused": (4 * (material_rows(st, in_ranges, P2G_ROWS_READ) + 2 * K
+                           + n_live * 343 * 4),
+                      (P2G_OPS_PREP + P2G_OPS_SCATTER) * n_in, checks["p2g_max_abs_err"]),
+        "g2p_fused": (4 * (pw + n_act + material_rows(st, act, G2P_ROWS_READ)
+                           + material_rows(st, act, G2P_ROWS_WRITTEN, read=False)
+                           + windows_bytes),
+                      (G2P_OPS_GATHER + G2P_OPS_FINISH) * n_act, checks["g2p_max_abs_err"]),
+        "g2p_blocked": (4 * (pw + GATHER_ROWS_READ * n_keyed + GATHER_ROWS_WRITTEN * pw
+                             + windows_bytes),
+                        G2P_OPS_GATHER * n_keyed, checks["g2p_blocked_max_abs_err"]),
+    }
+    # the TPU kernels still to port (ROADMAP queue 2 items 4-5),
+    # p2g_blocked_batched and p2g_blocked: P2G from a prebuilt (16, Pw)
+    # operand [m v, m, A, block-local pos] into (K, 28, 49) tiles. Bound
+    # for the same 8M state: each lane in a slot range read once (16 rows),
+    # the live slots' tiles written once (28 x 49 floats), the ranges read
+    t_b = 4 * (16 * n_in + 2 * K + n_live * 28 * 49) / HBM_BYTES_PER_S * 1e3
+    t_o = P2G_OPS_SCATTER * n_in / FP32_OPS_PER_S * 1e3
+    emit(dict(phase="unported_bounds", card=card, particles_in_ranges=n_in, live_slots=n_live,
+              p2g_blocked_bound_ms=max(t_b, t_o),
+              p2g_blocked_bound_by="bytes" if t_b >= t_o else "operations",
+              note="p2g_blocked_batched and p2g_blocked compute the same function"))
+    out = {}
+    for name, (nbytes, ops, err) in work.items():
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_OPS_PER_S * 1e3
-        return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launches[name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    library_ms=None, bytes=nbytes, ops=ops, live_slots=n_live, slots=K)
+        out[name] = dict(ms=times[name][0], plain_ms=times[name][1], max_abs_err=err,
+                         bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else "operations",
+                         bytes=nbytes, ops=ops, live_slots=n_live, slots=K)
+    return out
 
-    return [
-        entry("p2g_fused", "taichi_mpm_torch/csrc/p2g.cu",
-              "taichi_mpm_tpu/ops/fused_pallas.py:301", p2g_ms, p2g_plain_ms,
-              checks["p2g_max_abs_err"], p2g_bytes, p2g_ops),
-        entry("g2p_fused", "taichi_mpm_torch/csrc/g2p.cu",
-              "taichi_mpm_tpu/ops/fused_pallas.py:377", g2p_ms, g2p_plain_ms,
-              checks["g2p_max_abs_err"], g2p_bytes, g2p_ops),
-    ]
+
+KERNEL_SOURCES = {
+    "p2g_fused": ("taichi_mpm_torch/csrc/p2g.cu", "taichi_mpm_tpu/ops/fused_pallas.py:301"),
+    "g2p_fused": ("taichi_mpm_torch/csrc/g2p.cu", "taichi_mpm_tpu/ops/fused_pallas.py:377"),
+    "g2p_blocked": ("taichi_mpm_torch/csrc/g2p.cu", "taichi_mpm_tpu/ops/g2p_pallas.py:277"),
+}
+
+
+def kernels_line(measured, launches_by_path):
+    """The kernels line: each kernel's measurements at 8M and its
+    launches on each main path (``launches`` is their sum)."""
+    line = []
+    for name, (source, replaces) in KERNEL_SOURCES.items():
+        by_path = {path: counts[name] for path, counts in launches_by_path.items()}
+        m = measured[name]
+        line.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                         launches=sum(by_path.values()), launches_by_path=by_path,
+                         max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"],
+                         bound_ms=m["bound_ms"], bound_by=m["bound_by"], library_ms=None,
+                         bytes=m["bytes"], ops=m["ops"], live_slots=m["live_slots"],
+                         slots=m["slots"]))
+    return line
+
+
+# -- the CPIC path ----------------------------------------------------------------
+
+CPIC_BOUNDS = (("x", 5e-6), ("v", 5e-4), ("F", 5e-5))
+BODY_BOUNDS = (("vel", 1e-5), ("omega", 1e-5), ("pos", 1e-6))
+
+
+def cpic_check_scene(device):
+    """The small wheel scene of the card-vs-CPU check: the CPIC benchmark
+    scene with 10,000 water particles placed on the right-hand paddles
+    and falling at 1 m/s, so that the coupling acts from the first
+    substep."""
+    from taichi_mpm_torch import scenes
+
+    sim = scenes.cpic_wheel(n=10_000, res=96, lo=(0.5, 0.3, 0.42), hi=(0.68, 0.62, 0.58),
+                            vel=(0.0, -1.0, 0.0), device=device)
+    sim.frame_dt = 6 * sim.cfg.base_dt
+    return sim
+
+
+def phase_cpic_check():
+    """6 coupled substeps on the card and on the CPU; the card twice."""
+    from taichi_mpm_torch import convert
+
+    sims = {dev: cpic_check_scene(dev) for dev in ("cuda", "cpu")}
+    rerun = cpic_check_scene("cuda")
+    for sim in (*sims.values(), rerun):
+        sim.step()
+    gs, cs = sims["cuda"], sims["cpu"]
+    g, c = gs.particles, cs.particles
+    failures = []
+    first = convert.particles_to_numpy(g)
+    deterministic = True
+    for name, arr in convert.particles_to_numpy(rerun.particles).items():
+        if arr.tobytes() != first[name].tobytes():
+            deterministic = False
+            failures.append(f"the card's CPIC frame is not deterministic: {name} differs")
+    for name in ("pos", "vel", "rot", "omega"):
+        if not np.array_equal(getattr(gs.bodies, name).cpu().numpy(),
+                              getattr(rerun.bodies, name).cpu().numpy()):
+            deterministic = False
+            failures.append(f"the card's CPIC frame is not deterministic: body {name} differs")
+    act = c.active.numpy()
+    if not np.array_equal(g.active.cpu().numpy(), act):
+        failures.append("card and CPU CPIC frames keep other particles")
+    act &= g.active.cpu().numpy()
+    errs = {}
+    for name, bound in CPIC_BOUNDS:
+        errs[name] = float(np.abs(getattr(g, name).cpu().numpy()[act].astype(np.float64)
+                                  - getattr(c, name).numpy()[act].astype(np.float64)).max())
+        if not errs[name] <= bound:
+            failures.append(f"card vs CPU CPIC frame: {name} differs by {errs[name]} > {bound}")
+    for name in ("states", "near_b"):
+        if not np.array_equal(getattr(g, name).cpu().numpy()[act], getattr(c, name).numpy()[act]):
+            failures.append(f"card vs CPU CPIC frame: {name} differ")
+    for name, bound in BODY_BOUNDS:
+        errs["body_" + name] = float(np.abs(getattr(gs.bodies, name).cpu().numpy()
+                                            - getattr(cs.bodies, name).numpy()).max())
+        if not errs["body_" + name] <= bound:
+            failures.append(f"card vs CPU CPIC frame: body {name} differs by "
+                            f"{errs['body_' + name]} > {bound}")
+    if gs.cpic_stats != cs.cpic_stats or gs.n_sorts != cs.n_sorts:
+        failures.append(f"card and CPU CPIC frames count otherwise: {gs.cpic_stats} vs "
+                        f"{cs.cpic_stats}")
+    if gs.cpic_stats["n_near"] == 0:
+        failures.append("no particle was near the wheel: the coupling went untested")
+    emit(dict(phase="cpic_check", particles=int(act.sum()), frame_vs_cpu=errs,
+              deterministic=deterministic, stats=gs.cpic_stats,
+              Kr=gs.cpic_caps.Kr, near_b=int(g.near_b.sum()),
+              wheel_omega_z=float(gs.bodies.omega[2, 2]), failures=failures))
+    raise_failures(failures)
+
+
+def phase_cpic_path(card):
+    """The full CPIC benchmark scene: warm-up frames, timed frames,
+    checks. Returns (sim, launches)."""
+    import torch
+
+    from taichi_mpm_torch import scenes
+    from taichi_mpm_torch.rigid.cpic_blocked import HostSyncs
+
+    t0 = time.perf_counter()
+    sim = scenes.cpic_wheel(device="cuda")
+    sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
+    sim._ensure_finalized()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_counts()
+    peak = dict(n_near=0, n_coarse=0, n_r=0)
+    t0 = time.perf_counter()
+    for _ in range(CPIC_WARM_FRAMES):
+        sim.step()
+        peak = {k: max(v, sim.cpic_stats[k]) for k, v in peak.items()}
+    sim.sync()
+    warm_s = time.perf_counter() - t0
+    HostSyncs.count = 0
+    t0 = time.perf_counter()
+    for _ in range(CPIC_TIMED_FRAMES):
+        sim.step()
+        peak = {k: max(v, sim.cpic_stats[k]) for k, v in peak.items()}
+    sim.sync()
+    timed_s = time.perf_counter() - t0
+    syncs = HostSyncs.count
+    launches = read_counts()
+    failures = []
+    # the kernels against their plain versions at this path's shapes: the
+    # wheel's state after the timed frames, stirred, with aux spread
+    kernel_checks = compare_kernels(sim, stirred(sim.packed_carry[0], aux_sd=0.1), failures)
+
+    substeps = (CPIC_WARM_FRAMES + CPIC_TIMED_FRAMES) * SUBSTEPS_PER_FRAME
+    failures += [f"{name} launched {launches[name]} times in {substeps} substeps"
+                 for name in ("p2g_fused", "g2p_blocked") if launches[name] != substeps]
+    p = sim.particles
+    n_active = int(p.active.sum())
+    if n_active != 100_000:
+        failures.append(f"{n_active} particles active, not 100,000")
+    x = p.x[p.active]
+    hi = sim.cfg.res[0] * sim.cfg.dx
+    if not (bool(torch.isfinite(x).all()) and float(x.min()) >= 0.0 and float(x.max()) <= hi):
+        failures.append("positions not finite or outside the domain")
+    omega_z = float(sim.bodies.omega[2, 2])
+    if not (np.isfinite(omega_z) and omega_z != 0.0):
+        failures.append(f"the wheel does not turn: omega_z = {omega_z}")
+    n_timed = CPIC_TIMED_FRAMES * SUBSTEPS_PER_FRAME
+    emit(dict(
+        phase="cpic_path", card=card, particles=n_active, K=sim.block_capacity,
+        substeps=substeps, timed_substeps=n_timed, ms_per_substep=timed_s * 1e3 / n_timed,
+        particle_steps_per_s=n_active * n_timed / timed_s,
+        host_syncs_per_substep=syncs / n_timed, n_sorts=sim.n_sorts,
+        max_n_near=peak["n_near"], max_n_coarse=peak["n_coarse"],
+        max_n_r=peak["n_r"], Kr_capacity=sim.cpic_caps.Kr, wheel_omega_z=omega_z,
+        hub_omega_z=float(sim.bodies.omega[1, 2]), warmup_s=warm_s, setup_s=setup_s,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, y_min=float(x[:, 1].min()),
+        launches=launches, kernel_checks=kernel_checks,
+        clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"), failures=failures,
+    ))
+    raise_failures(failures)
+    return sim, launches
+
+
+def phase_cpic_breakdown(sim, card):
+    """CUDA-event time of each stage of the coupled substep, summed over
+    one frame and divided by its substeps (the state is not advanced).
+    The first stage, the prologue, also holds the frame's reads between
+    substeps (drift, staleness)."""
+    import torch
+
+    from taichi_mpm_torch.rigid import cpic_packed
+
+    events = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((name, ev))
+
+    torch.cuda.synchronize()
+    mark("start")
+    t0 = time.perf_counter()
+    cpic_packed.cpic_packed_frame_carry(
+        sim.packed_carry, sim.bodies, sim.t, sim.cfg, sim.rigid_scene, sim.cfg.base_dt,
+        SUBSTEPS_PER_FRAME, sim.cpic_caps, marks=mark)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    stages = {}
+    for (_, a), (name, b) in zip(events, events[1:]):
+        stages[name] = stages.get(name, 0.0) + a.elapsed_time(b) / SUBSTEPS_PER_FRAME
+    emit(dict(phase="cpic_breakdown", card=card, ms_per_substep=stages,
+              stages_sum_ms=sum(stages.values()), frame_wall_ms_per_substep=wall_ms
+              / SUBSTEPS_PER_FRAME))
 
 
 def main():
@@ -421,10 +772,18 @@ def main():
     emit(dict(phase="build", seconds=time.perf_counter() - t0))
 
     phase_cube25()
-    sim, launches = phase_main_path(card)
+    phase_water25()
+    sim, jelly_launches = phase_main_path(card)
     phase_profile(sim, card)  # steps one more frame: before the phases that share its state
     phase_breakdown(sim, card)
-    emit({"kernels": phase_kernels(sim, launches, card)})
+    measured = phase_kernels(sim, card)
+    del sim
+    phase_cpic_check()
+    sim, cpic_launches = phase_cpic_path(card)
+    phase_cpic_breakdown(sim, card)
+    phase_profile(sim, card, phase="cpic_profile")
+    emit({"kernels": kernels_line(measured, {"jelly_8m": jelly_launches,
+                                             "cpic_wheel": cpic_launches})})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

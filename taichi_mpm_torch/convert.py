@@ -63,3 +63,37 @@ def packed_from_numpy(st, device="cpu") -> torch.Tensor:
     if a.ndim != 2 or a.shape[0] != NCH:
         raise ValueError(f"expected ({NCH}, Pw) or flat, got {a.shape}")
     return torch.as_tensor(np.array(a, np.float32, order="C"), device=device)
+
+
+def bodies_from_jax(bodies, device="cpu"):
+    """The port's RigidBodies from the JAX package's (or any object with
+    the same field names holding arrays), through numpy."""
+    from taichi_mpm_torch.rigid.body import BODY_FIELDS, RigidBodies
+
+    return RigidBodies(**{
+        name: torch.as_tensor(np.array(np.asarray(getattr(bodies, name)), np.float32),
+                              device=device)
+        for name in BODY_FIELDS})
+
+
+def scene_from_jax(scene, colliders=(), device="cpu"):
+    """The port's CPICScene from the JAX package's: the boundary-particle
+    and hull arrays through numpy, the scripted-motion callables as they
+    are (they take and return plain numbers), the articulations and the
+    collision setup rebuilt from their fields. `colliders` are the port's
+    colliders of the scene (the JAX ones hold JAX code)."""
+    from taichi_mpm_torch.rigid.articulation import Articulation
+    from taichi_mpm_torch.rigid.collision import CollisionConfig
+    from taichi_mpm_torch.rigid.scene import SCENE_ARRAYS, CPICScene
+
+    arrays = {}
+    for name in SCENE_ARRAYS:
+        a = np.asarray(getattr(scene, name))
+        a = a.astype(np.int32 if name == "bp_rid" else np.float32)
+        arrays[name] = torch.as_tensor(np.array(a, order="C"), device=device)
+    arts = tuple(Articulation(**dataclasses.asdict(a)) for a in scene.articulations)
+    coll = (None if scene.collision is None
+            else CollisionConfig(**dataclasses.asdict(scene.collision)))
+    return CPICScene(**arrays, pos_funcs=tuple(scene.pos_funcs),
+                     rot_funcs=tuple(scene.rot_funcs), articulations=arts,
+                     colliders=tuple(colliders), collision=coll)

@@ -18,9 +18,32 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from taichi_mpm_torch.utils import const
+
 
 def _vec(values, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(values, dtype=torch.float32, device=like.device)
+    return const(values, torch.float32, like.device)
+
+
+def friction_project(velocity, base_velocity, normal, friction):
+    """The reference's boundary friction projection (mpm_fwd.h:26-57) in
+    the dense form of ``taichi_mpm_tpu.core.levelset.friction_project``:
+    it divides by max(|vt|, 1e-30), so a zero tangential velocity gives
+    scale * 0 rather than the grid update's guarded form (the CPIC
+    corrections use this one). ``friction`` is a tensor of the points'
+    batch shape."""
+    rel = velocity - base_velocity
+    sticky = friction == -1.0
+    slip = friction <= -2.0
+    mu = torch.where(slip, -friction - 2.0, friction)
+    vn = torch.sum(normal * rel, -1, keepdim=True)
+    vt = rel - vn * normal
+    vt_norm = torch.linalg.vector_norm(vt, dim=-1, keepdim=True)
+    scale = torch.clamp(vt_norm + torch.clamp(vn, max=0.0) * mu[..., None], min=0.0) / torch.clamp(
+        vt_norm, min=1e-30)
+    keep_normal = torch.where(slip[..., None], 0.0, torch.clamp(vn, min=0.0))
+    projected = scale * vt + keep_normal * normal + base_velocity
+    return torch.where(sticky[..., None], base_velocity, projected)
 
 
 @dataclasses.dataclass(frozen=True)

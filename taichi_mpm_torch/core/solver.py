@@ -1,12 +1,16 @@
 """MPM scene driver: the user-facing API on the blocked fixed-dt path
-(torch counterpart of ``taichi_mpm_tpu.core.solver.MPM`` without rigid
-bodies).
+(torch counterpart of ``taichi_mpm_tpu.core.solver.MPM``).
 
-``MPM(res=...)``, then ``add_particles``, ``add_collider`` and ``step()``.
-Every frame runs ``ops.packed.packed_frame_carry``: the fused P2G and G2P
-kernels on the card, with a lazy re-sort. The packed carry (sorted state,
-page map, drift) persists across frames; ``particles`` is unpacked from
-it only when read.
+``MPM(res=...)``, then ``add_particles`` (materials, or ``"rigid"`` with a
+mesh for a CPIC rigid body), ``add_articulation``, ``add_collider`` and
+``step()``. Without rigid bodies every frame runs
+``ops.packed.packed_frame_carry``: the fused P2G and G2P kernels on the
+card, with a lazy re-sort. With rigid bodies it runs
+``rigid.cpic_packed.cpic_packed_frame_carry``: two-way coupled CPIC
+substeps (the fused P2G kernel and the gather-only G2P kernel, with the
+sparse corrections between). The packed carry (sorted state, page map,
+drift) persists across frames; ``particles`` is unpacked from it only
+when read.
 
 Only the blocked path exists in the port so far: 2-D scenes and kernel
 orders other than 2 need the dense oracle path (ROADMAP.md queue 1,
@@ -17,6 +21,8 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -24,6 +30,7 @@ from taichi_mpm_torch.config import SimConfig
 from taichi_mpm_torch.core.state import Particles, empty_particles
 from taichi_mpm_torch.materials import models as materials
 from taichi_mpm_torch.ops import blocked, packed
+from taichi_mpm_torch.rigid import cpic_packed
 
 
 def resolve_device(device) -> torch.device:
@@ -78,6 +85,12 @@ class MPM:
         # work counters (reference plasticity counter; sorts per run)
         self.plasticity_counter = 0
         self.n_sorts = 0
+        # CPIC rigid-body state (built at finalize from the first 'rigid')
+        self._rigid_builder = None
+        self.bodies = None
+        self.rigid_scene = None
+        self.cpic_caps = None  # cpic_packed.Capacities, set at the first CPIC frame
+        self.cpic_stats = None  # high-water marks of the newest CPIC frame
 
     # -- particle state (lazily materialized) --------------------------------
 
@@ -125,10 +138,14 @@ class MPM:
         vol = dx^d / ppc and mass = vol * density by default. A callable
         ``<param>_tex`` kwarg sets a per-particle parameter from the seed
         positions (the parameter must sit verbatim in one slot); a
-        non-callable one is dropped, as in the reference."""
+        non-callable one is dropped, as in the reference.
+
+        ``type="rigid"`` adds a rigid body from ``mesh=`` (a (T, 3, 3)
+        triangle array) or ``mesh_fn=`` (an OBJ path) with the keywords of
+        ``rigid.scene.RigidSceneBuilder.add_rigid``; ``vel`` is its initial
+        velocity. Returns the body id (>= 1; 0 is the background)."""
         if type == "rigid":
-            raise NotImplementedError(
-                "rigid bodies (CPIC) are not ported yet (ROADMAP.md queue 1)")
+            return self._add_rigid(density=density, initial_velocity=vel, **mat_kw)
         if pos is None:
             raise NotImplementedError(
                 "texture seeding (pos=None) is not ported yet (ROADMAP.md "
@@ -201,6 +218,31 @@ class MPM:
     def add_collider(self, collider):
         self.colliders.append(collider)
 
+    # -- rigid bodies (CPIC) ---------------------------------------------------
+
+    def _add_rigid(self, mesh=None, mesh_fn: Optional[str] = None, **kw) -> int:
+        from taichi_mpm_torch.rigid.mesh import load_obj
+        from taichi_mpm_torch.rigid.scene import RigidSceneBuilder
+
+        if self.bodies is not None:
+            raise ValueError("rigid bodies are added before the first step")
+        if self._rigid_builder is None:
+            self._rigid_builder = RigidSceneBuilder(self.cfg.dim, self.cfg.dx)
+        if mesh is None:
+            if not mesh_fn:
+                raise ValueError("a rigid body needs mesh= (array) or mesh_fn= (OBJ path)")
+            mesh = load_obj(mesh_fn)
+        return self._rigid_builder.add_rigid(mesh, t0=float(self.t), **kw)
+
+    def add_articulation(self, type: str, obj0: int, obj1: int = 0, **kw):
+        """Constrain two rigid bodies (the reference's 'add_articulation'):
+        rotation, frozen, distance, axial_rotation, motor or stepper."""
+        if self._rigid_builder is None:
+            raise ValueError("add rigid bodies first")
+        if self.bodies is not None:
+            raise ValueError("articulations are added before the first step")
+        self._rigid_builder.add_articulation(type, obj0, obj1, **kw)
+
     # -- state finalization --------------------------------------------------
 
     def _finalize(self, capacity: Optional[int] = None):
@@ -218,6 +260,10 @@ class MPM:
         self._particles = p
         self._pcarry = None
         self._pending = []
+        if self._rigid_builder is not None:
+            self.bodies, self.rigid_scene = self._rigid_builder.build(
+                tuple(self.colliders), device=self.device)
+            self.cfg = dataclasses.replace(self.cfg, num_rigids=self._rigid_builder.num)
 
     def _active_block_cap(self) -> int:
         """Initial page-map capacity K: 1.5x the dilated occupancy
@@ -238,11 +284,39 @@ class MPM:
         n_occ = int(occ.sum())
         return int(min(nbt, -(-max(64, int(1.5 * n_occ)) // 64) * 64))
 
+    def _rigid_map_cap(self) -> int:
+        """Initial capacity Kr of the CPIC frame's rigid page map, estimated
+        on the host from the bodies at rest (the JAX package's estimate):
+        the boundary particles' blocks dilated four deep, with a 1.5x
+        margin, a multiple of 64."""
+        from taichi_mpm_torch.rigid.body import boundary_particle_world
+
+        scene = self.rigid_scene
+        xb, _, _ = boundary_particle_world(self.bodies, scene.bp_rid, scene.bp_offset,
+                                           scene.bp_normal, scene.bp_elem)
+        nb = np.maximum(1, -(-np.asarray(self.cfg.res) // blocked.BLOCK))
+        tag = np.zeros(tuple(nb), bool)
+        blk = (xb.cpu().numpy() / self.cfg.dx).astype(np.int64) // blocked.BLOCK
+        tag[tuple(np.clip(blk, 0, nb - 1).T)] = True
+        for ax in range(3):  # a box dilation, four blocks along each axis
+            t = tag.copy()
+            for s in range(1, 5):
+                lo = [slice(None)] * 3
+                hi = [slice(None)] * 3
+                lo[ax] = slice(s, None)
+                hi[ax] = slice(0, -s)
+                tag[tuple(lo)] |= t[tuple(hi)]
+                tag[tuple(hi)] |= t[tuple(lo)]
+        return int(min(blocked.total_blocks_padded(self.cfg),
+                       -(-max(64, int(1.5 * tag.sum())) // 64) * 64))
+
     # -- time stepping --------------------------------------------------------
 
     def step(self, frame_dt: Optional[float] = None):
-        """Advance one frame on the blocked path. The page map grows at
-        the sort when its capacity overflows (ops.packed.sort_and_map)."""
+        """Advance one frame on the blocked path (the CPIC frame when the
+        scene has rigid bodies). The page map grows at the sort when its
+        capacity overflows (ops.packed.sort_and_map); the CPIC capacities
+        grow where they are used (rigid.cpic_packed)."""
         if (self._particles is None and self._pcarry is None) or self._pending:
             self._finalize()
         fdt = frame_dt or self.frame_dt
@@ -250,11 +324,20 @@ class MPM:
         if self._pcarry is None:
             p = self.particles
             self._cap_p = p.capacity
+            if self.bodies is not None and self.cpic_caps is None:
+                self.cpic_caps = cpic_packed.Capacities(self._rigid_map_cap())
             self._pcarry = packed.pack_carry(p, self.cfg, self._active_block_cap())
             self.n_sorts += 1
-        carry, t, _, nsorts, plast = packed.packed_frame_carry(
-            self._pcarry, self.t, self.cfg, tuple(self.colliders),
-            self.cfg.base_dt, n_sub)
+        if self.bodies is not None:
+            carry, self.bodies, t, nmax, nnear, ncoarse, nr, nsorts, plast = (
+                cpic_packed.cpic_packed_frame_carry(
+                    self._pcarry, self.bodies, self.t, self.cfg, self.rigid_scene,
+                    self.cfg.base_dt, n_sub, self.cpic_caps))
+            self.cpic_stats = dict(n_act=nmax, n_near=nnear, n_coarse=ncoarse, n_r=nr)
+        else:
+            carry, t, _, nsorts, plast = packed.packed_frame_carry(
+                self._pcarry, self.t, self.cfg, tuple(self.colliders),
+                self.cfg.base_dt, n_sub)
         self._pcarry = carry
         self._particles = None  # unpacked again from the carry on read
         self.t = t

@@ -12,7 +12,10 @@ namespace mpm {
 constexpr int NCH = 48;
 constexpr int RX = 0, RV = 3, RF = 6, RC = 15;
 constexpr int RAUX = 24, RMASS = 25, RVOL = 26, RPAR = 28, RACT = 36;
-constexpr int RORG = 43;
+constexpr int RORG = 43, RMATF = 47;
+
+// material ids (taichi_mpm_torch/materials/cforms.py) the kernels implement
+constexpr int JELLY = 1, WATER = 3;
 
 constexpr int TILE = 7;                       // halo nodes per axis (-1..5)
 constexpr int TILE_NODES = TILE * TILE * TILE;  // 343
@@ -60,6 +63,13 @@ __device__ __forceinline__ void polar_newton(const float F[9], float X[9]) {
 #pragma unroll
     for (int k = 0; k < 9; ++k) X[k] = 0.5f * (gg * X[k] + adj[k] / gg);
   }
+}
+
+// Water's equation of state: the diagonal of its force -vol P F^T is
+// vol * j * k * (max(j, 1e-6)^-gamma - 1) (materials/cforms.force_water).
+__device__ __forceinline__ float water_force_diag(float j, float vol, float k, float gamma) {
+  const float p = k * (powf(nan_max(j, 1e-6f), -gamma) - 1.0f);
+  return vol * j * p;
 }
 
 __device__ __forceinline__ float det3(const float A[9]) {

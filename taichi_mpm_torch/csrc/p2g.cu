@@ -4,8 +4,8 @@
 // (_p2g_fused_kernel, _build_pd, with p2g_pallas._chunk_ops and
 // tile_correct): for each active block slot, build every particle's P2G
 // operand from the packed (48, Pw) state (m*v, m, the fused affine
-// A = invD*m*C - invD*inv_dx*dt*force with the JELLY fixed-corotated
-// force, block-local position) and accumulate the slot's 7^3 halo tile of
+// A = invD*m*C - invD*inv_dx*dt*force with the JELLY fixed-corotated or
+// the WATER equation-of-state force; block-local position) and accumulate the slot's 7^3 halo tile of
 // momentum and mass with quadratic B-spline weights.
 //
 // Semantics: tile node (i, j, k) is block-local node (i-1, j-1, k-1);
@@ -14,11 +14,16 @@
 // where w is the tensor product of the dense per-axis weights over nodes
 // -1..5 (a contribution outside the tile is dropped, as in the reference).
 //
-// What bounds it on the H100: at 8M particles the function reads 32 of the
-// 48 state rows of each particle once (act, x, v, F, C, mass, vol, mu,
-// lambda, origin: ~1.02 GB) and writes K halo tiles of 5.5 KB (~0.16 GB),
-// 0.35 ms at 3.35 TB/s; its ~1.8 kflop per particle (polar Newton, force,
-// 27-node scatter) take 0.22 ms at 67 TFLOP/s. So the memory rate bounds
+// The kernel is compiled for the scene's material set (MATS, a bit set
+// 1 << id): a scene of one material reads only its own rows, and only a
+// mixed scene reads row 47 to choose the force per particle.
+//
+// What bounds it on the H100: at 8M jelly particles the function reads 32
+// of the 48 state rows of each particle once (act, x, v, F, C, mass, vol,
+// mu, lambda, origin: ~1.02 GB; water reads aux instead of F) and
+// writes K halo tiles of 5.5 KB (~0.16 GB), 0.35 ms at 3.35 TB/s; its
+// ~1.8 kflop per particle (polar Newton, force, 27-node scatter) take
+// 0.22 ms at 67 TFLOP/s. So the memory rate bounds
 // it. What the design does about it: one CUDA block per slot streams
 // the slot's contiguous sorted range [s, e) in coalesced 128-lane chunks,
 // computes each particle once (one thread each) and stages the 16-value
@@ -53,6 +58,8 @@ struct P2GParams {
   int particle_gravity;
 };
 
+// MATS: the scene's materials as a bit set (1 << id), as in g2p.cu.
+template <int MATS>
 __device__ __forceinline__ void stage_particle(const float* __restrict__ st, long long pw,
                                                long long p, const P2GParams& prm,
                                                float* __restrict__ sv,
@@ -60,34 +67,49 @@ __device__ __forceinline__ void stage_particle(const float* __restrict__ st, lon
   const float* S = st + p;
   auto R = [&](int r) { return S[(long long)r * pw]; };
   const bool act = R(RACT) > 0.5f;
-  float F[9], C[9];
+  float C[9];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    F[k] = R(RF + k);
-    C[k] = R(RC + k);
-  }
+  for (int k = 0; k < 9; ++k) C[k] = R(RC + k);
   const float mass = R(RMASS), vol = R(RVOL);
-  const float mu = R(RPAR), lam = R(RPAR + 1);
+  const float k0 = R(RPAR), k1 = R(RPAR + 1);
 
-  // JELLY force -vol * [2 mu (F - R) F^T + lam (J - 1) J I]
-  // (materials/cforms.force_jelly / _pft_fixed_corotated)
-  float Rm[9];
-  polar_newton(F, Rm);
-  const float J = det3(F);
-  const float diag = lam * (J - 1.0f) * J;
-  const float two_mu = 2.0f * mu;
+  // force = -vol * P F^T of the particle's material (row 47 holds its id
+  // as a value, read only in a mixed scene; the wrapper admits only the
+  // materials handled here)
+  const bool water = MATS == (1 << WATER) ||
+                     (MATS != (1 << JELLY) && (int)R(RMATF) == WATER);
+  float force[9];
+  if (water) {
+    // k = params[0], gamma = params[1], j = aux (cforms.force_water)
+    const float diag = water_force_diag(R(RAUX), vol, k0, k1);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) force[k] = (k % 4 == 0) ? diag : 0.0f;
+  } else {
+    // JELLY: -vol * [2 mu (F - R) F^T + lam (J - 1) J I], mu = params[0],
+    // lam = params[1] (cforms.force_jelly / _pft_fixed_corotated)
+    float F[9], Rm[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) F[k] = R(RF + k);
+    polar_newton(F, Rm);
+    const float J = det3(F);
+    const float diag = k1 * (J - 1.0f) * J;
+    const float two_mu = 2.0f * k0;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        float pft = (F[3 * i] - Rm[3 * i]) * F[3 * j] +
+                    (F[3 * i + 1] - Rm[3 * i + 1]) * F[3 * j + 1] +
+                    (F[3 * i + 2] - Rm[3 * i + 2]) * F[3 * j + 2];
+        pft = pft * two_mu + (i == j ? diag : 0.0f);
+        force[3 * i + j] = pft * -vol;
+      }
+    }
+  }
   float A[9];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      float pft = (F[3 * i] - Rm[3 * i]) * F[3 * j] +
-                  (F[3 * i + 1] - Rm[3 * i + 1]) * F[3 * j + 1] +
-                  (F[3 * i + 2] - Rm[3 * i + 2]) * F[3 * j + 2];
-      pft = pft * two_mu + (i == j ? diag : 0.0f);
-      const float force = pft * -vol;
-      A[3 * i + j] = act ? prm.invD * mass * C[3 * i + j] - prm.cf_scale * force : 0.0f;
-    }
+  for (int k = 0; k < 9; ++k) {
+    A[k] = act ? prm.invD * mass * C[k] - prm.cf_scale * force[k] : 0.0f;
   }
   const float m = act ? mass : 0.0f;
 #pragma unroll
@@ -112,6 +134,7 @@ __device__ __forceinline__ void stage_particle(const float* __restrict__ st, lon
   }
 }
 
+template <int MATS>
 __global__ void __launch_bounds__(THREADS)
 p2g_kernel(const float* __restrict__ st, long long pw, const int* __restrict__ s_arr,
            const int* __restrict__ e_arr, float* __restrict__ out, P2GParams prm) {
@@ -140,7 +163,7 @@ p2g_kernel(const float* __restrict__ st, long long pw, const int* __restrict__ s
 
   for (int base = s; base < e; base += THREADS) {
     const int cnt = min(THREADS, e - base);
-    if (tid < cnt) stage_particle(st, pw, (long long)base + tid, prm, sv[tid], sw[tid]);
+    if (tid < cnt) stage_particle<MATS>(st, pw, (long long)base + tid, prm, sv[tid], sw[tid]);
     __syncthreads();
     for (int p = 0; p < cnt; ++p) {
       const float* w = sw[p];
@@ -175,11 +198,12 @@ p2g_kernel(const float* __restrict__ st, long long pw, const int* __restrict__ s
 
 // Launch on `stream`. st: (48, pw) f32 packed state, rows 43-45 holding the
 // sort-time block origins; s_arr/e_arr: (K,) i32 sorted particle ranges;
-// out: (K, 7, 7, 7, 4) f32 halo tiles [i, j, k, c]. Returns cudaGetLastError().
+// out: (K, 7, 7, 7, 4) f32 halo tiles [i, j, k, c]; mats: the scene's
+// materials as a bit set (JELLY and/or WATER). Returns cudaGetLastError().
 extern "C" int p2g_fused_launch(const float* st, long long pw, const int* s_arr,
                                 const int* e_arr, int K, float* out, float inv_dx,
                                 float invD, float cf_scale, float gdt0, float gdt1,
-                                float gdt2, int particle_gravity, void* stream) {
+                                float gdt2, int particle_gravity, int mats, void* stream) {
   P2GParams prm;
   prm.inv_dx = inv_dx;
   prm.invD = invD;
@@ -188,9 +212,16 @@ extern "C" int p2g_fused_launch(const float* st, long long pw, const int* s_arr,
   prm.gdt[1] = gdt1;
   prm.gdt[2] = gdt2;
   prm.particle_gravity = particle_gravity;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K > 0) {
-    p2g_kernel<<<K, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(st, pw, s_arr, e_arr,
-                                                                      out, prm);
+    if (mats == (1 << JELLY)) {
+      p2g_kernel<(1 << JELLY)><<<K, THREADS, 0, s>>>(st, pw, s_arr, e_arr, out, prm);
+    } else if (mats == (1 << WATER)) {
+      p2g_kernel<(1 << WATER)><<<K, THREADS, 0, s>>>(st, pw, s_arr, e_arr, out, prm);
+    } else {
+      p2g_kernel<(1 << JELLY) | (1 << WATER)><<<K, THREADS, 0, s>>>(st, pw, s_arr, e_arr,
+                                                                     out, prm);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

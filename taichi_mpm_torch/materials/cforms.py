@@ -5,8 +5,8 @@ F is a 9-tuple, params an 8-tuple of tensors (slot layout in
 ``materials.models``), aux/vol plain tensors. Forces return the 9-tuple of
 -vol * P F^T; plasticity returns (F_new 9-tuple, aux_new, count). These
 plain-torch forms serve the CPU path and the kernels' plain twins; the
-CUDA kernels implement JELLY (``force_jelly`` / ``plast_elastic``) per
-particle.
+CUDA kernels implement JELLY (``force_jelly`` / ``plast_elastic``) and
+WATER (``force_water`` / ``plast_water``) per particle.
 """
 
 from __future__ import annotations

@@ -24,3 +24,20 @@ def quadratic_weight(t: torch.Tensor) -> torch.Tensor:
     inner = 0.75 - t * t
     outer = 0.5 * (1.5 - a) * (1.5 - a)
     return torch.where(a <= 0.5, inner, torch.where(a < 1.5, outer, torch.zeros_like(t)))
+
+
+def bspline_weights(order: int, x: torch.Tensor):
+    """Quadratic per-axis weights and grid-unit gradients
+    (``taichi_mpm_tpu.math.kernels.bspline_weights`` for order 2, same
+    formulas and order). x: positions in grid units (..., d). Returns
+    (base int32 = floor(x - 0.5), w (..., d, 3), dw (..., d, 3))."""
+    if order != 2:
+        raise NotImplementedError(
+            f"B-spline order {order}: only the quadratic kernel is ported "
+            "(ROADMAP.md queue 1, 'the dense oracle path')")
+    base = torch.floor(x - 0.5).to(torch.int32)
+    fx = x - base.to(x.dtype)
+    a, b, c = 1.5 - fx, fx - 1.0, fx - 0.5
+    w = torch.stack([0.5 * (a * a), 0.75 - b * b, 0.5 * (c * c)], -1)
+    dw = torch.stack([fx - 1.5, -2.0 * b, c], -1)
+    return base, w, dw

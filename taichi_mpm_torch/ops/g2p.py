@@ -1,14 +1,20 @@
-"""Fused G2P + finish: velocity windows -> packed state, in place.
+"""G2P: velocity windows -> particles, with or without the finish.
 
-``g2p_fused`` launches the CUDA kernel ``csrc/g2p.cu`` on a CUDA tensor
-and uses its plain-torch twin ``g2p_fused_plain`` only on a CPU tensor.
-Both replace the TPU kernel ``taichi_mpm_tpu/ops/fused_pallas.py
-g2p_fused``: they gather v and the APIC B of every active lane from its
-slot's window, run the resample tail (``finish_packed``) and write the
-state in place, returning max |v| over lanes still active and the
-plasticity count.
+Two kernels of ``csrc/g2p.cu``, each with a plain-torch twin; a wrapper
+launches its kernel on a CUDA tensor and uses the twin only on a CPU
+tensor.
 
-``finish_packed`` is the specification both follow (the JAX package's
+* ``g2p_fused`` (twin ``g2p_fused_plain``) replaces the TPU kernel
+  ``taichi_mpm_tpu/ops/fused_pallas.py g2p_fused``: it gathers v and the
+  APIC B of every active lane from its slot's window, runs the resample
+  tail (``finish_packed``) and writes the state in place, returning max
+  |v| over lanes still active and the plasticity count.
+* ``g2p_blocked`` (twin ``g2p_blocked_plain``) replaces the TPU kernel
+  ``taichi_mpm_tpu/ops/g2p_pallas.py g2p_blocked``: the gather alone,
+  (12, Pw) rows v (3) and B row-major (9), for callers that correct the
+  gathered values before the finish (the CPIC frame).
+
+``finish_packed`` is the specification of the tail (the JAX package's
 ``ops/packed.finish_packed``).
 """
 
@@ -24,12 +30,13 @@ from taichi_mpm_torch.materials import cforms
 from taichi_mpm_torch.math.kernels import inv_D, quadratic_weight
 from taichi_mpm_torch.ops import cuda_build
 from taichi_mpm_torch.ops.blocked import TILE, TILE_NODES
-from taichi_mpm_torch.ops.p2g import check_device_materials
+from taichi_mpm_torch.ops.p2g import check_device_materials, material_set
 from taichi_mpm_torch.ops.rows import (
     NCH, RACT, RAUX, RC, RF, RMAT, RORG, RPAR, RV, RX,
 )
 
 stats = cuda_build.LaunchCount("g2p_fused")
+blocked_stats = cuda_build.LaunchCount("g2p_blocked")
 
 _EYE = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
 
@@ -44,11 +51,13 @@ def _clip_hi(cfg: SimConfig):
     return [float(np.float32((cfg.res[k] - cfg.clamp_eps) * cfg.dx)) for k in range(3)]
 
 
-def finish_packed(st, acc, cfg: SimConfig, dt):
+def finish_packed(st, acc, cfg: SimConfig, dt, zero_C=None):
     """Tail of G2P on rows: APIC/RPIC damping, MLS F-update, plasticity,
     advection, clamp and the NaN scrub. acc rows: v (3), B row-major (9).
-    A lane whose new x, v or F is not finite is deactivated and reset
-    (x = v = C = 0, F = I). Returns (st_new, vmax, plast_count)."""
+    zero_C (Pw,) bool, where given, zeroes the new C of those lanes (the
+    CPIC frame's near-boundary lanes). A lane whose new x, v or F is not
+    finite is deactivated and reset (x = v = C = 0, F = I). Returns
+    (st_new, vmax, plast_count)."""
     act = st[RACT] > 0.5
     v_new = [torch.where(act, acc[k], 0.0) for k in range(3)]
     B = [torch.where(act, acc[3 + k], 0.0) for k in range(9)]
@@ -64,6 +73,8 @@ def finish_packed(st, acc, cfg: SimConfig, dt):
                 C_new.append(sym_w * s + skew_w * (bij - s))
     else:
         C_new = [torch.zeros_like(B[0]) for _ in range(9)]
+    if zero_C is not None:
+        C_new = [torch.where(zero_C, 0.0, c) for c in C_new]
 
     k = _k_cdg(cfg, dt)
     cdg = tuple(e - k * b for e, b in zip(_EYE, B))
@@ -101,11 +112,10 @@ def finish_packed(st, acc, cfg: SimConfig, dt):
     return st_new, vmax, plast
 
 
-def g2p_fused_plain(keys, st, win, dt, cfg: SimConfig):
-    """Plain-torch twin of the G2P kernel: same inputs, same in-place
-    update of `st`, same (vmax, plast). Each lane gathers v and B from
-    its slot's window over the 3x3x3 quadratic support (zero for slot
-    key K), in the kernel's order."""
+def _gather_plain(keys, st, win, cfg: SimConfig):
+    """The window gather of both twins: rows v (3) and B row-major (9) of
+    every lane from its slot's window over the 3x3x3 quadratic support
+    (zero for slot key K), summed in the kernel's order."""
     K = win.shape[0]
     flat = torch.cat([win.reshape(K, -1), win.new_zeros(1, 3 * TILE_NODES)])
     slot = keys.long().clamp(max=K)
@@ -130,9 +140,21 @@ def g2p_fused_plain(keys, st, win, dt, cfg: SimConfig):
                     acc[c] = acc[c] + wg
                     for a in range(3):
                         acc[3 + 3 * c + a] = acc[3 + 3 * c + a] + wg * d[a]
-    st_new, vmax, plast = finish_packed(st, acc, cfg, dt)
+    return acc
+
+
+def g2p_fused_plain(keys, st, win, dt, cfg: SimConfig):
+    """Plain-torch twin of the fused G2P kernel: same inputs, same
+    in-place update of `st`, same (vmax, plast)."""
+    st_new, vmax, plast = finish_packed(st, _gather_plain(keys, st, win, cfg), cfg, dt)
     st.copy_(st_new)
     return vmax, plast
+
+
+def g2p_blocked_plain(keys, st, win, cfg: SimConfig):
+    """Plain-torch twin of the gather-only G2P kernel: (12, Pw) rows v (3)
+    and B row-major (9)."""
+    return torch.stack(_gather_plain(keys, st, win, cfg))
 
 
 def _check_inputs(keys, st, win):
@@ -146,7 +168,9 @@ def _check_inputs(keys, st, win):
         if a.device != st.device:
             raise ValueError(f"{name} is on {a.device}, state on {st.device}")
     if not (st.is_contiguous() and keys.is_contiguous() and win.is_contiguous()):
-        raise ValueError("g2p_fused needs contiguous tensors")
+        raise ValueError("G2P needs contiguous tensors")
+    if st.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"G2P runs on cuda or cpu tensors, not {st.device}")
 
 
 def g2p_fused(keys, st, win, dt, cfg: SimConfig):
@@ -158,8 +182,6 @@ def g2p_fused(keys, st, win, dt, cfg: SimConfig):
     _check_inputs(keys, st, win)
     if st.device.type == "cpu":
         return g2p_fused_plain(keys, st, win, dt, cfg)
-    if st.device.type != "cuda":
-        raise ValueError(f"g2p_fused runs on cuda or cpu tensors, not {st.device}")
     check_device_materials(cfg)
     lib = cuda_build.load("g2p")
     lib.g2p_blocks.restype = ctypes.c_int
@@ -172,14 +194,39 @@ def g2p_fused(keys, st, win, dt, cfg: SimConfig):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_float] * 8 + [
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     sym_w, skew_w = 1.0 - cfg.rpic_damping, 1.0 - cfg.apic_damping
     stream = torch.cuda.current_stream(st.device).cuda_stream
     rc = fn(st.data_ptr(), pw, keys.data_ptr(), win.data_ptr(), win.shape[0],
             vmax_part.data_ptr(), plast_part.data_ptr(),
             float(np.float32(dt)), float(cfg.inv_dx), _k_cdg(cfg, dt), sym_w, skew_w,
-            *_clip_hi(cfg), int(cfg.apic), stream)
+            *_clip_hi(cfg), int(cfg.apic), material_set(cfg), stream)
     if rc != 0:
         raise RuntimeError(f"g2p_fused kernel launch failed: CUDA error {rc}")
     stats.launches += 1
     return torch.amax(vmax_part), plast_part.sum(dtype=torch.int32)
+
+
+def g2p_blocked(keys, st, win, cfg: SimConfig):
+    """The window gather alone: (12, Pw) rows v (3) and B row-major (9) of
+    every lane of the sorted packed state `st` (48, Pw), read only; keys
+    (Pw,) are the lanes' slot ids (K = none), win the (K, 3, 7, 7, 7)
+    velocity windows. On a CUDA tensor this launches the kernel (or
+    raises); on a CPU tensor it runs the twin."""
+    _check_inputs(keys, st, win)
+    if st.device.type == "cpu":
+        return g2p_blocked_plain(keys, st, win, cfg)
+    lib = cuda_build.load("g2p")
+    fn = lib.g2p_blocked_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+    pw = st.shape[1]
+    out = torch.empty((12, pw), dtype=torch.float32, device=st.device)
+    stream = torch.cuda.current_stream(st.device).cuda_stream
+    rc = fn(st.data_ptr(), pw, keys.data_ptr(), win.data_ptr(), win.shape[0],
+            float(cfg.inv_dx), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"g2p_blocked kernel launch failed: CUDA error {rc}")
+    blocked_stats.launches += 1
+    return out

@@ -32,7 +32,7 @@ stats = cuda_build.LaunchCount("p2g_fused")
 
 # materials the CUDA kernels implement; the others run only on the CPU
 # through the plain twins until their device code lands
-DEVICE_MATERIALS = (cforms.JELLY,)
+DEVICE_MATERIALS = (cforms.JELLY, cforms.WATER)
 
 
 def check_device_materials(cfg: SimConfig):
@@ -45,8 +45,15 @@ def check_device_materials(cfg: SimConfig):
     if other:
         names = ", ".join(MATERIAL_IDS[m] for m in other)
         raise NotImplementedError(
-            f"material(s) {names} have no CUDA kernel yet (only jelly); "
+            f"material(s) {names} have no CUDA kernel yet (only jelly and "
+            "water); "
             "see ROADMAP.md queue 1, 'device code of the other materials'")
+
+
+def material_set(cfg: SimConfig) -> int:
+    """The scene's materials as the bit set (1 << id) the CUDA kernels are
+    compiled for."""
+    return sum(1 << m for m in cfg.active_materials)
 
 
 def prep_packed(st, cfg: SimConfig, dt):
@@ -151,10 +158,10 @@ def p2g_fused(s_arr, e_arr, st, dt, cfg: SimConfig):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_void_p] + [ctypes.c_float] * 6 + [
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     stream = torch.cuda.current_stream(st.device).cuda_stream
     rc = fn(st.data_ptr(), st.shape[1], s_arr.data_ptr(), e_arr.data_ptr(), K,
-            out.data_ptr(), *_launch_args(cfg, dt), stream)
+            out.data_ptr(), *_launch_args(cfg, dt), material_set(cfg), stream)
     if rc != 0:
         raise RuntimeError(f"p2g_fused kernel launch failed: CUDA error {rc}")
     stats.launches += 1

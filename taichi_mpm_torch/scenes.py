@@ -4,6 +4,10 @@
 (``benchmark=125`` / ``benchmark=8000``): a cube of cells each holding 8
 particles on a 2x2x2 sub-lattice, dropped under gravity in a res^3 box
 with sticky walls.
+
+``cpic_wheel`` is the repo's CPIC benchmark scene (``bench.py``,
+``BENCH_MODE=cpic``): water poured on a free-spinning 6-paddle wheel on a
+hub, joined by a rotation articulation.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ import numpy as np
 
 from taichi_mpm_torch.core import levelset
 from taichi_mpm_torch.core.solver import MPM
+from taichi_mpm_torch.rigid.mesh import cylinder_mesh, paddle_wheel_mesh
 
 
 def cube_lattice(cells_per_side: int, dx: float, origin, ppc_axis: int = 2,
@@ -57,4 +62,33 @@ def benchmark_cube(
             friction=-1.0,
         )
     )
+    return sim
+
+
+WHEEL_CENTER = (0.5, 0.4, 0.5)
+
+
+def cpic_wheel(n: int = 100_000, res: int = 96, seed: int = 0, device=None,
+               lo=(0.25, 0.6, 0.35), hi=(0.75, 0.95, 0.65), vel=None) -> MPM:
+    """The CPIC benchmark of ``bench.py`` (``_bench_cpic``): n water
+    particles (density 1000) uniform in the box [lo, hi] (by default
+    [0.25, 0.75] x [0.6, 0.95] x [0.35, 0.65]) from default_rng(seed),
+    at rest unless `vel` is given, over a hub (cylinder, radius 0.04,
+    half height 0.06, 16 sides, axis z) and a 6-paddle wheel, both
+    codimensional with density 1, friction 0.2, angular damping 3, a
+    scripted position at (0.5, 0.4, 0.5) and free rotation about z,
+    joined by a rotation articulation; res^3 grid, dt 1e-4, gravity -10,
+    penalty 1e3. Runs on the card unless `device` names another."""
+    rng = np.random.default_rng(seed)
+    sim = MPM(res=(res, res, res), base_delta_t=1e-4, gravity=(0.0, -10.0, 0.0),
+              penalty=1e3, device=device)
+    extent = (np.asarray(hi, np.float64) - np.asarray(lo, np.float64)).astype(np.float32)
+    pos = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32) * extent + np.asarray(lo, np.float32)
+    sim.add_particles("water", pos=pos, vel=vel, density=1000.0)
+    body = dict(density=1.0, friction=0.2, codimensional=True, angular_damping=3.0,
+                scripted_position=lambda t: WHEEL_CENTER, rotation_axis=(0, 0, 1))
+    hub = sim.add_particles("rigid", mesh=cylinder_mesh(radius=0.04, half_height=0.06, n=16,
+                                                        axis=2), **body)
+    wheel = sim.add_particles("rigid", mesh=paddle_wheel_mesh(), **body)
+    sim.add_articulation("rotation", hub, wheel)
     return sim

@@ -74,3 +74,99 @@ def np_of(x):
 
 def max_err(a, b):
     return float(np.max(np.abs(np_of(a).astype(np.float64) - np_of(b).astype(np.float64))))
+
+
+# -- CPIC scenes: built by the JAX package's MPM, handed to the port in numpy --
+
+WHEEL_CENTER = (0.5, 0.4, 0.5)
+
+
+def jax_plate_scene(vel=(0.0, -0.5, 0.0), seed=3, n=220):
+    """tests/test_cpic_packed.py's plate scene: jelly over a scripted
+    plate, res 16."""
+    from taichi_mpm_tpu.core.solver import MPM as JMPM
+    from taichi_mpm_tpu.rigid.mesh import plate_mesh
+
+    rng = np.random.default_rng(seed)
+    sim = JMPM(res=(16, 16, 16), base_delta_t=2e-4, gravity=(0, -10.0, 0), penalty=1e3)
+    pos = rng.uniform(0.3, 0.7, size=(n, 3)).astype(np.float32)
+    sim.add_particles("jelly", pos=pos, vel=vel, E=1e4, nu=0.3, density=1000)
+    sim.add_particles("rigid", mesh=plate_mesh(half_u=0.25, half_v=0.25, axis=1),
+                      scripted_position=lambda t: (0.5, 0.45, 0.5),
+                      scripted_rotation=lambda t: (0.0, 0.0, 0.0),
+                      codimensional=True, friction=0.2)
+    sim._finalize()
+    return sim
+
+
+def jax_wheel_scene():
+    """tests/test_cpic_packed.py's wheel scene: water falling beside the
+    axis of a free 4-paddle wheel, res 16."""
+    from taichi_mpm_tpu.core.solver import MPM as JMPM
+    from taichi_mpm_tpu.rigid.mesh import paddle_wheel_mesh
+
+    rng = np.random.default_rng(11)
+    sim = JMPM(res=(16, 16, 16), base_delta_t=2e-4, gravity=(0, -10.0, 0), penalty=1e3)
+    pos = np.empty((200, 3), np.float32)
+    pos[:, 0] = rng.uniform(0.55, 0.65, 200)
+    pos[:, 1] = rng.uniform(0.6, 0.8, 200)
+    pos[:, 2] = rng.uniform(0.45, 0.55, 200)
+    sim.add_particles("water", pos=pos, vel=(0, -1.0, 0), density=1000)
+    sim.add_particles("rigid", mesh=paddle_wheel_mesh(n_paddles=4, outer=0.18),
+                      initial_position=(0.5, 0.4, 0.5), rotation_axis=(0, 0, 1),
+                      codimensional=True, friction=0.1, density=40.0)
+    sim._finalize()
+    return sim
+
+
+def hub_wheel_kw():
+    return dict(density=1.0, friction=0.2, codimensional=True, angular_damping=3.0,
+                scripted_position=lambda t: WHEEL_CENTER, rotation_axis=(0, 0, 1))
+
+
+def jax_hub_wheel_scene(n=240, seed=5):
+    """The CPIC benchmark's bodies (hub + 6-paddle wheel, rotation
+    articulation, a rigid-rigid collision pair) at res 16, with water
+    falling onto the right-hand paddles."""
+    from taichi_mpm_tpu.core.solver import MPM as JMPM
+    from taichi_mpm_tpu.rigid.mesh import cylinder_mesh, paddle_wheel_mesh
+
+    rng = np.random.default_rng(seed)
+    sim = JMPM(res=(16, 16, 16), base_delta_t=2e-4, gravity=(0, -10.0, 0), penalty=1e3)
+    pos = (rng.uniform(0.0, 1.0, (n, 3)) * [0.2, 0.3, 0.2] + [0.5, 0.35, 0.4]).astype(np.float32)
+    sim.add_particles("water", pos=pos, vel=(0, -1.0, 0), density=1000)
+    hub = sim.add_particles("rigid", mesh=cylinder_mesh(radius=0.04, half_height=0.06, n=16,
+                                                        axis=2), **hub_wheel_kw())
+    wheel = sim.add_particles("rigid", mesh=paddle_wheel_mesh(), **hub_wheel_kw())
+    sim.add_articulation("rotation", hub, wheel)
+    sim._finalize()
+    return sim
+
+
+def port_inputs(sim):
+    """(particles, bodies, scene, config) of the port from a finalized JAX
+    solver's state."""
+    tcfg = convert.config_from_dict(dataclasses.asdict(sim.cfg))
+    tp = convert.particles_from_numpy(convert.particles_to_numpy(sim.particles))
+    return (tp, convert.bodies_from_jax(sim.bodies), convert.scene_from_jax(sim.rigid_scene),
+            tcfg)
+
+
+CPIC_BOUNDS = dict(x=5e-6, v=5e-4, F=5e-5)  # tests/test_cpic_packed.py
+BODY_BOUNDS = dict(vel=1e-5, omega=1e-5, pos=1e-6)
+
+
+def assert_cpic_close(jp, jb, tp, tb):
+    """The port's CPIC frame result against JAX's at the bounds of
+    tests/test_cpic_packed.py."""
+    ja = np.asarray(jp.active)
+    ta = np_of(tp.active)
+    assert np.array_equal(ja, ta)
+    for name, bound in CPIC_BOUNDS.items():
+        err = max_err(np.asarray(getattr(jp, name))[ja], np_of(getattr(tp, name))[ta])
+        assert err <= bound, (name, err)
+    for name in ("states", "near_b"):
+        assert np.array_equal(np.asarray(getattr(jp, name))[ja], np_of(getattr(tp, name))[ta]), name
+    for name, bound in BODY_BOUNDS.items():
+        err = max_err(getattr(jb, name), getattr(tb, name))
+        assert err <= bound, (name, err)

@@ -81,3 +81,42 @@ def test_g2p_wrapper_checks_inputs():
         tg2p.g2p_fused(torch.zeros(100, dtype=torch.int64), st, win, 2e-4, tcfg)
     with pytest.raises(ValueError, match="windows"):
         tg2p.g2p_fused(torch.zeros(100, dtype=torch.int32), st, win[:, :2], 2e-4, tcfg)
+
+
+def test_finish_zero_C_matches_jax():
+    """The CPIC frame's finish: gathered rows corrected outside the
+    kernel, the near-boundary lanes' C zeroed (zero_C); water's return map."""
+    a, mids = scene_arrays(600, seed=34, mats=("water",))
+    jcfg, tcfg = configs(mids)
+    st = np.array(jpacked.pack_carry(jax_particles(a), jcfg, K, two_d=True)[0])
+    pw = st.shape[1]
+    rng = np.random.default_rng(35)
+    pout = np.zeros((16, pw), np.float32)
+    pout[:12] = 0.5 * rng.standard_normal((12, pw))
+    zero_c = rng.uniform(size=pw) < 0.3
+    dt = jcfg.base_dt
+    jnew, jvmax, jplast = jpacked.finish_packed(jnp.asarray(st), jnp.asarray(pout), jcfg, dt,
+                                                zero_C=jnp.asarray(zero_c))
+    tnew, tvmax, tplast = tg2p.finish_packed(convert.packed_from_numpy(st),
+                                             torch.as_tensor(pout[:12]), tcfg, dt,
+                                             zero_C=torch.as_tensor(zero_c))
+    jnew, tnew = np.asarray(jnew), tnew.numpy()
+    for r0, nr, bound in BOUNDS:
+        assert max_err(jnew[r0:r0 + nr], tnew[r0:r0 + nr]) <= bound, r0
+    live = (tnew[RACT] > 0.5) & zero_c
+    assert live.any() and not np.any(tnew[RC:RC + 9, live])
+    assert int(np.sum(np.asarray(jplast))) == int(tplast) > 0
+    assert abs(float(jvmax) - float(tvmax)) <= 1e-6 * float(jvmax)
+
+
+def test_g2p_blocked_wrapper_checks_inputs():
+    a, mids = scene_arrays(100, seed=36)
+    _, tcfg = configs(mids)
+    st = torch.zeros((48, 100))
+    win = torch.zeros((4, 3, 7, 7, 7))
+    with pytest.raises(ValueError, match="keys"):
+        tg2p.g2p_blocked(torch.zeros(100, dtype=torch.int64), st, win, tcfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        tg2p.g2p_blocked(torch.zeros(100, dtype=torch.int32), st.t().contiguous().t(), win, tcfg)
+    out = tg2p.g2p_blocked(torch.full((100,), 4, dtype=torch.int32), st, win, tcfg)
+    assert out.shape == (12, 100) and not out.any()  # slot key K gathers zero

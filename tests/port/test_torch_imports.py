@@ -18,7 +18,10 @@ IMPORT_LINE = re.compile(r"^\s*(import|from)\s+(jax|taichi_mpm_tpu)\b", re.MULTI
 def test_port_import_does_not_load_jax():
     code = (
         "import sys, taichi_mpm_torch, taichi_mpm_torch.scenes, "
-        "taichi_mpm_torch.convert, taichi_mpm_torch.ops.packed\n"
+        "taichi_mpm_torch.convert, taichi_mpm_torch.ops.packed, "
+        "taichi_mpm_torch.rigid.cpic_packed, taichi_mpm_torch.rigid.articulation, "
+        "taichi_mpm_torch.rigid.collision, taichi_mpm_torch.rigid.scene, "
+        "taichi_mpm_torch.rigid.mesh, taichi_mpm_torch.math.quat\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'taichi_mpm_tpu'))]\n"
         "assert not bad, bad\n"
@@ -56,3 +59,20 @@ def test_unported_paths_raise():
         MPM(res=(16, 16), device="cpu")
     with pytest.raises(NotImplementedError, match="dense oracle path"):
         MPM(res=(16, 16, 16), kernel_order=3, device="cpu")
+
+
+def test_rigid_surface_rejects_misuse():
+    from taichi_mpm_torch import MPM
+    from taichi_mpm_torch.rigid.mesh import plate_mesh
+
+    sim = MPM(res=(16, 16, 16), device="cpu")
+    with pytest.raises(ValueError, match="add rigid bodies first"):
+        sim.add_articulation("rotation", 1, 0)
+    with pytest.raises(ValueError, match="mesh"):
+        sim.add_particles("rigid")
+    sim.add_particles("water", pos=[[0.5, 0.5, 0.5]])
+    sim.add_particles("rigid", mesh=plate_mesh(0.1, 0.1), scripted_position=lambda t: (0.5, 0.3, 0.5))
+    sim.step()
+    with pytest.raises(ValueError, match="before the first step"):
+        sim.add_particles("rigid", mesh=plate_mesh(0.1, 0.1))
+    assert sim.cfg.num_rigids == 2 and sim.bodies.num == 2

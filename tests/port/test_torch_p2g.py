@@ -97,8 +97,8 @@ def test_p2g_wrapper_checks_inputs():
 
 
 def test_device_material_check_names_material():
-    _, tcfg = configs((1, 3))  # jelly, water
-    with pytest.raises(NotImplementedError, match="water"):
+    _, tcfg = configs((1, 4))  # jelly, sand
+    with pytest.raises(NotImplementedError, match="sand"):
         tp2g.check_device_materials(tcfg)
-    _, jelly = configs((1,))
-    tp2g.check_device_materials(jelly)
+    _, on_card = configs((1, 3))  # jelly, water: both have device code
+    tp2g.check_device_materials(on_card)
