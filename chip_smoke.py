@@ -10,16 +10,24 @@ Phases, each printed as one JSON line:
 
 1. ``card``: the card's name and power limit (nvidia-smi), then ``build``:
    the CUDA kernels compiled from ``taichi_mpm_torch/csrc`` (one nvcc per
-   source, started together).
+   source, started together); ``p2g_fused_checksum``: the SHA-256 of the
+   fused P2G kernel's tiles on a fixed input (``p2g_fused_checksum``), to
+   compare with another tree's.
 2. ``cube25``: ``benchmark_cube(cells=25)`` (125k jelly particles), one
    frame of 6 substeps on the card and the same frame on the CPU (the
    kernels' plain twins), held to x 5e-6, v 5e-5, F 5e-6, C 5e-4, aux 5e-6
    with equal sort and plasticity counts; a second card frame must give
-   the same bits (the path is deterministic). Then each kernel against
+   the same bits (the path is deterministic). The same frame on the
+   unfused route (``TMT_FUSED=0``: the operand prep, ``p2g_blocked``,
+   ``g2p_blocked`` and the finish) on the card, held to the same bounds
+   against the fused card frame and against the unfused CPU frame. Then
+   each kernel against
    its plain PyTorch version on the same CUDA inputs: that state stirred
    (see ``stirred``) so that C and F - I are far from 0. P2G records to
    1e-5 x max|record| and bit-identical over two launches (the kernel is
-   deterministic); G2P rows to x 5e-6, v 5e-5, F 5e-6, C 5e-4 and
+   deterministic), ``p2g_blocked`` so too at the page map's K and at a K
+   of the other residue mod 4 (empty slots appended, whose tiles must be
+   zero); G2P rows to x 5e-6, v 5e-5, F 5e-6, C 5e-4 and
    1e-3 x max|C|, aux 5e-6, the other rows exactly, vmax to 1e-5
    relative, the plasticity count exactly; the gather-only G2P's rows v to
    5e-5 and B to min(5e-4, 1e-3 x max|B|); max|v|, max|F - I| and max|C|
@@ -39,16 +47,24 @@ Phases, each printed as one JSON line:
    time against the frame's wall time (the idle share) and the kernels
    that take the most of it.
 5. ``kernel_checks``: the checks of phase 2 on the 8M state, stirred,
-   and the kernels' times there; ``unported_bounds``: the bound of the
-   TPU P2G kernels still to port (``p2g_blocked``, ``p2g_blocked_batched``)
-   for the same state.
-6. ``cpic_check``: the CPIC frame on a small wheel scene (10,000 water
+   and the kernels' times there.
+6. ``main_path_unfused``: the 8M jelly cube built under ``TMT_FUSED=0``,
+   one warm-up and 5 timed frames, each kernel of that route launched
+   once per substep and none of the fused route; ``stage_report``: its
+   stages at 8M (``taichi_mpm_torch.diagnostics.stage_report``).
+7. ``dam_check``: the adaptive dam break (``scenes.water_dam``) at res 32,
+   one adaptive frame of 5e-4 s on the card on each route and on the CPU:
+   equal substep counts, the bounds of phase 2. ``dam``: the dam at res
+   128 (1,410,048 water particles), a warm-up frame and 3 timed frames of
+   0.01 s on each route; per frame its substeps, smallest and largest dt,
+   ms per substep, host syncs per substep and the update counter.
+8. ``cpic_check``: the CPIC frame on a small wheel scene (10,000 water
    particles placed on the wheel's paddles, falling at 1 m/s, res 96, the
    lazy rigid page map on): 6 substeps on the card and on the CPU, held
    to x 5e-6, v 5e-4, F 5e-5, states and near_b exactly, body vel and
    omega 1e-5, pos 1e-6, the counts of the frame equal; a second card run
    must give the same bits.
-7. ``cpic_path``: ``scenes.cpic_wheel()`` (100,000 water particles over a
+9. ``cpic_path``: ``scenes.cpic_wheel()`` (100,000 water particles over a
    hub and a 6-paddle wheel joined by a rotation articulation, res 96),
    frames of 20 substeps: every launch count set to 0, warm-up frames
    until the water has reached the wheel, then timed frames, the counts
@@ -63,8 +79,15 @@ Phases, each printed as one JSON line:
    CUDA-event time of each stage of a
    coupled substep, per substep over one frame; ``cpic_profile``: the
    idle share of one frame.
+10. ``cpic_adaptive``: the wheel's 100k water and
+   bodies through ``AsyncMPM`` on the fused route, the water placed on
+   the paddles as in ``cpic_check`` (from the default placement it would
+   take ~2,800 adaptive substeps to reach the wheel): a warm-up frame and
+   3 timed frames of 2e-3 s, with their substeps, ms and host syncs per
+   substep, which must not exceed the fixed-dt frames'. Each kernel of
+   an adaptive path must have launched once per substep, no other.
 
-Then the ``kernels`` line: per kernel its launches on each main path, its
+Then the ``kernels`` line: per kernel its launches on each path, its
 CUDA-event time at the 8M shapes, its plain version's time, its max abs
 error against the plain version there (from ``kernel_checks``), and its
 bound (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the
@@ -77,7 +100,9 @@ result.
 
 from __future__ import annotations
 
+import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -87,14 +112,18 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 N_TIMED_FRAMES = 15
+N_TIMED_FRAMES_UNFUSED = 5
 SUBSTEPS_PER_FRAME = 20
 CPIC_WARM_FRAMES = 50  # 1000 substeps: the water falls onto the wheel
 CPIC_TIMED_FRAMES = 5
+ADAPTIVE_TIMED_FRAMES = 3  # after one warm-up frame
 
 # float32 operations per particle, counted from the kernels' formulas (an
 # FMA is 2): see the notes in taichi_mpm_torch/csrc/p2g.cu and g2p.cu.
 P2G_OPS_PREP = 6 * 115 + 146 + 135  # polar Newton (6 iterations), force + A, weights
 P2G_OPS_SCATTER = 27 * 31  # 27 support nodes: weight, offset, 3 + 1 channel FMAs
+P2G_OPS_WEIGHTS = 135  # the 21 axis weights (p2g_blocked evaluates them from the operand)
+P2G_OPERAND_ROWS = 16  # p2g_blocked's operand: m v, m, A, block-local pos
 G2P_OPS_GATHER = 6 + 54 + 27 * 29  # position, weights, 27 nodes: v and B FMAs
 G2P_OPS_FINISH = 150  # damping, cdg, F <- cdg F, advection, checks
 # state rows each kernel must read and write per particle, by material
@@ -129,7 +158,33 @@ def material_rows(st, lanes, table, read=True):
 def counters():
     from taichi_mpm_torch.ops import g2p, p2g
 
-    return {"p2g_fused": p2g.stats, "g2p_fused": g2p.stats, "g2p_blocked": g2p.blocked_stats}
+    return {"p2g_fused": p2g.stats, "g2p_fused": g2p.stats, "g2p_blocked": g2p.blocked_stats,
+            "p2g_blocked": p2g.blocked_stats}
+
+
+ROUTE_KERNELS = {True: ("p2g_fused", "g2p_fused"), False: ("p2g_blocked", "g2p_blocked")}
+
+
+def route_failures(launches, fused, substeps, kernels=None):
+    """Each kernel of the route (or of `kernels`) launched once per
+    substep, every other kernel never."""
+    kernels = kernels or ROUTE_KERNELS[fused]
+    return [f"{name} launched {n} times in {substeps} substeps"
+            for name, n in launches.items() if n != (substeps if name in kernels else 0)]
+
+
+def on_route(fused, make):
+    """make() with TMT_FUSED set for the route, as a user selects it (the
+    solver reads it at construction)."""
+    old = os.environ.get("TMT_FUSED")
+    os.environ["TMT_FUSED"] = "1" if fused else "0"
+    try:
+        return make()
+    finally:
+        if old is None:
+            del os.environ["TMT_FUSED"]
+        else:
+            os.environ["TMT_FUSED"] = old
 
 
 def zero_counts():
@@ -241,6 +296,7 @@ def compare_kernels(sim, st, failures, cfg=None):
     if not p2g_err <= 1e-5 * scale:
         failures.append(f"P2G records differ by {p2g_err} > 1e-5 x {scale}")
     del tiles, tiles2, tiles_p, rec_p
+    blocked_err, blocked_K = blocked_p2g_checks(pm, p2g.prep_packed(st, cfg, dt), failures)
 
     vrec = grid_update_flat(rec, pm["ids"], cfg, tuple(sim.colliders), sim.t, dt)
     win = blocked.windows(vrec, pm["nbr"])
@@ -280,10 +336,63 @@ def compare_kernels(sim, st, failures, cfg=None):
         if not gather_err[name] <= bound:
             failures.append(f"gather-only G2P row {name} differs by {gather_err[name]} > {bound}")
     return dict(p2g_max_abs_err=p2g_err, p2g_record_scale=scale,
+                p2g_blocked_max_abs_err=max(blocked_err.values()), p2g_blocked_err=blocked_err,
+                p2g_blocked_slots=blocked_K,
                 g2p_max_abs_err=max(errs.values()), g2p_row_err=errs, g2p_scale=g2p_scale,
                 vmax=vk, vmax_plain=vp, plast=int(plast), plast_plain=int(plast_p),
                 g2p_blocked_max_abs_err=max(gather_err.values()),
                 g2p_blocked_row_err=gather_err, max_abs_B=b_scale)
+
+
+def blocked_p2g_checks(pm, pdata, failures):
+    """p2g_blocked against its plain version on the operand `pdata` of the
+    page map `pm`: at the map's K and, with empty slots appended, at a K
+    of the other residue mod 4 (the TPU dispatched on K % 4; the port has
+    one kernel). Records to 1e-5 x max|record|, two launches bit-identical,
+    the appended slots' tiles zero. Returns the errors and the Ks."""
+    import torch
+
+    from taichi_mpm_torch.ops import blocked, p2g
+
+    K = pm["s_arr"].shape[0]
+    errs = {}
+    for n in (K, K + (1 if K % 4 == 0 else 4 - K % 4)):
+        pad = pm["e_arr"][-1:].expand(n - K)
+        s_arr, e_arr = torch.cat([pm["s_arr"], pad]), torch.cat([pm["e_arr"], pad])
+        tiles = p2g.p2g_blocked(s_arr, e_arr, pdata)
+        tiles2 = p2g.p2g_blocked(s_arr, e_arr, pdata)
+        tiles_p = p2g.p2g_blocked_plain(s_arr, e_arr, pdata)
+        torch.cuda.synchronize()
+        if not torch.equal(tiles.view(torch.int32), tiles2.view(torch.int32)):
+            failures.append(f"p2g_blocked gave other bits on a second launch (K={n})")
+        if bool(tiles[K:].any()):
+            failures.append(f"p2g_blocked wrote into empty slots (K={n})")
+        rec = blocked.merge_tiles(tiles[:K].contiguous(), pm["nbr"])
+        rec_p = blocked.merge_tiles(tiles_p[:K].contiguous(), pm["nbr"])
+        errs[f"K={n}"] = err = max_abs(rec, rec_p)
+        scale = float(rec_p.abs().max())
+        if not err <= 1e-5 * scale:
+            failures.append(f"p2g_blocked records differ by {err} > 1e-5 x {scale} (K={n})")
+        del tiles, tiles2, tiles_p, rec, rec_p
+    return errs, [K, n]
+
+
+def p2g_fused_checksum():
+    """SHA-256 of p2g_fused's tiles on a fixed input: the 125k jelly cube
+    (benchmark_cube(cells=25)), packed and sorted, stirred with seed 0.
+    It uses only the port's API of its first slices, so the same function
+    can be pointed at an older tree's package to show that a change left
+    the kernel's bits as they were."""
+    import torch
+
+    from taichi_mpm_torch.ops import p2g, packed
+
+    sim = cube(25, "cuda", 6)
+    sim._ensure_finalized()
+    st, _, pm, _ = packed.pack_carry(sim.particles, sim.cfg, sim._active_block_cap())
+    tiles = p2g.p2g_fused(pm["s_arr"], pm["e_arr"], stirred(st), sim.cfg.base_dt, sim.cfg)
+    torch.cuda.synchronize()
+    return hashlib.sha256(tiles.cpu().numpy().tobytes()).hexdigest()
 
 
 def cube(cells, device, substeps, material="jelly"):
@@ -295,37 +404,56 @@ def cube(cells, device, substeps, material="jelly"):
     return sim
 
 
+FRAME_BOUNDS = (("x", 5e-6), ("v", 5e-5), ("F", 5e-6), ("C", 5e-4), ("aux", 5e-6))
+
+
+def frame_errors(a, b, label, failures, bounds=FRAME_BOUNDS):
+    """Two scenes after the same frame: the same particles alive, the
+    same sort and plasticity counts, the fields within `bounds`. Returns
+    the errors; a broken bound is appended to `failures`."""
+    pa, pb = a.particles, b.particles
+    act = pa.active.cpu().numpy()
+    if not np.array_equal(pb.active.cpu().numpy(), act):
+        failures.append(f"{label}: the frames keep other particles")
+    act &= pb.active.cpu().numpy()
+    errs = {}
+    for name, bound in bounds:
+        ea = getattr(pa, name).cpu().numpy()[act].astype(np.float64)
+        eb = getattr(pb, name).cpu().numpy()[act].astype(np.float64)
+        errs[name] = float(np.abs(ea - eb).max())
+        if not errs[name] <= bound:
+            failures.append(f"{label}: {name} differs by {errs[name]} > {bound}")
+    if (a.n_sorts, a.plasticity_counter) != (b.n_sorts, b.plasticity_counter):
+        failures.append(f"{label}: the frames count other sorts or plastic events")
+    return errs
+
+
 def phase_cube25():
-    """One 6-substep frame on the card and on the CPU, then the kernels
-    against their plain versions at the card's state."""
+    """One 6-substep frame on the card and on the CPU, on each route;
+    then the kernels against their plain versions at the card's state."""
     from taichi_mpm_torch import convert
 
     sims = {dev: cube(25, dev, 6) for dev in ("cuda", "cpu")}
+    unfused = {dev: on_route(False, lambda: cube(25, dev, 6)) for dev in ("cuda", "cpu")}
     rerun = cube(25, "cuda", 6)
-    for sim in (*sims.values(), rerun):
+    for sim in (*sims.values(), rerun, unfused["cpu"]):
         sim.step()
-    g, c = (sims[d].particles for d in ("cuda", "cpu"))
-    failures = []
+    zero_counts()
+    unfused["cuda"].step()
+    failures = route_failures(read_counts(), False, 6)
+    g = sims["cuda"].particles
     first = convert.particles_to_numpy(g)
     for name, arr in convert.particles_to_numpy(rerun.particles).items():
         if arr.tobytes() != first[name].tobytes():
             failures.append(f"the card's frame is not deterministic: {name} differs on a rerun")
-    act = c.active.numpy()
-    if not np.array_equal(g.active.cpu().numpy(), act):
-        failures.append("card and CPU frames keep other particles")
-    act &= g.active.cpu().numpy()
-    errs = {}
-    for name, bound in (("x", 5e-6), ("v", 5e-5), ("F", 5e-6), ("C", 5e-4), ("aux", 5e-6)):
-        a = getattr(g, name).cpu().numpy()[act].astype(np.float64)
-        b = getattr(c, name).numpy()[act].astype(np.float64)
-        errs[name] = float(np.abs(a - b).max())
-        if not errs[name] <= bound:
-            failures.append(f"card vs CPU frame: {name} differs by {errs[name]} > {bound}")
-    gs, cs = sims["cuda"], sims["cpu"]
-    if (gs.n_sorts, gs.plasticity_counter) != (cs.n_sorts, cs.plasticity_counter):
-        failures.append("card and CPU frames count other sorts or plastic events")
-    out = dict(phase="cube25", particles=int(act.sum()), K=gs.block_capacity,
-               frame_vs_cpu=errs, n_sorts=gs.n_sorts)
+    gs = sims["cuda"]
+    out = dict(phase="cube25", particles=int(g.active.sum()), K=gs.block_capacity,
+               n_sorts=gs.n_sorts, plast=gs.plasticity_counter,
+               frame_vs_cpu=frame_errors(gs, sims["cpu"], "card vs CPU frame", failures),
+               unfused_vs_fused=frame_errors(unfused["cuda"], gs, "unfused vs fused card frame",
+                                             failures),
+               unfused_vs_cpu=frame_errors(unfused["cuda"], unfused["cpu"],
+                                           "unfused card vs CPU frame", failures))
     out.update(compare_kernels(gs, stirred(gs.packed_carry[0]), failures))
     emit(dict(out, failures=failures))
     raise_failures(failures)
@@ -372,48 +500,56 @@ def phase_water25():
     raise_failures(failures)
 
 
-def phase_main_path(card):
-    """The 8M-particle jelly cube: warm-up frame, timed frames, checks."""
+def check_domain(sim, n_expected, failures):
+    """All n_expected particles active, with finite positions inside
+    [0, res dx]. Returns the active positions."""
     import torch
 
-    from taichi_mpm_torch.ops import g2p, p2g
+    p = sim.particles
+    n_active = int(p.active.sum())
+    if n_active != n_expected:
+        failures.append(f"{n_active} particles active, not {n_expected:,}")
+    x = p.x[p.active]
+    hi = sim.cfg.res[0] * sim.cfg.dx
+    if not (bool(torch.isfinite(x).all()) and float(x.min()) >= 0.0 and float(x.max()) <= hi):
+        failures.append("positions not finite or outside the domain")
+    return x
+
+
+def phase_main_path(card, fused=True):
+    """The 8M-particle jelly cube on one route: warm-up frame, timed
+    frames, checks."""
+    import torch
 
     t0 = time.perf_counter()
-    sim = cube(100, "cuda", SUBSTEPS_PER_FRAME)
+    sim = on_route(fused, lambda: cube(100, "cuda", SUBSTEPS_PER_FRAME))
     sim._ensure_finalized()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
 
+    n_frames = N_TIMED_FRAMES if fused else N_TIMED_FRAMES_UNFUSED
     zero_counts()
     t0 = time.perf_counter()
     sim.step()  # warm-up: pack, first sort, page map
     sim.sync()
     warm_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for _ in range(N_TIMED_FRAMES):
+    for _ in range(n_frames):
         sim.step()
     sim.sync()
     timed_s = time.perf_counter() - t0
     launches = read_counts()
 
-    substeps = (1 + N_TIMED_FRAMES) * SUBSTEPS_PER_FRAME
-    failures = [f"{name} launched {launches[name]} times in {substeps} substeps"
-                for name in ("p2g_fused", "g2p_fused") if launches[name] != substeps]
-    p = sim.particles
-    n_active = int(p.active.sum())
-    if n_active != 8_000_000:
-        failures.append(f"{n_active} particles active, not 8,000,000")
-    x = p.x[p.active]
-    hi = sim.cfg.res[0] * sim.cfg.dx
-    if not (bool(torch.isfinite(x).all()) and float(x.min()) >= 0.0 and float(x.max()) <= hi):
-        failures.append("positions not finite or outside the domain")
-
-    n_timed = N_TIMED_FRAMES * SUBSTEPS_PER_FRAME
+    substeps = (1 + n_frames) * SUBSTEPS_PER_FRAME
+    failures = route_failures(launches, fused, substeps)
+    x = check_domain(sim, 8_000_000, failures)
+    n_timed = n_frames * SUBSTEPS_PER_FRAME
     emit(dict(
-        phase="main_path", card=card, particles=n_active, K=sim.block_capacity,
+        phase="main_path" if fused else "main_path_unfused", card=card, fused=sim.fused,
+        particles=int(x.shape[0]), K=sim.block_capacity,
         substeps=substeps, timed_substeps=n_timed, ms_per_substep=timed_s * 1e3 / n_timed,
-        particle_steps_per_s=n_active * n_timed / timed_s, n_sorts=sim.n_sorts,
+        particle_steps_per_s=x.shape[0] * n_timed / timed_s, n_sorts=sim.n_sorts,
         warmup_frame_s=warm_s, setup_s=setup_s,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         y_min=float(x[:, 1].min()), launches=launches,
@@ -421,6 +557,14 @@ def phase_main_path(card):
     ))
     raise_failures(failures)
     return sim, launches
+
+
+def phase_stage_report(sim, card):
+    """The unfused pipeline's stages at the 8M state, ms per substep."""
+    from taichi_mpm_torch import diagnostics
+
+    emit(dict(phase="stage_report", card=card,
+              ms=diagnostics.stage_report(sim, substeps=5, repeats=2)))
 
 
 def phase_breakdown(sim, card):
@@ -504,6 +648,8 @@ def phase_kernels(sim, card):
         grid_update_flat(rec, pm["ids"], cfg, tuple(sim.colliders), sim.t, dt), pm["nbr"])
     scratch = st.clone()
     keys = pm["slot_keys"]
+    pdata = p2g.prep_packed(st, cfg, dt)
+    s_arr, e_arr = pm["s_arr"], pm["e_arr"]
     times = {
         "p2g_fused": (cuda_ms(lambda: p2g.p2g_fused(pm["s_arr"], pm["e_arr"], st, dt, cfg), 10),
                       cuda_ms(lambda: p2g.p2g_fused_plain(pm["s_arr"], pm["e_arr"], st, dt, cfg),
@@ -512,8 +658,10 @@ def phase_kernels(sim, card):
                       cuda_ms(lambda: g2p.g2p_fused_plain(keys, scratch, win, dt, cfg), 3)),
         "g2p_blocked": (cuda_ms(lambda: g2p.g2p_blocked(keys, st, win, cfg), 10),
                         cuda_ms(lambda: g2p.g2p_blocked_plain(keys, st, win, cfg), 3)),
+        "p2g_blocked": (cuda_ms(lambda: p2g.p2g_blocked(s_arr, e_arr, pdata), 10),
+                        cuda_ms(lambda: p2g.p2g_blocked_plain(s_arr, e_arr, pdata), 3)),
     }
-    del rec, win, scratch
+    del rec, win, scratch, pdata
 
     failures = []
     checks = compare_kernels(sim, stirred(st), failures)
@@ -535,18 +683,12 @@ def phase_kernels(sim, card):
         "g2p_blocked": (4 * (pw + GATHER_ROWS_READ * n_keyed + GATHER_ROWS_WRITTEN * pw
                              + windows_bytes),
                         G2P_OPS_GATHER * n_keyed, checks["g2p_blocked_max_abs_err"]),
+        # the operand rows of each lane in a slot range read once, the live
+        # slots' tiles written once, the ranges read
+        "p2g_blocked": (4 * (P2G_OPERAND_ROWS * n_in + 2 * K + n_live * 343 * 4),
+                        (P2G_OPS_WEIGHTS + P2G_OPS_SCATTER) * n_in,
+                        checks["p2g_blocked_max_abs_err"]),
     }
-    # the TPU kernels still to port (ROADMAP queue 2 items 4-5),
-    # p2g_blocked_batched and p2g_blocked: P2G from a prebuilt (16, Pw)
-    # operand [m v, m, A, block-local pos] into (K, 28, 49) tiles. Bound
-    # for the same 8M state: each lane in a slot range read once (16 rows),
-    # the live slots' tiles written once (28 x 49 floats), the ranges read
-    t_b = 4 * (16 * n_in + 2 * K + n_live * 28 * 49) / HBM_BYTES_PER_S * 1e3
-    t_o = P2G_OPS_SCATTER * n_in / FP32_OPS_PER_S * 1e3
-    emit(dict(phase="unported_bounds", card=card, particles_in_ranges=n_in, live_slots=n_live,
-              p2g_blocked_bound_ms=max(t_b, t_o),
-              p2g_blocked_bound_by="bytes" if t_b >= t_o else "operations",
-              note="p2g_blocked_batched and p2g_blocked compute the same function"))
     out = {}
     for name, (nbytes, ops, err) in work.items():
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -562,6 +704,9 @@ KERNEL_SOURCES = {
     "p2g_fused": ("taichi_mpm_torch/csrc/p2g.cu", "taichi_mpm_tpu/ops/fused_pallas.py:301"),
     "g2p_fused": ("taichi_mpm_torch/csrc/g2p.cu", "taichi_mpm_tpu/ops/fused_pallas.py:377"),
     "g2p_blocked": ("taichi_mpm_torch/csrc/g2p.cu", "taichi_mpm_tpu/ops/g2p_pallas.py:277"),
+    # one kernel for both TPU entry points (p2g_blocked_batched, p2g_blocked)
+    "p2g_blocked": ("taichi_mpm_torch/csrc/p2g.cu",
+                    "taichi_mpm_tpu/ops/p2g_pallas.py:318, taichi_mpm_tpu/ops/p2g_pallas.py:362"),
 }
 
 
@@ -584,6 +729,7 @@ def kernels_line(measured, launches_by_path):
 # -- the CPIC path ----------------------------------------------------------------
 
 CPIC_BOUNDS = (("x", 5e-6), ("v", 5e-4), ("F", 5e-5))
+CPIC_KERNELS = ("p2g_fused", "g2p_blocked")
 BODY_BOUNDS = (("vel", 1e-5), ("omega", 1e-5), ("pos", 1e-6))
 
 
@@ -659,7 +805,7 @@ def phase_cpic_path(card):
     import torch
 
     from taichi_mpm_torch import scenes
-    from taichi_mpm_torch.rigid.cpic_blocked import HostSyncs
+    from taichi_mpm_torch.utils import HostSyncs
 
     t0 = time.perf_counter()
     sim = scenes.cpic_wheel(device="cuda")
@@ -692,16 +838,9 @@ def phase_cpic_path(card):
     kernel_checks = compare_kernels(sim, stirred(sim.packed_carry[0], aux_sd=0.1), failures)
 
     substeps = (CPIC_WARM_FRAMES + CPIC_TIMED_FRAMES) * SUBSTEPS_PER_FRAME
-    failures += [f"{name} launched {launches[name]} times in {substeps} substeps"
-                 for name in ("p2g_fused", "g2p_blocked") if launches[name] != substeps]
-    p = sim.particles
-    n_active = int(p.active.sum())
-    if n_active != 100_000:
-        failures.append(f"{n_active} particles active, not 100,000")
-    x = p.x[p.active]
-    hi = sim.cfg.res[0] * sim.cfg.dx
-    if not (bool(torch.isfinite(x).all()) and float(x.min()) >= 0.0 and float(x.max()) <= hi):
-        failures.append("positions not finite or outside the domain")
+    failures += route_failures(launches, True, substeps, CPIC_KERNELS)
+    x = check_domain(sim, 100_000, failures)
+    n_active = int(x.shape[0])
     omega_z = float(sim.bodies.omega[2, 2])
     if not (np.isfinite(omega_z) and omega_z != 0.0):
         failures.append(f"the wheel does not turn: omega_z = {omega_z}")
@@ -719,7 +858,7 @@ def phase_cpic_path(card):
         clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"), failures=failures,
     ))
     raise_failures(failures)
-    return sim, launches
+    return sim, launches, syncs / n_timed
 
 
 def phase_cpic_breakdown(sim, card):
@@ -754,6 +893,124 @@ def phase_cpic_breakdown(sim, card):
               / SUBSTEPS_PER_FRAME))
 
 
+# -- global adaptive dt ---------------------------------------------------------
+
+
+def phase_dam_check():
+    """One adaptive frame of the dam at res 32 on the card, on each route,
+    against the CPU: the same substeps, the bounds of the cube frames."""
+    from taichi_mpm_torch import scenes
+
+    def dam(device, fused):
+        sim = on_route(fused, lambda: scenes.water_dam(res=32, device=device))
+        sim.frame_dt = 5e-4
+        sim.step()
+        return sim
+
+    cpu = dam("cpu", True)
+    failures, out = [], dict(phase="dam_check", particles=int(cpu.particles.count()),
+                             substeps=cpu.last_substeps, dt_range=cpu.last_dt_range)
+    for fused in (True, False):
+        card = dam("cuda", fused)
+        route = "fused" if fused else "unfused"
+        if card.last_substeps != cpu.last_substeps:
+            failures.append(f"dam {route}: {card.last_substeps} substeps on the card, "
+                            f"{cpu.last_substeps} on the CPU")
+        out[f"{route}_vs_cpu"] = frame_errors(card, cpu, f"dam {route} card vs CPU", failures)
+    emit(dict(out, failures=failures))
+    raise_failures(failures)
+
+
+def adaptive_frames(sim, n_frames):
+    """Step `sim` (an AsyncMPM) `n_frames` frames; per frame its substeps,
+    dt range, wall time (fenced), ms and host syncs per substep."""
+    from taichi_mpm_torch.utils import HostSyncs
+
+    frames = []
+    for _ in range(n_frames):
+        syncs = HostSyncs.count
+        t0 = time.perf_counter()
+        sim.step()
+        sim.sync()
+        wall = time.perf_counter() - t0
+        n = sim.last_substeps
+        frames.append(dict(substeps=n, dt_min=sim.last_dt_range[0], dt_max=sim.last_dt_range[1],
+                           wall_s=wall, ms_per_substep=wall * 1e3 / n,
+                           host_syncs_per_substep=(HostSyncs.count - syncs) / n,
+                           update_counter=sim.update_counter))
+    return frames
+
+
+def summary(frames, n_particles):
+    """ms and host syncs per substep, particle-steps/s over `frames`."""
+    n = sum(f["substeps"] for f in frames)
+    wall = sum(f["wall_s"] for f in frames)
+    syncs = sum(f["host_syncs_per_substep"] * f["substeps"] for f in frames)
+    return dict(timed_substeps=n, ms_per_substep=wall * 1e3 / n,
+                particle_steps_per_s=n_particles * n / wall, host_syncs_per_substep=syncs / n)
+
+
+def phase_dam(card, fused):
+    """The dam break at res 128 (1,410,048 water particles) on one route:
+    a warm-up frame and ADAPTIVE_TIMED_FRAMES timed frames of 0.01 s."""
+    import torch
+
+    from taichi_mpm_torch import scenes
+
+    t0 = time.perf_counter()
+    sim = on_route(fused, lambda: scenes.water_dam(res=128, device="cuda"))
+    sim._ensure_finalized()
+    n = int(sim.particles.count())
+    setup_s = time.perf_counter() - t0
+    zero_counts()
+    frames = adaptive_frames(sim, 1 + ADAPTIVE_TIMED_FRAMES)
+    launches = read_counts()
+    substeps = sum(f["substeps"] for f in frames)
+    failures = route_failures(launches, fused, substeps)
+    x = check_domain(sim, n, failures)
+    if sim.update_counter != substeps * n:
+        failures.append(f"update counter {sim.update_counter} != {substeps} x {n}")
+    emit(dict(phase="dam", card=card, fused=sim.fused, particles=n, K=sim.block_capacity,
+              substeps=substeps, frames=frames, **summary(frames[1:], n),
+              n_sorts=sim.n_sorts, setup_s=setup_s, y_min=float(x[:, 1].min()),
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+              clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"), failures=failures))
+    raise_failures(failures)
+    return launches
+
+
+def phase_cpic_adaptive(card, fixed_syncs):
+    """The CPIC wheel's 100k water and bodies through AsyncMPM (fused
+    route), the water placed on the paddles: a warm-up frame and
+    ADAPTIVE_TIMED_FRAMES timed frames of 20 base dt (2e-3 s). Its host
+    syncs per substep must not exceed the fixed-dt frames' (`fixed_syncs`,
+    measured in this run)."""
+    from taichi_mpm_torch import scenes
+    from taichi_mpm_torch.core.adaptive import AsyncMPM
+
+    sim = scenes.cpic_wheel(device="cuda", lo=(0.5, 0.3, 0.42), hi=(0.68, 0.62, 0.58),
+                            vel=(0.0, -1.0, 0.0), solver=AsyncMPM, unit_delta_t=1e-6)
+    sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
+    zero_counts()
+    frames = adaptive_frames(sim, 1 + ADAPTIVE_TIMED_FRAMES)
+    launches = read_counts()
+    substeps = sum(f["substeps"] for f in frames)
+    failures = route_failures(launches, True, substeps, CPIC_KERNELS)
+    check_domain(sim, 100_000, failures)
+    timed = summary(frames[1:], 100_000)
+    if timed["host_syncs_per_substep"] > fixed_syncs:
+        failures.append(f"adaptive CPIC makes {timed['host_syncs_per_substep']} host syncs "
+                        f"per substep, the fixed-dt frame {fixed_syncs}")
+    if sim.cpic_stats["n_near"] == 0:
+        failures.append("no particle was near the wheel: the coupling went untested")
+    emit(dict(phase="cpic_adaptive", card=card, particles=100_000, substeps=substeps,
+              frames=frames, **timed, fixed_dt_host_syncs_per_substep=fixed_syncs,
+              stats=sim.cpic_stats, wheel_omega_z=float(sim.bodies.omega[2, 2]),
+              launches=launches, failures=failures))
+    raise_failures(failures)
+    return launches
+
+
 def main():
     import torch
 
@@ -770,20 +1027,29 @@ def main():
     t0 = time.perf_counter()
     cuda_build.build("p2g", "g2p")
     emit(dict(phase="build", seconds=time.perf_counter() - t0))
+    emit(dict(phase="p2g_fused_checksum", sha256=p2g_fused_checksum()))
 
+    launches = {}
     phase_cube25()
     phase_water25()
-    sim, jelly_launches = phase_main_path(card)
+    sim, launches["jelly_8m"] = phase_main_path(card)
     phase_profile(sim, card)  # steps one more frame: before the phases that share its state
     phase_breakdown(sim, card)
     measured = phase_kernels(sim, card)
     del sim
+    sim, launches["jelly_8m_unfused"] = phase_main_path(card, fused=False)
+    phase_stage_report(sim, card)
+    del sim
+    phase_dam_check()
+    launches["dam_fused"] = phase_dam(card, fused=True)
+    launches["dam_unfused"] = phase_dam(card, fused=False)
     phase_cpic_check()
-    sim, cpic_launches = phase_cpic_path(card)
+    sim, launches["cpic_wheel"], fixed_syncs = phase_cpic_path(card)
     phase_cpic_breakdown(sim, card)
     phase_profile(sim, card, phase="cpic_profile")
-    emit({"kernels": kernels_line(measured, {"jelly_8m": jelly_launches,
-                                             "cpic_wheel": cpic_launches})})
+    del sim
+    launches["cpic_wheel_adaptive"] = phase_cpic_adaptive(card, fixed_syncs)
+    emit({"kernels": kernels_line(measured, launches)})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

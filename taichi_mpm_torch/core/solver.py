@@ -5,12 +5,16 @@
 mesh for a CPIC rigid body), ``add_articulation``, ``add_collider`` and
 ``step()``. Without rigid bodies every frame runs
 ``ops.packed.packed_frame_carry``: the fused P2G and G2P kernels on the
-card, with a lazy re-sort. With rigid bodies it runs
+card, with a lazy re-sort; with ``TMT_FUSED=0`` in the environment (read
+at construction, as in the JAX package) the unfused route instead: the
+operand prep in torch, the P2G kernel on it, the gather-only G2P kernel
+and the finish in torch. A kernel that fails to build or launch raises;
+nothing falls back to the other route. With rigid bodies it runs
 ``rigid.cpic_packed.cpic_packed_frame_carry``: two-way coupled CPIC
 substeps (the fused P2G kernel and the gather-only G2P kernel, with the
-sparse corrections between). The packed carry (sorted state, page map,
-drift) persists across frames; ``particles`` is unpacked from it only
-when read.
+sparse corrections between); the unfused CPIC route raises. The packed
+carry (sorted state, page map, drift) persists across frames;
+``particles`` is unpacked from it only when read.
 
 Only the blocked path exists in the port so far: 2-D scenes and kernel
 orders other than 2 need the dense oracle path (ROADMAP.md queue 1,
@@ -19,9 +23,9 @@ orders other than 2 need the dense oracle path (ROADMAP.md queue 1,
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
-
 import dataclasses
+import os
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -77,6 +81,9 @@ class MPM:
         self.device = resolve_device(device)
         self.frame_dt = frame_dt
         self.capacity = capacity
+        # the fused kernels (prep inside P2G, finish inside G2P);
+        # TMT_FUSED=0 selects the unfused route
+        self.fused = os.environ.get("TMT_FUSED", "1") != "0"
         self.colliders: List = []
         self._pending: List[dict] = []
         self._particles: Optional[Particles] = None
@@ -312,15 +319,19 @@ class MPM:
 
     # -- time stepping --------------------------------------------------------
 
-    def step(self, frame_dt: Optional[float] = None):
-        """Advance one frame on the blocked path (the CPIC frame when the
-        scene has rigid bodies). The page map grows at the sort when its
-        capacity overflows (ops.packed.sort_and_map); the CPIC capacities
-        grow where they are used (rigid.cpic_packed)."""
+    def _check_route(self):
+        if self.bodies is not None and not self.fused:
+            raise NotImplementedError(
+                "CPIC with TMT_FUSED=0 runs the pytree CPIC frame "
+                "(rigid/cpic_blocked.cpic_frame_carry), not ported yet "
+                "(ROADMAP.md queue 1 item 6); unset TMT_FUSED")
+
+    def _prepare_frame(self):
+        """Finalize the scene, check its route and pack the carry when
+        there is none."""
         if (self._particles is None and self._pcarry is None) or self._pending:
             self._finalize()
-        fdt = frame_dt or self.frame_dt
-        n_sub = max(1, int(round(fdt / self.cfg.base_dt)))
+        self._check_route()
         if self._pcarry is None:
             p = self.particles
             self._cap_p = p.capacity
@@ -328,6 +339,22 @@ class MPM:
                 self.cpic_caps = cpic_packed.Capacities(self._rigid_map_cap())
             self._pcarry = packed.pack_carry(p, self.cfg, self._active_block_cap())
             self.n_sorts += 1
+
+    def _end_frame(self, carry, t, nsorts, plast):
+        self._pcarry = carry
+        self._particles = None  # unpacked again from the carry on read
+        self.t = t
+        self.n_sorts += nsorts
+        self.plasticity_counter += int(plast)
+
+    def step(self, frame_dt: Optional[float] = None):
+        """Advance one frame on the blocked path (the CPIC frame when the
+        scene has rigid bodies). The page map grows at the sort when its
+        capacity overflows (ops.packed.sort_and_map); the CPIC capacities
+        grow where they are used (rigid.cpic_packed)."""
+        self._prepare_frame()
+        fdt = frame_dt or self.frame_dt
+        n_sub = max(1, int(round(fdt / self.cfg.base_dt)))
         if self.bodies is not None:
             carry, self.bodies, t, nmax, nnear, ncoarse, nr, nsorts, plast = (
                 cpic_packed.cpic_packed_frame_carry(
@@ -337,12 +364,8 @@ class MPM:
         else:
             carry, t, _, nsorts, plast = packed.packed_frame_carry(
                 self._pcarry, self.t, self.cfg, tuple(self.colliders),
-                self.cfg.base_dt, n_sub)
-        self._pcarry = carry
-        self._particles = None  # unpacked again from the carry on read
-        self.t = t
-        self.n_sorts += nsorts
-        self.plasticity_counter += int(plast)
+                self.cfg.base_dt, n_sub, fused=self.fused)
+        self._end_frame(carry, t, nsorts, plast)
 
     # -- read-out -------------------------------------------------------------
 

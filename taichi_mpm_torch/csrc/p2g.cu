@@ -1,6 +1,8 @@
-// Fused prep + P2G for Hopper (sm_90a).
+// P2G for Hopper (sm_90a): two entry points over one node-accumulation
+// stage.
 //
-// Replaces the TPU kernel taichi_mpm_tpu/ops/fused_pallas.py p2g_fused
+// p2g_fused_launch (fused prep + P2G) replaces the TPU kernel
+// taichi_mpm_tpu/ops/fused_pallas.py p2g_fused
 // (_p2g_fused_kernel, _build_pd, with p2g_pallas._chunk_ops and
 // tile_correct): for each active block slot, build every particle's P2G
 // operand from the packed (48, Pw) state (m*v, m, the fused affine
@@ -35,6 +37,21 @@
 // particle) pair, 343 per particle where 27 carry weight, and skips zero
 // weights: it is the simple form, not the fast one, and that loop, not
 // memory, sets its time (chip_smoke.py prints it beside the bound).
+//
+// p2g_blocked_launch replaces the TPU kernels
+// taichi_mpm_tpu/ops/p2g_pallas.py p2g_blocked and p2g_blocked_batched
+// (the same function; the batched one takes 4 slots per program on the
+// TPU, which a CUDA grid does not need): the same halo tiles, from a
+// prebuilt (16, Pw) operand [m*v (3), m, A row-major (9), block-local
+// pos (3)] (ops/p2g.prep_packed) instead of the state. A thread stages a
+// particle by reading its 16 operand values and evaluating its 21 axis
+// weights; the node-owner accumulation and the write are those of
+// p2g_fused, so it is deterministic too. It reads 16 rows per particle in
+// a slot range (~0.51 GB at 8M) and writes the live slots' tiles: bound by
+// bytes (chip_smoke.py counts it), and set, as p2g_fused is, by the
+// node-owner loop. It keeps none of the TPU form: no matmul fold of the
+// weights into (112, 49) channels (_chunk_ops, tile_correct), no 512-lane
+// chunked DMA, no bf16x3 split.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -134,10 +151,40 @@ __device__ __forceinline__ void stage_particle(const float* __restrict__ st, lon
   }
 }
 
+// How a thread stages one particle: the 16 operand values and the 21 axis
+// weights. StageState builds them from the packed state (p2g_fused);
+// StageOperand reads a prebuilt operand (p2g_blocked).
 template <int MATS>
+struct StageState {
+  const float* __restrict__ st;
+  P2GParams prm;
+  __device__ __forceinline__ void operator()(long long pw, long long p, float* sv,
+                                             float* sw) const {
+    stage_particle<MATS>(st, pw, p, prm, sv, sw);
+  }
+};
+
+struct StageOperand {
+  const float* __restrict__ pd;
+  __device__ __forceinline__ void operator()(long long pw, long long p, float* sv,
+                                             float* sw) const {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) sv[k] = pd[(long long)k * pw + p];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float pos = sv[13 + a];
+#pragma unroll
+      for (int i = 0; i < TILE; ++i) sw[a * TILE + i] = quad_w(pos - (float)(i - 1));
+    }
+  }
+};
+
+// One block per slot: stage the slot's sorted range [s, e) 128 particles
+// at a time, each thread summing its own halo nodes in particle order.
+template <class Stage>
 __global__ void __launch_bounds__(THREADS)
-p2g_kernel(const float* __restrict__ st, long long pw, const int* __restrict__ s_arr,
-           const int* __restrict__ e_arr, float* __restrict__ out, P2GParams prm) {
+p2g_kernel(Stage stage, long long pw, const int* __restrict__ s_arr,
+           const int* __restrict__ e_arr, float* __restrict__ out) {
   __shared__ float sv[THREADS][NV];
   __shared__ float sw[THREADS][NW];
   const int slot = blockIdx.x;
@@ -163,7 +210,7 @@ p2g_kernel(const float* __restrict__ st, long long pw, const int* __restrict__ s
 
   for (int base = s; base < e; base += THREADS) {
     const int cnt = min(THREADS, e - base);
-    if (tid < cnt) stage_particle<MATS>(st, pw, (long long)base + tid, prm, sv[tid], sw[tid]);
+    if (tid < cnt) stage(pw, (long long)base + tid, sv[tid], sw[tid]);
     __syncthreads();
     for (int p = 0; p < cnt; ++p) {
       const float* w = sw[p];
@@ -215,13 +262,26 @@ extern "C" int p2g_fused_launch(const float* st, long long pw, const int* s_arr,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K > 0) {
     if (mats == (1 << JELLY)) {
-      p2g_kernel<(1 << JELLY)><<<K, THREADS, 0, s>>>(st, pw, s_arr, e_arr, out, prm);
+      p2g_kernel<<<K, THREADS, 0, s>>>(StageState<(1 << JELLY)>{st, prm}, pw, s_arr, e_arr,
+                                       out);
     } else if (mats == (1 << WATER)) {
-      p2g_kernel<(1 << WATER)><<<K, THREADS, 0, s>>>(st, pw, s_arr, e_arr, out, prm);
+      p2g_kernel<<<K, THREADS, 0, s>>>(StageState<(1 << WATER)>{st, prm}, pw, s_arr, e_arr,
+                                       out);
     } else {
-      p2g_kernel<(1 << JELLY) | (1 << WATER)><<<K, THREADS, 0, s>>>(st, pw, s_arr, e_arr,
-                                                                     out, prm);
+      p2g_kernel<<<K, THREADS, 0, s>>>(StageState<(1 << JELLY) | (1 << WATER)>{st, prm}, pw,
+                                       s_arr, e_arr, out);
     }
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch on `stream`. pdata: (16, pw) f32 P2G operand [m*v (3), m, A
+// row-major (9), block-local pos (3)]; s_arr/e_arr: (K,) i32 sorted
+// particle ranges (s == e: an empty slot, zero tile); out: (K, 7, 7, 7, 4)
+// f32 halo tiles [i, j, k, c]. Returns cudaGetLastError().
+extern "C" int p2g_blocked_launch(const float* pdata, long long pw, const int* s_arr,
+                                  const int* e_arr, int K, float* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K > 0) p2g_kernel<<<K, THREADS, 0, s>>>(StageOperand{pdata}, pw, s_arr, e_arr, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -298,7 +298,18 @@ def allowed_dt(mat_id: int, F, aux, params, vol, mass, speed, dx):
         )
     else:  # LINEAR, JELLY: unconstrained
         return torch.full_like(aux, float("inf"))
-    return dx / (c + speed)
+    # a true division, as jnp's (torch computes scalar / tensor as
+    # reciprocal(tensor) * scalar, which rounds twice)
+    return torch.full_like(c, dx) / (c + speed)
+
+
+def dispatch_allowed_dt(active_materials, mat, F, aux, params, vol, mass, speed, dx):
+    """Per-particle allowed dt over the static active set (+inf for a
+    lane of no active material)."""
+    out = torch.full_like(aux, float("inf"))
+    for m in active_materials:
+        out = torch.where(mat == m, allowed_dt(m, F, aux, params, vol, mass, speed, dx), out)
+    return out
 
 
 FORCE_FNS = {

@@ -1,5 +1,6 @@
-"""Material ids and host-side parameter packing (the numpy part of
-``taichi_mpm_tpu.materials.models``).
+"""Material ids, host-side parameter packing and the per-particle dt
+limit over particle arrays (the parts of ``taichi_mpm_tpu.materials.models``
+the port uses).
 
 Parameter slot layout of the 8-wide per-particle ``params``:
   slot 0: mu_0      (water: k)
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import math
 
+from taichi_mpm_torch.materials import cforms
 from taichi_mpm_torch.materials.cforms import (  # noqa: F401  (re-exported ids)
     ELASTIC,
     JELLY,
@@ -130,3 +132,12 @@ def param_slot(material: str, name: str, base_kw=None) -> int:
             f"a single param slot; *_tex modulation unsupported for it"
         )
     return slots[0]
+
+
+def dispatch_allowed_dt(active_materials, mat, F, aux, params, vol, mass, speed, dx):
+    """Per-particle allowed dt of particle arrays (F (..., 3, 3), params
+    (..., 8)): ``cforms.dispatch_allowed_dt`` on their components; +inf
+    where unconstrained (jelly, linear)."""
+    Fc = tuple(F[..., i, j] for i in range(3) for j in range(3))
+    pc = tuple(params[..., k] for k in range(8))
+    return cforms.dispatch_allowed_dt(active_materials, mat, Fc, aux, pc, vol, mass, speed, dx)

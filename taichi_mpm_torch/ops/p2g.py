@@ -1,11 +1,19 @@
-"""Fused prep + P2G: packed state -> per-slot halo tiles.
+"""P2G: particles -> per-slot halo tiles.
 
-``p2g_fused`` launches the CUDA kernel ``csrc/p2g.cu`` on a CUDA tensor
-and uses its plain-torch twin ``p2g_fused_plain`` only on a CPU tensor.
-Both replace the TPU kernel ``taichi_mpm_tpu/ops/fused_pallas.py
-p2g_fused`` and give the same output: halo tiles ``(K, 7, 7, 7, 4)``
-[i, j, k, c] where tile node (i, j, k) is block-local node (i-1, j-1,
-k-1) and the channels are momentum (3) and mass.
+Two entry points of the CUDA kernel ``csrc/p2g.cu``, each with a
+plain-torch twin; a wrapper launches the kernel on a CUDA tensor and
+uses the twin only on a CPU tensor. Both give halo tiles
+``(K, 7, 7, 7, 4)`` [i, j, k, c] where tile node (i, j, k) is block-local
+node (i-1, j-1, k-1) and the channels are momentum (3) and mass.
+
+* ``p2g_fused`` (twin ``p2g_fused_plain``) replaces the TPU kernel
+  ``taichi_mpm_tpu/ops/fused_pallas.py p2g_fused``: prep and P2G from the
+  packed state.
+* ``p2g_blocked`` (twin ``p2g_blocked_plain``) replaces the TPU kernels
+  ``taichi_mpm_tpu/ops/p2g_pallas.py p2g_blocked`` and
+  ``p2g_blocked_batched`` (one function; the batched form is a TPU
+  grid layout): P2G from the prebuilt operand of ``prep_packed``, for
+  the unfused substep.
 
 ``prep_packed`` is the specification both follow for the per-particle
 operand (the JAX package's ``ops/packed.prep_packed``).
@@ -29,6 +37,7 @@ from taichi_mpm_torch.ops.rows import (
 )
 
 stats = cuda_build.LaunchCount("p2g_fused")
+blocked_stats = cuda_build.LaunchCount("p2g_blocked")
 
 # materials the CUDA kernels implement; the others run only on the CPU
 # through the plain twins until their device code lands
@@ -89,18 +98,16 @@ def _slot_lanes(s_arr, e_arr):
     return slot, s_arr.long()[slot] + rank
 
 
-def p2g_fused_plain(s_arr, e_arr, st, dt, cfg: SimConfig):
-    """Plain-torch twin of the P2G kernel: same inputs, same tiles. Each
-    particle adds to its 3x3x3 support nodes inside the tile; the sum
-    runs in particle order per support offset (index_add_)."""
-    K = s_arr.shape[0]
-    slot, lane = _slot_lanes(s_arr, e_arr)
-    pd = prep_packed(st[:, lane], cfg, dt)
+def _scatter_plain(slot, pd, K: int):
+    """Halo tiles (K, 7, 7, 7, 4) from the operand columns pd (16, n) of
+    particles in slots `slot` (n,), in sorted order. Each particle adds
+    to its 3x3x3 support nodes inside the tile; the sum runs in particle
+    order per support offset (index_add_)."""
     mv, m, A, pos = pd[0:3], pd[3], pd[4:13], pd[13:16]
     base = torch.floor(pos - 0.5)
     w = [[quadratic_weight(pos[a] - (base[a] + d)) for d in range(3)] for a in range(3)]
     tidx = (base + 1).long()  # tile index of the first support node
-    out = torch.zeros((K * TILE_NODES, 4), dtype=torch.float32, device=st.device)
+    out = torch.zeros((K * TILE_NODES, 4), dtype=torch.float32, device=pd.device)
     for di in range(3):
         for dj in range(3):
             for dk in range(3):
@@ -119,6 +126,20 @@ def p2g_fused_plain(s_arr, e_arr, st, dt, cfg: SimConfig):
     return out.reshape(K, TILE, TILE, TILE, 4)
 
 
+def p2g_fused_plain(s_arr, e_arr, st, dt, cfg: SimConfig):
+    """Plain-torch twin of the fused P2G kernel: same inputs, same tiles
+    (the operand of the lanes in slot ranges, then their scatter)."""
+    slot, lane = _slot_lanes(s_arr, e_arr)
+    return _scatter_plain(slot, prep_packed(st[:, lane], cfg, dt), s_arr.shape[0])
+
+
+def p2g_blocked_plain(s_arr, e_arr, pdata):
+    """Plain-torch twin of the P2G kernel on a prebuilt operand: the
+    scatter of ``p2g_fused_plain`` on the columns of `pdata` (16, Pw)."""
+    slot, lane = _slot_lanes(s_arr, e_arr)
+    return _scatter_plain(slot, pdata[:, lane], s_arr.shape[0])
+
+
 def _launch_args(cfg: SimConfig, dt):
     invD = inv_D(cfg.kernel_order)
     gdt = [np.float32(g) * np.float32(dt) for g in cfg.gravity]
@@ -129,16 +150,18 @@ def _launch_args(cfg: SimConfig, dt):
     )
 
 
-def _check_inputs(s_arr, e_arr, st):
-    if st.dtype != torch.float32 or st.dim() != 2 or st.shape[0] != NCH:
-        raise ValueError(f"state must be float32 ({NCH}, Pw), got {st.dtype} {tuple(st.shape)}")
+def _check_inputs(s_arr, e_arr, st, rows=NCH, what="state"):
+    if st.dtype != torch.float32 or st.dim() != 2 or st.shape[0] != rows:
+        raise ValueError(f"{what} must be float32 ({rows}, Pw), got {st.dtype} {tuple(st.shape)}")
     for name, a in (("s_arr", s_arr), ("e_arr", e_arr)):
         if a.dtype != torch.int32 or a.dim() != 1 or a.shape != s_arr.shape:
             raise ValueError(f"{name} must be int32 (K,), got {a.dtype} {tuple(a.shape)}")
         if a.device != st.device:
-            raise ValueError(f"{name} is on {a.device}, state on {st.device}")
+            raise ValueError(f"{name} is on {a.device}, {what} on {st.device}")
     if not (st.is_contiguous() and s_arr.is_contiguous() and e_arr.is_contiguous()):
-        raise ValueError("p2g_fused needs contiguous tensors")
+        raise ValueError("P2G needs contiguous tensors")
+    if st.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"P2G runs on cuda or cpu tensors, not {st.device}")
 
 
 def p2g_fused(s_arr, e_arr, st, dt, cfg: SimConfig):
@@ -148,8 +171,6 @@ def p2g_fused(s_arr, e_arr, st, dt, cfg: SimConfig):
     _check_inputs(s_arr, e_arr, st)
     if st.device.type == "cpu":
         return p2g_fused_plain(s_arr, e_arr, st, dt, cfg)
-    if st.device.type != "cuda":
-        raise ValueError(f"p2g_fused runs on cuda or cpu tensors, not {st.device}")
     check_device_materials(cfg)
     K = s_arr.shape[0]
     out = torch.empty((K, TILE, TILE, TILE, 4), dtype=torch.float32, device=st.device)
@@ -165,4 +186,28 @@ def p2g_fused(s_arr, e_arr, st, dt, cfg: SimConfig):
     if rc != 0:
         raise RuntimeError(f"p2g_fused kernel launch failed: CUDA error {rc}")
     stats.launches += 1
+    return out
+
+
+def p2g_blocked(s_arr, e_arr, pdata):
+    """Halo tiles (K, 7, 7, 7, 4) of the prebuilt P2G operand `pdata`
+    (16, Pw) [m v, m, A row-major, block-local pos] of a sorted state
+    over the slot ranges [s_arr, e_arr). On a CUDA tensor this launches
+    the kernel (or raises); on a CPU tensor it runs the twin."""
+    _check_inputs(s_arr, e_arr, pdata, rows=16, what="operand")
+    if pdata.device.type == "cpu":
+        return p2g_blocked_plain(s_arr, e_arr, pdata)
+    K = s_arr.shape[0]
+    out = torch.empty((K, TILE, TILE, TILE, 4), dtype=torch.float32, device=pdata.device)
+    lib = cuda_build.load("p2g")
+    fn = lib.p2g_blocked_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    stream = torch.cuda.current_stream(pdata.device).cuda_stream
+    rc = fn(pdata.data_ptr(), pdata.shape[1], s_arr.data_ptr(), e_arr.data_ptr(), K,
+            out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"p2g_blocked kernel launch failed: CUDA error {rc}")
+    blocked_stats.launches += 1
     return out

@@ -16,7 +16,8 @@ the per-substep rigid prologue {rigidify, articulate, rasterize CDF}.
 The near set is given as ``mini``: the (48, B) packed rows of its lanes
 (row map in ``ops/rows.py``) and ``nd``, its shared stencil data
 (``cdf.stencil_node_data``, 27 offsets stacked on a leading axis). The
-pytree frame of the JAX module (its ``TMT_FUSED=0`` route) is not ported.
+pytree frame of the JAX module (its ``TMT_FUSED=0`` route) is not ported
+(ROADMAP.md queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -43,20 +44,7 @@ from taichi_mpm_torch.rigid.body import (
 )
 from taichi_mpm_torch.rigid.cpic import _compatible, _friction_of
 from taichi_mpm_torch.rigid.host import HostBodies
-from taichi_mpm_torch.utils import const, index_add_ordered, mv
-
-
-class HostSyncs:
-    """Device-to-host reads the CPIC frame makes (each waits for the
-    card): a plain counter, read and reset by callers that measure."""
-
-    count = 0
-
-
-def host_read(t):
-    """t.tolist(), counted as one host sync."""
-    HostSyncs.count += 1
-    return t.tolist()
+from taichi_mpm_torch.utils import HostSyncs, const, host_read, index_add_ordered, mv
 
 
 def _rec_slot_lane(idx, slot_map, cfg: SimConfig):

@@ -1,5 +1,6 @@
 """CPIC on the packed path (torch counterpart of
-``taichi_mpm_tpu.rigid.cpic_packed``, single device, fixed dt).
+``taichi_mpm_tpu.rigid.cpic_packed``, single device, fixed or global
+adaptive dt, the fused route).
 
 The coupled substep runs compute-then-correct CPIC over the (48, Pw)
 packed state (row map in ``ops/rows.py``):
@@ -22,8 +23,9 @@ Where the JAX package keeps control flow on the device (``lax.cond``,
 the card. Per substep: the bodies, for the host-side rigid-rigid solve
 (``rigid/host.py``); the use-time check of the lazy rigid page map; the
 near set's two sizes (coarse and exact: the set is sized to them); and
-one read of max|v| together with the map's staleness after the advance.
-``HostSyncs.count`` counts them.
+one read of max|v| together with the map's staleness (and, at adaptive
+dt, the next dt limit) after the advance. ``HostSyncs.count`` counts
+them.
 
 Capacities: where the JAX package's MPM re-runs a frame that overflowed
 its near budget, coarse budget b1, rigid page map Kr or page map K, this
@@ -63,14 +65,12 @@ from taichi_mpm_torch.rigid.body import (
 )
 from taichi_mpm_torch.rigid.collision import rigid_levelset_collision
 from taichi_mpm_torch.rigid.cpic_blocked import (
-    HostSyncs,
     g2p_correction,
-    host_read,
     p2g_correction,
     rigid_map,
     rigid_prologue,
 )
-from taichi_mpm_torch.utils import const
+from taichi_mpm_torch.utils import HostSyncs, const, host_read
 
 DRIFT_BOUND = packed.DRIFT_BOUND
 
@@ -228,18 +228,20 @@ def _bp_blocks_ok(bodies, scene, cfg: SimConfig, chk):
     return torch.all(chk[cdf.block_id_of(xb, cfg)])
 
 
-def cpic_packed_frame_carry(carry, bodies, t, cfg: SimConfig, scene, dt, n_substeps: int,
-                            caps: Capacities, marks=None):
-    """A CPIC frame over a persistent packed carry (st, keys, pm, drift),
+def cpic_frame_loop(carry, bodies, t, cfg: SimConfig, scene, sched, caps: Capacities,
+                    marks=None):
+    """A CPIC frame over a persistent packed carry (st, keys, pm, drift)
+    on the schedule `sched` (``packed.FixedDt`` or ``packed.AdaptiveDt``),
     the lazy re-sort continuing across frames. Two-level loop: coupled
-    substeps run while the drift stays below 0.45 cell and the lazy rigid
-    page map (caps.Kr > 0) still covers every boundary particle; then the
-    state is re-sorted (when the drift demands it) and the map rebuilt
-    (when stale). Returns (carry, bodies, t, max n_act, max n_near,
-    max n_coarse, max n_r, n_sorts, plast)."""
+    substeps run while the schedule has more, the drift stays below 0.45
+    cell and the lazy rigid page map (caps.Kr > 0) still covers every
+    boundary particle; then the state is re-sorted (when the drift
+    demands it) and the map rebuilt (when stale). After each substep one
+    host read takes max|v|, the map's staleness and an adaptive
+    schedule's next dt limit. Returns (carry, bodies, t, max n_act,
+    max n_near, max n_coarse, max n_r, n_sorts, plast, n_substeps)."""
     st, keys, pm, drift = carry
     drift = np.float32(drift)
-    step_drift = np.float32(dt * cfg.inv_dx)
     lazy = caps.Kr > 0
     rm = _lazy_rmap(bodies, scene, cfg, caps) if lazy else None
     nmax = int(pm["n_act"])
@@ -247,18 +249,20 @@ def cpic_packed_frame_carry(carry, bodies, t, cfg: SimConfig, scene, dt, n_subst
     nr = rm[2] if lazy else 0
     stale = False
     plast = torch.zeros((), dtype=torch.int32, device=st.device)
-    while n < n_substeps or drift >= DRIFT_BOUND:
-        while n < n_substeps and drift < DRIFT_BOUND and not stale:
+    lim = sched.limit(st)
+    if lim is not None:
+        lim = np.float32(host_read(lim))
+    while sched.more(t, n) or drift >= DRIFT_BOUND:
+        while sched.more(t, n) and drift < DRIFT_BOUND and not stale:
+            dt = sched.next_dt(t, lim)
             (st, bodies, t), n_near, n_coarse, n_r, vmax, dplast = (
                 cpic_packed_substep_presorted(st, pm, bodies, t, cfg, scene, dt, caps,
                                               rmap=rm, marks=marks))
-            if lazy:
-                ok = _bp_blocks_ok(bodies, scene, cfg, rm[3]).to(torch.float32)
-                vmax_h, ok_h = host_read(torch.stack([vmax, ok]))
-                stale = ok_h < 0.5
-            else:
-                vmax_h = host_read(vmax)
-            drift = drift + step_drift * np.float32(vmax_h)
+            ok = (_bp_blocks_ok(bodies, scene, cfg, rm[3]).to(torch.float32)
+                  if lazy else None)
+            vmax_h, (ok_h, lim) = packed.read_substep(vmax, ok, sched.limit(st))
+            stale = lazy and ok_h < 0.5
+            drift = drift + sched.drift(dt, vmax_h)
             plast = plast + dplast
             n += 1
             nnear, ncoarse, nr = max(nnear, n_near), max(ncoarse, n_coarse), max(nr, n_r)
@@ -272,7 +276,36 @@ def cpic_packed_frame_carry(carry, bodies, t, cfg: SimConfig, scene, dt, n_subst
             rm = _lazy_rmap(bodies, scene, cfg, caps)
             nr = max(nr, rm[2])
             stale = False
-    return (st, keys, pm, drift), bodies, t, nmax, nnear, ncoarse, nr, nsorts, plast
+    return (st, keys, pm, drift), bodies, t, nmax, nnear, ncoarse, nr, nsorts, plast, n
+
+
+def cpic_packed_frame_carry(carry, bodies, t, cfg: SimConfig, scene, dt, n_substeps: int,
+                            caps: Capacities, marks=None):
+    """A fixed-dt CPIC frame over a persistent packed carry
+    (``cpic_frame_loop``). Returns (carry, bodies, t, max n_act,
+    max n_near, max n_coarse, max n_r, n_sorts, plast)."""
+    return cpic_frame_loop(carry, bodies, t, cfg, scene, packed.FixedDt(dt, n_substeps, cfg),
+                           caps, marks)[:9]
+
+
+def cpic_packed_adaptive_frame_carry(carry, bodies, t, cfg: SimConfig, scene, frame_dt,
+                                     unit_dt, max_dt, caps: Capacities, strength_dt_mul=1.0,
+                                     cfl_dt_mul=1.0, max_substeps: int = 100000, marks=None,
+                                     dts=None):
+    """A global adaptive-dt CPIC frame over a persistent packed carry
+    (the JAX package's ``cpic_packed_adaptive_frame_carry``: the loop of
+    the fixed-dt frame, ending when t reaches t + frame_dt, each dt the
+    snapped global limit of the packed rows). The dt limit is read with
+    max|v| and the staleness, so it adds no host sync per substep; `dts`,
+    where given, is a list the substeps' dt are appended to. Returns
+    (carry, bodies, t, max n_act, max n_near, max n_coarse, max n_r,
+    n_sorts, plast, n_substeps)."""
+    sched = packed.AdaptiveDt(t, cfg, frame_dt, unit_dt, max_dt, strength_dt_mul,
+                              cfl_dt_mul, max_substeps)
+    out = cpic_frame_loop(carry, bodies, t, cfg, scene, sched, caps, marks)
+    if dts is not None:
+        dts.extend(sched.dts)
+    return out
 
 
 def cpic_packed_pack_carry(p: Particles, cfg: SimConfig, K: int):

@@ -1,7 +1,8 @@
 """Small shared helpers (torch counterpart of ``taichi_mpm_tpu.utils``):
 the unrolled batched 3-vector products the rigid code uses, written with
-the JAX package's operation order, and the two ways host values reach
-the card without stalling it (``const``, ``upload``)."""
+the JAX package's operation order, the two ways host values reach
+the card without stalling it (``const``, ``upload``), and the counted
+way device values reach the host (``host_read``)."""
 
 from __future__ import annotations
 
@@ -81,3 +82,18 @@ def upload(values, device, dtype=np.float32):
     if torch.device(device).type != "cuda":
         return t
     return t.pin_memory().to(device, non_blocking=True)
+
+
+class HostSyncs:
+    """Device-to-host reads the frame loops make once or more per
+    substep (each waits for the card): a plain counter, read and reset by
+    callers that measure. The page map's occupancy read at a re-sort is
+    not counted."""
+
+    count = 0
+
+
+def host_read(t):
+    """t.tolist(), counted as one host sync."""
+    HostSyncs.count += 1
+    return t.tolist()

@@ -170,3 +170,27 @@ def assert_cpic_close(jp, jb, tp, tb):
     for name, bound in BODY_BOUNDS.items():
         err = max_err(getattr(jb, name), getattr(tb, name))
         assert err <= bound, (name, err)
+
+
+# -- frames of plain materials ------------------------------------------------
+
+FRAME_BOUNDS = dict(x=5e-6, v=5e-5, F=5e-6, C=5e-4, aux=5e-6)  # tests/test_fused.py
+
+
+def assert_frame_close(jp, tp, bounds=FRAME_BOUNDS):
+    """Two frames' particles (either package's) alive on the same lanes
+    and within `bounds` there."""
+    ja, ta = np_of(jp.active), np_of(tp.active)
+    assert np.array_equal(ja, ta)
+    for name, bound in bounds.items():
+        err = max_err(np_of(getattr(jp, name))[ja], np_of(getattr(tp, name))[ta])
+        assert err <= bound, (name, err)
+
+
+def fast_arrays(n=1200, seed=7, mats=("jelly",), drift=(12.0, -3.0, 0.0), v_scale=0.5):
+    """scene_arrays whose particles also move together at `drift` (m/s),
+    so the frame re-sorts (the grid transfer averages the random part of
+    v away within a substep, a common velocity stays)."""
+    a, mids = scene_arrays(n, seed=seed, mats=mats, v_scale=v_scale)
+    a["v"][:n] += np.float32(drift)
+    return a, mids

@@ -21,7 +21,8 @@ def test_port_import_does_not_load_jax():
         "taichi_mpm_torch.convert, taichi_mpm_torch.ops.packed, "
         "taichi_mpm_torch.rigid.cpic_packed, taichi_mpm_torch.rigid.articulation, "
         "taichi_mpm_torch.rigid.collision, taichi_mpm_torch.rigid.scene, "
-        "taichi_mpm_torch.rigid.mesh, taichi_mpm_torch.math.quat\n"
+        "taichi_mpm_torch.rigid.mesh, taichi_mpm_torch.math.quat, "
+        "taichi_mpm_torch.core.adaptive, taichi_mpm_torch.diagnostics\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'taichi_mpm_tpu'))]\n"
         "assert not bad, bad\n"
