@@ -10,9 +10,14 @@ Phases, each printed as one JSON line:
 
 1. ``card``: the card's name and power limit (nvidia-smi), then ``build``:
    the CUDA kernels compiled from ``taichi_mpm_torch/csrc`` (one nvcc per
-   source, started together); ``p2g_fused_checksum``: the SHA-256 of the
-   fused P2G kernel's tiles on a fixed input (``p2g_fused_checksum``), to
-   compare with another tree's.
+   source, started together); ``p2g_checksums``: the SHA-256 of both P2G
+   kernels' tiles on a fixed input (``p2g_checksums``), to compare with
+   another tree's; ``p2g_edges``: both P2G kernels against their twins on
+   hand-made inputs at their edges (``diagnostics.p2g_edge_inputs``: a
+   slot of 1,200 particles, supports reaching tile nodes 0 and 6, exact
+   half-cells, one-particle slots, empty slots inside and after the live
+   ones, K odd), jelly and water: merged records to 1e-5 x max|record|,
+   bits equal over two launches, empty slots' tiles zero.
 2. ``cube25``: ``benchmark_cube(cells=25)`` (125k jelly particles), one
    frame of 6 substeps on the card and the same frame on the CPU (the
    kernels' plain twins), held to x 5e-6, v 5e-5, F 5e-6, C 5e-4, aux 5e-6
@@ -96,6 +101,13 @@ and windows for the live slots only, as no other slot is read). Then the card's 
 last ``{"ok": true, "device": {...}}``. Any failed check raises, so the
 script exits non-zero; without a CUDA device it exits 2 and prints no
 result.
+
+``python3 chip_smoke.py --p2g-tree [DIR]`` runs only the P2G kernels of
+the package under DIR (a checkout's root; default this one): their
+checksums on the fixed input and their CUDA-event times on the 8M jelly
+cube and the 1.4M adaptive dam, each after one frame. Run it on two
+trees in one call (parent, change, change, parent) to show that a change
+kept the kernels' bits and to time both on one card.
 """
 
 from __future__ import annotations
@@ -120,9 +132,9 @@ ADAPTIVE_TIMED_FRAMES = 3  # after one warm-up frame
 
 # float32 operations per particle, counted from the kernels' formulas (an
 # FMA is 2): see the notes in taichi_mpm_torch/csrc/p2g.cu and g2p.cu.
-P2G_OPS_PREP = 6 * 115 + 146 + 135  # polar Newton (6 iterations), force + A, weights
+P2G_OPS_WEIGHTS = 54  # the 9 support weights, from the block-local position
+P2G_OPS_PREP = 6 * 115 + 146 + P2G_OPS_WEIGHTS  # polar Newton (6 iterations), force + A
 P2G_OPS_SCATTER = 27 * 31  # 27 support nodes: weight, offset, 3 + 1 channel FMAs
-P2G_OPS_WEIGHTS = 135  # the 21 axis weights (p2g_blocked evaluates them from the operand)
 P2G_OPERAND_ROWS = 16  # p2g_blocked's operand: m v, m, A, block-local pos
 G2P_OPS_GATHER = 6 + 54 + 27 * 29  # position, weights, 27 nodes: v and B FMAs
 G2P_OPS_FINISH = 150  # damping, cdg, F <- cdg F, advection, checks
@@ -377,22 +389,112 @@ def blocked_p2g_checks(pm, pdata, failures):
     return errs, [K, n]
 
 
-def p2g_fused_checksum():
-    """SHA-256 of p2g_fused's tiles on a fixed input: the 125k jelly cube
-    (benchmark_cube(cells=25)), packed and sorted, stirred with seed 0.
-    It uses only the port's API of its first slices, so the same function
-    can be pointed at an older tree's package to show that a change left
-    the kernel's bits as they were."""
+def p2g_checksums():
+    """SHA-256 of both P2G kernels' tiles on a fixed input: the 125k jelly
+    cube (benchmark_cube(cells=25)), packed and sorted, stirred with seed
+    0; p2g_blocked on its operand (prep_packed). It uses only the port's
+    API of its first three slices, so it can be pointed at an older tree's
+    package (``--p2g-tree``) to show that a change left the kernels' bits
+    as they were."""
     import torch
 
     from taichi_mpm_torch.ops import p2g, packed
 
     sim = cube(25, "cuda", 6)
     sim._ensure_finalized()
-    st, _, pm, _ = packed.pack_carry(sim.particles, sim.cfg, sim._active_block_cap())
-    tiles = p2g.p2g_fused(pm["s_arr"], pm["e_arr"], stirred(st), sim.cfg.base_dt, sim.cfg)
+    cfg, dt = sim.cfg, sim.cfg.base_dt
+    st, _, pm, _ = packed.pack_carry(sim.particles, cfg, sim._active_block_cap())
+    st = stirred(st)
+    tiles = {"p2g_fused": p2g.p2g_fused(pm["s_arr"], pm["e_arr"], st, dt, cfg),
+             "p2g_blocked": p2g.p2g_blocked(pm["s_arr"], pm["e_arr"],
+                                            p2g.prep_packed(st, cfg, dt))}
     torch.cuda.synchronize()
-    return hashlib.sha256(tiles.cpu().numpy().tobytes()).hexdigest()
+    return {name: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+            for name, t in tiles.items()}
+
+
+def phase_p2g_edges():
+    """Both P2G kernels against their twins on the hand-made edge inputs
+    (diagnostics.p2g_edge_inputs), jelly and water: merged records to
+    1e-5 x max|record|, two launches bit-identical, empty slots zero."""
+    import torch
+
+    from taichi_mpm_torch import diagnostics
+    from taichi_mpm_torch.ops import blocked, p2g
+
+    failures, out = [], {}
+    for material in ("jelly", "water"):
+        e = diagnostics.p2g_edge_inputs(material)
+        cfg, dt = e["cfg"], e["cfg"].base_dt
+        st, s_arr, e_arr, nbr = (torch.as_tensor(e[k], device="cuda")
+                                 for k in ("st", "s_arr", "e_arr", "nbr"))
+        pdata = p2g.prep_packed(st, cfg, dt)
+        runs = {
+            "p2g_fused": (lambda: p2g.p2g_fused(s_arr, e_arr, st, dt, cfg),
+                          lambda: p2g.p2g_fused_plain(s_arr, e_arr, st, dt, cfg)),
+            "p2g_blocked": (lambda: p2g.p2g_blocked(s_arr, e_arr, pdata),
+                            lambda: p2g.p2g_blocked_plain(s_arr, e_arr, pdata)),
+        }
+        empty = e_arr <= s_arr
+        for name, (kernel, plain) in runs.items():
+            label = f"{name} on the {material} edge inputs"
+            tiles, tiles2, tiles_p = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(tiles.view(torch.int32), tiles2.view(torch.int32)):
+                failures.append(f"{label}: other bits on a second launch")
+            if bool(tiles[empty].any()):
+                failures.append(f"{label}: an empty slot's tile is not zero")
+            rec, rec_p = blocked.merge_tiles(tiles, nbr), blocked.merge_tiles(tiles_p, nbr)
+            err, scale = max_abs(rec, rec_p), float(rec_p.abs().max())
+            if not err <= 1e-5 * scale:
+                failures.append(f"{label}: records differ by {err} > 1e-5 x {scale}")
+            out[f"{material}_{name}"] = dict(max_abs_err=err, record_scale=scale,
+                                             tile_err=max_abs(tiles, tiles_p))
+    emit(dict(phase="p2g_edges", slots=int(s_arr.shape[0]), empty_slots=int(empty.sum()),
+              particles=int((e_arr - s_arr).sum()), **out, failures=failures))
+    raise_failures(failures)
+
+
+def p2g_states():
+    """(label, sim) of the states the P2G kernels are timed on beside the
+    main run: the 8M jelly cube and the 1.4M adaptive dam break, each
+    after one frame (so with the sort and page map of the main paths)."""
+    from taichi_mpm_torch import scenes
+
+    for label, make in (("jelly_8m", lambda: cube(100, "cuda", SUBSTEPS_PER_FRAME)),
+                        ("dam_1.4m", lambda: scenes.water_dam(res=128, device="cuda"))):
+        sim = make()
+        sim.step()
+        yield label, sim
+
+
+def p2g_launches(sim):
+    """Both P2G kernels on the sorted state of `sim`, as calls."""
+    from taichi_mpm_torch.ops import p2g
+
+    cfg, dt = sim.cfg, sim.cfg.base_dt
+    st, _, pm, _ = sim.packed_carry
+    s_arr, e_arr = pm["s_arr"], pm["e_arr"]
+    pdata = p2g.prep_packed(st, cfg, dt)
+    return {"p2g_fused": lambda: p2g.p2g_fused(s_arr, e_arr, st, dt, cfg),
+            "p2g_blocked": lambda: p2g.p2g_blocked(s_arr, e_arr, pdata)}
+
+
+def p2g_tree(root=None):
+    """The P2G kernels of the package under `root` (default: this
+    checkout): their checksums, and their CUDA-event times (10 launches
+    each) on the states of p2g_states."""
+    if root is not None:
+        sys.path.insert(0, os.path.abspath(root))
+    import taichi_mpm_torch
+
+    out = dict(phase="p2g_tree", package=os.path.dirname(taichi_mpm_torch.__file__),
+               checksums=p2g_checksums())
+    for label, sim in p2g_states():
+        out[f"ms_{label}"] = {name: cuda_ms(fn, 10) for name, fn in p2g_launches(sim).items()}
+        out[f"slots_{label}"] = sim.block_capacity
+        del sim
+    emit(dict(out, clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit")))
 
 
 def cube(cells, device, substeps, material="jelly"):
@@ -1018,6 +1120,9 @@ def main():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--p2g-tree"]:
+        p2g_tree(*sys.argv[2:3])
+        return 0
     # the port itself: fails here when the script stands outside a checkout
     from taichi_mpm_torch.ops import cuda_build
 
@@ -1027,7 +1132,8 @@ def main():
     t0 = time.perf_counter()
     cuda_build.build("p2g", "g2p")
     emit(dict(phase="build", seconds=time.perf_counter() - t0))
-    emit(dict(phase="p2g_fused_checksum", sha256=p2g_fused_checksum()))
+    emit(dict(phase="p2g_checksums", sha256=p2g_checksums()))
+    phase_p2g_edges()
 
     launches = {}
     phase_cube25()

@@ -17,6 +17,16 @@ node (i-1, j-1, k-1) and the channels are momentum (3) and mass.
 
 ``prep_packed`` is the specification both follow for the per-particle
 operand (the JAX package's ``ops/packed.prep_packed``).
+
+Both kernels share one accumulation stage: one warp per slot stages 32
+particles at a time (operand values, support weights), then walks them
+in sorted order, each of 27 lanes adding the particle's term into one
+node of its 3x3x3 support in a shared-memory tile. Every node sums the
+same terms in the same order as the twins' specification (the slot's
+particles in sorted order, zero weights and nodes outside the tile
+skipped), so the kernels are deterministic and keep the bits of the
+earlier node-owner loop; the twins, which sum per support offset with
+``index_add_``, agree to rounding. See the note in ``csrc/p2g.cu``.
 """
 
 from __future__ import annotations

@@ -108,7 +108,7 @@ def test_empty_slots_give_zero_tiles(scene):
 
 def test_long_range_in_one_slot():
     """1,200 particles inside one grid block: one slot's range spans three
-    of the reference's 512-lane chunks and 10 of the port's 128-particle
+    of the reference's 512-lane chunks and 38 of the port's 32-particle
     staging rounds."""
     a, mids = _deformed(1200, seed=31, lo=0.2525, hi=0.3725)  # block cells 8-11 at res 32
     pdata, pm, pw = _operand(a, mids, 64)
