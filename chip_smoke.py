@@ -10,14 +10,26 @@ Phases, each printed as one JSON line:
 
 1. ``card``: the card's name and power limit (nvidia-smi), then ``build``:
    the CUDA kernels compiled from ``taichi_mpm_torch/csrc`` (one nvcc per
-   source, started together); ``p2g_checksums``: the SHA-256 of both P2G
-   kernels' tiles on a fixed input (``p2g_checksums``), to compare with
-   another tree's; ``p2g_edges``: both P2G kernels against their twins on
+   source, started together); ``p2g_checksums`` and ``g2p_checksums``:
+   the SHA-256 of the four kernels' outputs on fixed inputs
+   (``p2g_checksums``, ``g2p_checksums``), to compare with another
+   tree's; ``p2g_edges``: both P2G kernels against their twins on
    hand-made inputs at their edges (``diagnostics.p2g_edge_inputs``: a
    slot of 1,200 particles, supports reaching tile nodes 0 and 6, exact
    half-cells, one-particle slots, empty slots inside and after the live
    ones, K odd), jelly and water: merged records to 1e-5 x max|record|,
-   bits equal over two launches, empty slots' tiles zero.
+   bits equal over two launches, empty slots' tiles zero. ``g2p_edges``:
+   ``g2p_fused`` against its twin on the G2P edge inputs
+   (``diagnostics.g2p_edge_inputs``: a slot of 600 lanes, CUDA blocks
+   spanning more slots than the kernel stages, one-lane slots, inactive
+   lanes among and after the active ones, active lanes with key K,
+   supports at the clamp edges, half-cells, a NaN in F), jelly, water and
+   both, and both again with the lanes in a random order (keys
+   unsorted): rows to x 5e-6, v 5e-5, F 5e-6, C 5e-4, aux 5e-6, vmax to
+   1e-6 relative, the active mask and the plasticity count exactly, two
+   launches bit-identical, inactive lanes untouched, and on the unsorted
+   lanes the bits of the sorted run, permuted; with the share of lanes
+   that gathered from shared memory.
 2. ``cube25``: ``benchmark_cube(cells=25)`` (125k jelly particles), one
    frame of 6 substeps on the card and the same frame on the CPU (the
    kernels' plain twins), held to x 5e-6, v 5e-5, F 5e-6, C 5e-4, aux 5e-6
@@ -52,7 +64,8 @@ Phases, each printed as one JSON line:
    time against the frame's wall time (the idle share) and the kernels
    that take the most of it.
 5. ``kernel_checks``: the checks of phase 2 on the 8M state, stirred,
-   and the kernels' times there.
+   the kernels' times there, and the share of lanes whose window
+   ``g2p_fused`` staged in shared memory.
 6. ``main_path_unfused``: the 8M jelly cube built under ``TMT_FUSED=0``,
    one warm-up and 5 timed frames, each kernel of that route launched
    once per substep and none of the fused route; ``stage_report``: its
@@ -62,7 +75,9 @@ Phases, each printed as one JSON line:
    equal substep counts, the bounds of phase 2. ``dam``: the dam at res
    128 (1,410,048 water particles), a warm-up frame and 3 timed frames of
    0.01 s on each route; per frame its substeps, smallest and largest dt,
-   ms per substep, host syncs per substep and the update counter.
+   ms per substep, host syncs per substep and the update counter; after
+   the fused frames, the four kernels' CUDA-event times on the dam's
+   state and ``g2p_fused``'s staged share there.
 8. ``cpic_check``: the CPIC frame on a small wheel scene (10,000 water
    particles placed on the wheel's paddles, falling at 1 m/s, res 96, the
    lazy rigid page map on): 6 substeps on the card and on the CPU, held
@@ -93,18 +108,18 @@ Phases, each printed as one JSON line:
    an adaptive path must have launched once per substep, no other.
 
 Then the ``kernels`` line: per kernel its launches on each path, its
-CUDA-event time at the 8M shapes, its plain version's time, its max abs
-error against the plain version there (from ``kernel_checks``), and its
-bound (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the
+CUDA-event time at the 8M shapes (and at the dam's), its plain version's
+time, its max abs error against the plain version there (from
+``kernel_checks``), and its bound (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the
 larger; the state rows counted for the scene's materials, the halo tiles
 and windows for the live slots only, as no other slot is read). Then the card's name and power limit once more, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises, so the
 script exits non-zero; without a CUDA device it exits 2 and prints no
 result.
 
-``python3 chip_smoke.py --p2g-tree [DIR]`` runs only the P2G kernels of
-the package under DIR (a checkout's root; default this one): their
-checksums on the fixed input and their CUDA-event times on the 8M jelly
+``python3 chip_smoke.py --kernel-tree [DIR]`` runs only the four kernels
+of the package under DIR (a checkout's root; default this one): their
+checksums on the fixed inputs and their CUDA-event times on the 8M jelly
 cube and the 1.4M adaptive dam, each after one frame. Run it on two
 trees in one call (parent, change, change, parent) to show that a change
 kept the kernels' bits and to time both on one card.
@@ -394,7 +409,7 @@ def p2g_checksums():
     cube (benchmark_cube(cells=25)), packed and sorted, stirred with seed
     0; p2g_blocked on its operand (prep_packed). It uses only the port's
     API of its first three slices, so it can be pointed at an older tree's
-    package (``--p2g-tree``) to show that a change left the kernels' bits
+    package (``--kernel-tree``) to show that a change left the kernels' bits
     as they were."""
     import torch
 
@@ -411,6 +426,132 @@ def p2g_checksums():
     torch.cuda.synchronize()
     return {name: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
             for name, t in tiles.items()}
+
+
+def g2p_windows(sim, st, pm):
+    """The velocity windows of one P2G (``p2g_fused``), halo merge, grid
+    update and assembly on the sorted state `st` with page map `pm` of
+    `sim`."""
+    from taichi_mpm_torch.ops import blocked, p2g
+    from taichi_mpm_torch.ops.substep import grid_update_flat
+
+    cfg, dt = sim.cfg, sim.cfg.base_dt
+    rec = blocked.merge_tiles(p2g.p2g_fused(pm["s_arr"], pm["e_arr"], st, dt, cfg), pm["nbr"])
+    vrec = grid_update_flat(rec, pm["ids"], cfg, tuple(sim.colliders), sim.t, dt)
+    return blocked.windows(vrec, pm["nbr"])
+
+
+def g2p_checksums():
+    """SHA-256 of both G2P kernels' outputs on fixed inputs: the 125k
+    jelly cube stirred (seed 0) and the 125k water cube stirred with aux
+    (J) spread by 0.1, packed and sorted; windows from one P2G, merge,
+    grid update and assembly on that state (g2p_windows); ``g2p_fused``
+    on a copy of the state (the checksum covers the state, vmax and the
+    plasticity count), ``g2p_blocked`` on the windows. Like
+    p2g_checksums it uses only the port's API of its first slices."""
+    import torch
+
+    from taichi_mpm_torch.ops import g2p, packed
+
+    out = {}
+    for material in ("jelly", "water"):
+        sim = cube(25, "cuda", 6, material=material)
+        sim._ensure_finalized()
+        cfg, dt = sim.cfg, sim.cfg.base_dt
+        st, _, pm, _ = packed.pack_carry(sim.particles, cfg, sim._active_block_cap())
+        st = stirred(st, aux_sd=0.1 if material == "water" else 0.0)
+        win = g2p_windows(sim, st, pm)
+        new = st.clone()
+        vmax, plast = g2p.g2p_fused(pm["slot_keys"], new, win, dt, cfg)
+        gathered = g2p.g2p_blocked(pm["slot_keys"], st, win, cfg)
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for t in (new, vmax, plast):
+            h.update(t.cpu().numpy().tobytes())
+        out[f"g2p_fused_{material}"] = h.hexdigest()
+        out[f"g2p_blocked_{material}"] = hashlib.sha256(
+            gathered.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def g2p_block_shape():
+    """(lanes per CUDA block, windows staged per block) of the built
+    g2p_fused kernel."""
+    from taichi_mpm_torch.ops import cuda_build
+
+    lib = cuda_build.load("g2p")
+    return lib.g2p_block_lanes(), lib.g2p_staged_windows()
+
+
+def staged_share(keys, st, K):
+    """The share of the active keyed lanes of `st` whose window g2p_fused
+    stages in shared memory (diagnostics.g2p_staged_share)."""
+    from taichi_mpm_torch import diagnostics
+
+    return diagnostics.g2p_staged_share(keys, st, *g2p_block_shape(), K)
+
+
+def phase_g2p_edges():
+    """g2p_fused against its twin on the hand-made G2P edge inputs
+    (diagnostics.g2p_edge_inputs): jelly, water, both, and jelly and both
+    again with the lanes in a random order."""
+    import torch
+
+    from taichi_mpm_torch import diagnostics
+    from taichi_mpm_torch.ops import blocked, g2p
+    from taichi_mpm_torch.ops.rows import RACT
+
+    failures, out, sorted_runs = [], {}, {}
+    perm = np.random.default_rng(1).permutation(diagnostics.G2P_EDGE_LANES)
+    for label in ("jelly", "water", "mixed", "jelly_unsorted", "mixed_unsorted"):
+        material = label.split("_")[0]
+        e = diagnostics.g2p_edge_inputs(material)
+        cfg, dt = e["cfg"], e["cfg"].base_dt
+        keys, st = e["keys"], e["st"]
+        if label.endswith("unsorted"):
+            keys, st = keys[perm], np.ascontiguousarray(st[:, perm])
+        keys, st = torch.as_tensor(keys, device="cuda"), torch.as_tensor(st, device="cuda")
+        win = blocked.windows(torch.as_tensor(e["vrec"], device="cuda"),
+                              torch.as_tensor(e["nbr"], device="cuda"))
+        runs = []
+        for fn in (g2p.g2p_fused, g2p.g2p_fused, g2p.g2p_fused_plain):
+            new = st.clone()
+            runs.append((new, *fn(keys, new, win, dt, cfg)))
+        torch.cuda.synchronize()
+        (k1, vm1, pl1), (k2, vm2, pl2), (kp, vmp, plp) = runs
+        what = f"g2p_fused on the {label} edge inputs"
+        if not (torch.equal(k1.view(torch.int32), k2.view(torch.int32))
+                and torch.equal(vm1, vm2) and torch.equal(pl1, pl2)):
+            failures.append(f"{what}: other bits on a second launch")
+        idle = st[RACT] <= 0.5
+        if not torch.equal(k1[:, idle].view(torch.int32), st[:, idle].view(torch.int32)):
+            failures.append(f"{what}: an inactive lane changed")
+        if not torch.equal(k1[RACT], kp[RACT]):
+            failures.append(f"{what}: other lanes active than the twin's")
+        errs = {}
+        for name, r0, n, bound in ROW_BOUNDS:
+            errs[name] = max_abs(k1[r0:r0 + n], kp[r0:r0 + n])
+            if not errs[name] <= bound:
+                failures.append(f"{what}: row {name} differs by {errs[name]} > {bound}")
+        if not torch.equal(k1[25:].view(torch.int32), kp[25:].view(torch.int32)):
+            failures.append(f"{what}: rows it must leave alone changed")
+        if not abs(float(vm1) - float(vmp)) <= 1e-6 * float(vmp):
+            failures.append(f"{what}: vmax {float(vm1)} vs twin {float(vmp)}")
+        if int(pl1) != int(plp):
+            failures.append(f"{what}: plasticity count {int(pl1)} vs twin {int(plp)}")
+        if material not in sorted_runs:
+            sorted_runs[material] = (k1, vm1, pl1)
+        else:  # the unsorted lanes must give the sorted run's bits, permuted
+            ks, vms, pls = sorted_runs[material]
+            p_t = torch.as_tensor(perm, device="cuda")
+            if not (torch.equal(k1.view(torch.int32), ks[:, p_t].view(torch.int32))
+                    and torch.equal(vm1, vms) and torch.equal(pl1, pls)):
+                failures.append(f"{what}: not the sorted run's bits")
+        out[label] = dict(
+            row_err=errs, vmax=float(vm1), plast=int(pl1),
+            staged_share=staged_share(keys, st, win.shape[0]))
+    emit(dict(phase="g2p_edges", block_shape=g2p_block_shape(), **out, failures=failures))
+    raise_failures(failures)
 
 
 def phase_p2g_edges():
@@ -455,8 +596,8 @@ def phase_p2g_edges():
     raise_failures(failures)
 
 
-def p2g_states():
-    """(label, sim) of the states the P2G kernels are timed on beside the
+def kernel_states():
+    """(label, sim) of the states the kernels are timed on beside the
     main run: the 8M jelly cube and the 1.4M adaptive dam break, each
     after one frame (so with the sort and page map of the main paths)."""
     from taichi_mpm_torch import scenes
@@ -480,18 +621,37 @@ def p2g_launches(sim):
             "p2g_blocked": lambda: p2g.p2g_blocked(s_arr, e_arr, pdata)}
 
 
-def p2g_tree(root=None):
-    """The P2G kernels of the package under `root` (default: this
-    checkout): their checksums, and their CUDA-event times (10 launches
-    each) on the states of p2g_states."""
+def g2p_launches(sim):
+    """Both G2P kernels on the sorted state of `sim` and its windows
+    (g2p_windows), as calls; g2p_fused updates a copy of the state."""
+    from taichi_mpm_torch.ops import g2p
+
+    cfg, dt = sim.cfg, sim.cfg.base_dt
+    st, _, pm, _ = sim.packed_carry
+    keys, win, scratch = pm["slot_keys"], g2p_windows(sim, st, pm), st.clone()
+    return {"g2p_fused": lambda: g2p.g2p_fused(keys, scratch, win, dt, cfg),
+            "g2p_blocked": lambda: g2p.g2p_blocked(keys, st, win, cfg)}
+
+
+def kernel_ms(sim):
+    """The four kernels' CUDA-event times (10 launches each, after one)
+    on the state of `sim`."""
+    calls = {**p2g_launches(sim), **g2p_launches(sim)}
+    return {name: cuda_ms(fn, 10) for name, fn in calls.items()}
+
+
+def kernel_tree(root=None):
+    """The four kernels of the package under `root` (default: this
+    checkout): their checksums, and their CUDA-event times on the states
+    of kernel_states."""
     if root is not None:
         sys.path.insert(0, os.path.abspath(root))
     import taichi_mpm_torch
 
-    out = dict(phase="p2g_tree", package=os.path.dirname(taichi_mpm_torch.__file__),
-               checksums=p2g_checksums())
-    for label, sim in p2g_states():
-        out[f"ms_{label}"] = {name: cuda_ms(fn, 10) for name, fn in p2g_launches(sim).items()}
+    out = dict(phase="kernel_tree", package=os.path.dirname(taichi_mpm_torch.__file__),
+               checksums={**p2g_checksums(), **g2p_checksums()})
+    for label, sim in kernel_states():
+        out[f"ms_{label}"] = kernel_ms(sim)
         out[f"slots_{label}"] = sim.block_capacity
         del sim
     emit(dict(out, clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit")))
@@ -730,8 +890,7 @@ def phase_kernels(sim, card):
     bound. Returns the measurements of each kernel."""
     import torch
 
-    from taichi_mpm_torch.ops import blocked, g2p, p2g
-    from taichi_mpm_torch.ops.substep import grid_update_flat
+    from taichi_mpm_torch.ops import g2p, p2g
 
     cfg, dt = sim.cfg, sim.cfg.base_dt
     st, _, pm, _ = sim.packed_carry
@@ -745,9 +904,7 @@ def phase_kernels(sim, card):
     n_act = int(act.sum())
     n_keyed = int((pm["slot_keys"] < K).sum())  # lanes whose window the gather reads
 
-    rec = blocked.merge_tiles(p2g.p2g_fused(pm["s_arr"], pm["e_arr"], st, dt, cfg), pm["nbr"])
-    win = blocked.windows(
-        grid_update_flat(rec, pm["ids"], cfg, tuple(sim.colliders), sim.t, dt), pm["nbr"])
+    win = g2p_windows(sim, st, pm)
     scratch = st.clone()
     keys = pm["slot_keys"]
     pdata = p2g.prep_packed(st, cfg, dt)
@@ -763,11 +920,13 @@ def phase_kernels(sim, card):
         "p2g_blocked": (cuda_ms(lambda: p2g.p2g_blocked(s_arr, e_arr, pdata), 10),
                         cuda_ms(lambda: p2g.p2g_blocked_plain(s_arr, e_arr, pdata), 3)),
     }
-    del rec, win, scratch, pdata
+    share = staged_share(keys, st, K)
+    del win, scratch, pdata
 
     failures = []
     checks = compare_kernels(sim, stirred(st), failures)
     emit(dict(phase="kernel_checks", card=card, particles=n_act, **checks,
+              g2p_fused_staged_share=share,
               ms={k: v[0] for k, v in times.items()},
               plain_ms={k: v[1] for k, v in times.items()}, failures=failures))
     raise_failures(failures)
@@ -812,9 +971,10 @@ KERNEL_SOURCES = {
 }
 
 
-def kernels_line(measured, launches_by_path):
-    """The kernels line: each kernel's measurements at 8M and its
-    launches on each main path (``launches`` is their sum)."""
+def kernels_line(measured, launches_by_path, dam_ms):
+    """The kernels line: each kernel's measurements at 8M, its time at
+    the 1.4M dam's state, and its launches on each main path
+    (``launches`` is their sum)."""
     line = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         by_path = {path: counts[name] for path, counts in launches_by_path.items()}
@@ -823,6 +983,7 @@ def kernels_line(measured, launches_by_path):
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"],
                          bound_ms=m["bound_ms"], bound_by=m["bound_by"], library_ms=None,
+                         dam_ms=dam_ms[name],
                          bytes=m["bytes"], ops=m["ops"], live_slots=m["live_slots"],
                          slots=m["slots"]))
     return line
@@ -1072,13 +1233,19 @@ def phase_dam(card, fused):
     x = check_domain(sim, n, failures)
     if sim.update_counter != substeps * n:
         failures.append(f"update counter {sim.update_counter} != {substeps} x {n}")
+    kernels = {}
+    if fused:  # the kernels on the dam's state, after the counts are read
+        st, _, pm, _ = sim.packed_carry
+        kernels = dict(kernel_ms=kernel_ms(sim), g2p_fused_staged_share=staged_share(
+            pm["slot_keys"], st, pm["ids"].shape[0]))
     emit(dict(phase="dam", card=card, fused=sim.fused, particles=n, K=sim.block_capacity,
               substeps=substeps, frames=frames, **summary(frames[1:], n),
               n_sorts=sim.n_sorts, setup_s=setup_s, y_min=float(x[:, 1].min()),
               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
-              clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"), failures=failures))
+              **kernels, clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"),
+              failures=failures))
     raise_failures(failures)
-    return launches
+    return launches, kernels.get("kernel_ms")
 
 
 def phase_cpic_adaptive(card, fixed_syncs):
@@ -1120,8 +1287,8 @@ def main():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
               file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--p2g-tree"]:
-        p2g_tree(*sys.argv[2:3])
+    if sys.argv[1:2] == ["--kernel-tree"]:
+        kernel_tree(*sys.argv[2:3])
         return 0
     # the port itself: fails here when the script stands outside a checkout
     from taichi_mpm_torch.ops import cuda_build
@@ -1133,7 +1300,9 @@ def main():
     cuda_build.build("p2g", "g2p")
     emit(dict(phase="build", seconds=time.perf_counter() - t0))
     emit(dict(phase="p2g_checksums", sha256=p2g_checksums()))
+    emit(dict(phase="g2p_checksums", sha256=g2p_checksums()))
     phase_p2g_edges()
+    phase_g2p_edges()
 
     launches = {}
     phase_cube25()
@@ -1147,15 +1316,15 @@ def main():
     phase_stage_report(sim, card)
     del sim
     phase_dam_check()
-    launches["dam_fused"] = phase_dam(card, fused=True)
-    launches["dam_unfused"] = phase_dam(card, fused=False)
+    launches["dam_fused"], dam_ms = phase_dam(card, fused=True)
+    launches["dam_unfused"], _ = phase_dam(card, fused=False)
     phase_cpic_check()
     sim, launches["cpic_wheel"], fixed_syncs = phase_cpic_path(card)
     phase_cpic_breakdown(sim, card)
     phase_profile(sim, card, phase="cpic_profile")
     del sim
     launches["cpic_wheel_adaptive"] = phase_cpic_adaptive(card, fixed_syncs)
-    emit({"kernels": kernels_line(measured, launches)})
+    emit({"kernels": kernels_line(measured, launches, dam_ms)})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

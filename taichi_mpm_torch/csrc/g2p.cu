@@ -18,9 +18,10 @@
 // aux = max(aux * (tr cdg - 2), 0.1), an event when aux > 1),
 // x += dt*v clamped to [0, (res - clamp_eps)*dx], and the NaN scrub (a
 // lane whose new x, v or F is not finite is deactivated and reset:
-// x = v = C = 0, F = I, aux kept). Rows 0-24 and 36 are written. A lane
-// whose row 36 is 0 passes through untouched. Per CUDA block it writes
-// the partial max |v| over lanes still active and the partial
+// x = v = C = 0, F = I, aux kept). Rows 0-14 (F of jelly lanes, and of
+// any lane the scrub resets), 15-23, 24 (water) and 36 are written. A
+// lane whose row 36 is 0 passes through untouched. Per CUDA block it
+// writes the partial max |v| over lanes still active and the partial
 // plasticity count; the wrapper reduces them.
 //
 // g2p_blocked_launch replaces the TPU kernel
@@ -29,23 +30,52 @@
 // four zero pad rows are dropped). It reads x and the origin rows
 // straight from the state (the TPU kernel takes them as a separate
 // block-local position operand) and does not look at row 36, as the TPU
-// kernel does not.
+// kernel does not. One thread per lane, gathering through L1.
 //
 // What bounds them on the H100: at 8M particles the fused kernel reads
 // the active row of every lane, 15 state rows (x, origin, F) plus the
 // material row and the key of each active lane, writes 24 rows (x, v, F,
-// C), and reads the windows once (K * 4 KB, ~0.12 GB): ~1.4 GB, 0.43 ms
+// C), and reads the windows once (K * 4 KB, ~0.12 GB): ~1.4 GB, 0.42 ms
 // at 3.35 TB/s, against ~1 kflop per particle (0.12 ms at 67 TFLOP/s).
 // The gather alone reads the key and 6 rows of each lane and writes 12
 // rows (~76 B per lane) plus the windows: ~0.7 GB, ~0.2 ms. Both are
-// bound by the memory rate. What the design does about it: one thread per
-// lane, so every row access is coalesced across the warp, and
-// neighbouring lanes share a slot, so a window is fetched from device
-// memory about once and served from L1/L2 after. There is no run-walk
-// loop: each thread reads its own key, so unsorted keys cannot hang it
-// (the TPU kernels' run walk needs sorted keys).
+// bound by the memory rate. One thread per lane, so every row access is
+// coalesced across the warp. There is no run-walk loop: each thread reads
+// its own key, so unsorted keys cannot hang them (the TPU kernels' run
+// walk needs sorted keys).
+//
+// g2p_fused, one CUDA block of THREADS lanes (the TPU kernel prefetched
+// the first windows of its 512-lane chunk into VMEM; here:)
+// 1. Each lane issues the loads of its active row, key and state rows (x,
+//    origin, F, and aux and row 47 where the material set needs them) at
+//    once, so that they are in flight while the block stages its windows.
+// 2. The smallest slot key lo among the block's active lanes (a block
+//    reduction, as is the largest, hi) names up to STAGED windows, slots
+//    [lo, min(hi + 1, lo + STAGED)), which the block copies into shared
+//    memory with the three channels of a node interleaved: one 16-byte
+//    shared load per support node where the device-memory gather makes
+//    three scalar loads through L1. The keys of the main path are sorted,
+//    so a block's lanes fall in one to three slots (a slot holds ~390
+//    lanes at 8M, ~190 in the dam).
+// 3. A lane whose slot is staged gathers from shared memory; any other (a
+//    block spanning more slots, unsorted keys) gathers from device memory
+//    as g2p_blocked does. Both paths run one gather body (gather_support)
+//    on the same values, so a lane sums the same terms in the same order
+//    either way: the bits do not depend on the path, or on the order of
+//    the keys.
+// 4. The finish; a water lane stores F only where the scrub resets it
+//    (its F is otherwise unchanged).
+// A window's nodes stay in the dense 49 i + 7 j + k order: lanes in the
+// seeded lattice order read the same or neighbouring nodes at a time, and
+// random positions defeat any fixed layout. Blocks of 128 lanes with 22 KB
+// of shared memory and at most 63 registers let 8-9 blocks reside on an SM
+// under the largest shared-memory carveout, which the launch asks for.
+// What limits it now is the row stream: at 8M the kernel takes ~1.16x the
+// time of its rows alone with v = B = 0, and the staged gather alone about
+// two thirds of that (tools/g2p_variants.py, PERF.md).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -54,7 +84,14 @@ namespace {
 
 using namespace mpm;
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
+// windows of a g2p_fused block staged in shared memory (5,488 B each)
+constexpr int STAGED = 4;
+// g2p_fused's shared-memory carveout: the largest, i.e. the least L1, so
+// that 8-9 blocks reside whatever STAGED is (at the CUDA default, 2
+// windows or 256 lanes ran 0.69 ms at 8M against 0.58; PERF.md)
+constexpr int CARVEOUT = cudaSharedmemCarveoutMaxShared;
 
 struct G2PParams {
   float dt;
@@ -66,13 +103,12 @@ struct G2PParams {
   int apic;
 };
 
-// The window gather of one lane at block-local position pos (grid units)
-// from slot `slot`'s window; v and B stay zero for a slot outside [0, K).
-__device__ __forceinline__ void gather_window(const float pos[3], int slot,
-                                              const float* __restrict__ win, int K,
-                                              float v[3], float B[9]) {
-  if (slot < 0 || slot >= K) return;
-  const float* W = win + (size_t)slot * 3 * TILE_NODES;
+// The gather of one lane at block-local position pos (grid units) over its
+// 27 support nodes; fetch(idx, g) gives the three channels of window node
+// idx. Every path of both kernels runs this body.
+template <class Fetch>
+__device__ __forceinline__ void gather_support(const float pos[3], Fetch fetch, float v[3],
+                                               float B[9]) {
   int base[3];
   float w[3][3];
 #pragma unroll
@@ -100,9 +136,11 @@ __device__ __forceinline__ void gather_window(const float pos[3], int slot,
         const int idx = (ix * TILE + iy) * TILE + iz;
         const float d[3] = {pos[0] - (float)(ix - 1), pos[1] - (float)(iy - 1),
                             pos[2] - (float)(iz - 1)};
+        float g[3];
+        fetch(idx, g);
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          const float wg = wn * __ldg(W + c * TILE_NODES + idx);
+          const float wg = wn * g[c];
           v[c] += wg;
 #pragma unroll
           for (int a = 0; a < 3; ++a) B[3 * c + a] += wg * d[a];
@@ -112,6 +150,41 @@ __device__ __forceinline__ void gather_window(const float pos[3], int slot,
   }
 }
 
+// The gather from slot `slot`'s window in device memory; v and B stay
+// zero for a slot outside [0, K).
+__device__ __forceinline__ void gather_window(const float pos[3], int slot,
+                                              const float* __restrict__ win, int K,
+                                              float v[3], float B[9]) {
+  if (slot < 0 || slot >= K) return;
+  const float* W = win + (size_t)slot * 3 * TILE_NODES;
+  gather_support(
+      pos,
+      [&](int idx, float g[3]) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) g[c] = __ldg(W + c * TILE_NODES + idx);
+      },
+      v, B);
+}
+
+// The state rows the finish reads besides x and the origin: F, and aux
+// and row 47 where the material set needs them.
+template <int MATS>
+struct FinishRows {
+  static constexpr bool kWater = (MATS & (1 << WATER)) != 0;
+  static constexpr bool kMixed = MATS != (1 << JELLY) && MATS != (1 << WATER);
+  float F[9];
+  float aux = 0.0f;
+  float matf = 0.0f;
+
+  template <class Load>
+  __device__ __forceinline__ void load(Load ld) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) F[k] = ld(RF + k);
+    if (kWater) aux = ld(RAUX);
+    if (kMixed) matf = ld(RMATF);
+  }
+};
+
 // MATS: the scene's materials as a bit set (1 << id). A scene of one
 // material compiles its return map alone and never reads row 47.
 template <int MATS>
@@ -119,23 +192,81 @@ __global__ void __launch_bounds__(THREADS)
 g2p_kernel(float* __restrict__ st, long long pw, const int* __restrict__ keys,
            const float* __restrict__ win, int K, float* __restrict__ vmax_part,
            int* __restrict__ plast_part, G2PParams prm) {
+  __shared__ float4 staged[STAGED > 0 ? STAGED * TILE_NODES : 1];
+  __shared__ int kmin_w[WARPS], kmax_w[WARPS];
+  __shared__ float smax[WARPS];
+  __shared__ int scnt[WARPS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long p = (long long)blockIdx.x * THREADS + threadIdx.x;
-  float vmax = 0.0f;
-  int count = 0;
-  if (p < pw && st[(long long)RACT * pw + p] > 0.5f) {
-    float* S = st + p;
-    auto R = [&](int r) -> float& { return S[(long long)r * pw]; };
-    float x[3], pos[3];
+  const bool in = p < pw;
+  float* S = st + (in ? p : 0);  // this lane's column: row r at S[r * pw]
+  auto ld = [&](int r) { return S[(long long)r * pw]; };
+  auto put = [&](int r, float value) { S[(long long)r * pw] = value; };
+
+  // 1. this lane's loads, all issued before the block waits
+  bool active = false;
+  int slot = K;
+  float x[3] = {0.0f, 0.0f, 0.0f}, org[3] = {0.0f, 0.0f, 0.0f};
+  FinishRows<MATS> rows;
+  if (in) {
+    active = ld(RACT) > 0.5f;
+    slot = keys[p];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      x[a] = R(RX + a);
-      pos[a] = __fmul_rn(x[a], prm.inv_dx) - R(RORG + a);  // as in p2g.cu
+      x[a] = ld(RX + a);
+      org[a] = ld(RORG + a);
     }
+    rows.load(ld);  // in flight while the block stages its windows
+  }
+
+  // 2. the block's staged windows: slots [lo, lo + n)
+  const bool keyed = active && slot >= 0 && slot < K;
+  const int kmin = __reduce_min_sync(0xffffffffu, keyed ? slot : INT_MAX);
+  const int kmax = __reduce_max_sync(0xffffffffu, keyed ? slot : -1);
+  if (lane == 0) {
+    kmin_w[warp] = kmin;
+    kmax_w[warp] = kmax;
+  }
+  __syncthreads();
+  int lo = INT_MAX, hi = -1;
+#pragma unroll
+  for (int i = 0; i < WARPS; ++i) {
+    lo = min(lo, kmin_w[i]);
+    hi = max(hi, kmax_w[i]);
+  }
+  const int n = hi < lo ? 0 : min(hi - lo + 1, STAGED);
+  for (int i = threadIdx.x; i < n * TILE_NODES; i += THREADS) {
+    const int w = i / TILE_NODES, node = i - w * TILE_NODES;
+    const float* W = win + (size_t)(lo + w) * 3 * TILE_NODES + node;
+    staged[i] = make_float4(__ldg(W), __ldg(W + TILE_NODES), __ldg(W + 2 * TILE_NODES), 0.0f);
+  }
+  __syncthreads();
+
+  float vmax = 0.0f;
+  int count = 0;
+  if (active) {
+    float pos[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) pos[a] = __fmul_rn(x[a], prm.inv_dx) - org[a];  // as in p2g.cu
     float v[3] = {0.0f, 0.0f, 0.0f};
     float B[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    gather_window(pos, keys[p], win, K, v, B);
+    // 3. the gather: from shared memory where the slot is staged
+    if (slot >= lo && slot - lo < n) {
+      const float4* W = staged + (slot - lo) * TILE_NODES;
+      gather_support(
+          pos,
+          [&](int idx, float g[3]) {
+            const float4 q = W[idx];
+            g[0] = q.x;
+            g[1] = q.y;
+            g[2] = q.z;
+          },
+          v, B);
+    } else {
+      gather_window(pos, slot, win, K, v, B);
+    }
 
-    // -- finish (fused_pallas._finish_tile, same formulas and order) --
+    // 4. the finish (fused_pallas._finish_tile, same formulas and order)
     float Cn[9];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
@@ -149,15 +280,14 @@ g2p_kernel(float* __restrict__ st, long long pw, const int* __restrict__ keys,
     float cdg[9];
 #pragma unroll
     for (int k = 0; k < 9; ++k) cdg[k] = ((k % 4 == 0) ? 1.0f : 0.0f) - prm.k_cdg * B[k];
-    float F[9], Fn[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) F[k] = R(RF + k);
+    const float* F = rows.F;
+    float Fn[9];
     const bool water = MATS == (1 << WATER) ||
-                       (MATS != (1 << JELLY) && (int)R(RMATF) == WATER);
+                       (MATS != (1 << JELLY) && (int)rows.matf == WATER);
     float aux_new = 0.0f;
     if (water) {
       // cforms.plast_water: F unchanged, j = max(aux (tr cdg - 2), 0.1)
-      aux_new = nan_max(R(RAUX) * (cdg[0] + cdg[4] + cdg[8] - 2.0f), 0.1f);
+      aux_new = nan_max(rows.aux * (cdg[0] + cdg[4] + cdg[8] - 2.0f), 0.1f);
 #pragma unroll
       for (int k = 0; k < 9; ++k) Fn[k] = F[k];
     } else {
@@ -184,43 +314,40 @@ g2p_kernel(float* __restrict__ st, long long pw, const int* __restrict__ keys,
     if (finite) {
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        R(RX + a) = xn[a];
-        R(RV + a) = v[a];
+        put(RX + a, xn[a]);
+        put(RV + a, v[a]);
         vmax = fmaxf(vmax, fabsf(v[a]));
       }
 #pragma unroll
-      for (int k = 0; k < 9; ++k) {
-        R(RF + k) = Fn[k];
-        R(RC + k) = Cn[k];
-      }
+      for (int k = 0; k < 9; ++k) put(RC + k, Cn[k]);
       if (water) {
-        R(RAUX) = aux_new;
+        put(RAUX, aux_new);
         count = aux_new > 1.0f ? 1 : 0;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 9; ++k) put(RF + k, Fn[k]);
       }
     } else {
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        R(RX + a) = 0.0f;
-        R(RV + a) = 0.0f;
+        put(RX + a, 0.0f);
+        put(RV + a, 0.0f);
       }
 #pragma unroll
       for (int k = 0; k < 9; ++k) {
-        R(RF + k) = (k % 4 == 0) ? 1.0f : 0.0f;
-        R(RC + k) = 0.0f;
+        put(RF + k, (k % 4 == 0) ? 1.0f : 0.0f);
+        put(RC + k, 0.0f);
       }
-      R(RACT) = 0.0f;
+      put(RACT, 0.0f);
     }
   }
 
   // block partials: max |v| (lanes still active) and the plasticity count
-  __shared__ float smax[THREADS / 32];
-  __shared__ int scnt[THREADS / 32];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, off));
     count += __shfl_xor_sync(0xffffffffu, count, off);
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) {
     smax[warp] = vmax;
     scnt[warp] = count;
@@ -229,7 +356,7 @@ g2p_kernel(float* __restrict__ st, long long pw, const int* __restrict__ keys,
   if (threadIdx.x == 0) {
     float m = smax[0];
     int c = scnt[0];
-    for (int i = 1; i < THREADS / 32; ++i) {
+    for (int i = 1; i < WARPS; ++i) {
       m = fmaxf(m, smax[i]);
       c += scnt[i];
     }
@@ -261,9 +388,24 @@ g2p_blocked_kernel(const float* __restrict__ st, long long pw, const int* __rest
   for (int k = 0; k < 9; ++k) out[(long long)(3 + k) * pw + p] = B[k];
 }
 
+template <int MATS>
+cudaError_t launch_fused(int blocks, cudaStream_t s, float* st, long long pw, const int* keys,
+                         const float* win, int K, float* vmax_part, int* plast_part,
+                         const G2PParams& prm) {
+  static const cudaError_t carveout = cudaFuncSetAttribute(
+      g2p_kernel<MATS>, cudaFuncAttributePreferredSharedMemoryCarveout, CARVEOUT);
+  if (carveout != cudaSuccess) return carveout;
+  g2p_kernel<MATS><<<blocks, THREADS, 0, s>>>(st, pw, keys, win, K, vmax_part, plast_part, prm);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int g2p_blocks(long long pw) { return (int)((pw + THREADS - 1) / THREADS); }
+
+// The shape of a g2p_fused block: lanes per block and windows staged.
+extern "C" int g2p_block_lanes() { return THREADS; }
+extern "C" int g2p_staged_windows() { return STAGED; }
 
 // Launch on `stream`. st: (48, pw) f32 packed state, updated in place;
 // keys: (pw,) i32 slot key per lane (K = none); win: (K, 3, 7, 7, 7) f32
@@ -287,19 +429,11 @@ extern "C" int g2p_fused_launch(float* st, long long pw, const int* keys, const 
   prm.apic = apic;
   const int blocks = g2p_blocks(pw);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (blocks > 0) {
-    if (mats == (1 << JELLY)) {
-      g2p_kernel<(1 << JELLY)><<<blocks, THREADS, 0, s>>>(st, pw, keys, win, K, vmax_part,
-                                                         plast_part, prm);
-    } else if (mats == (1 << WATER)) {
-      g2p_kernel<(1 << WATER)><<<blocks, THREADS, 0, s>>>(st, pw, keys, win, K, vmax_part,
-                                                         plast_part, prm);
-    } else {
-      g2p_kernel<(1 << JELLY) | (1 << WATER)><<<blocks, THREADS, 0, s>>>(
-          st, pw, keys, win, K, vmax_part, plast_part, prm);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  const auto launch = mats == (1 << JELLY)   ? launch_fused<(1 << JELLY)>
+                      : mats == (1 << WATER) ? launch_fused<(1 << WATER)>
+                                             : launch_fused<(1 << JELLY) | (1 << WATER)>;
+  return static_cast<int>(launch(blocks, s, st, pw, keys, win, K, vmax_part, plast_part, prm));
 }
 
 // Launch on `stream`. st: (48, pw) f32 packed state (read only: rows 0-2

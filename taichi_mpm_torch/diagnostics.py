@@ -1,8 +1,10 @@
 """Diagnostics (torch counterpart of ``taichi_mpm_tpu.diagnostics``):
-``stage_report``, the per-stage profile of a substep, and
-``p2g_edge_inputs``, hand-made inputs at the P2G kernels' edges. The
-other diagnostics of the JAX module (energy series, memory stats) are
-not ported yet (ROADMAP.md queue 1 item 8)."""
+``stage_report``, the per-stage profile of a substep;
+``p2g_edge_inputs`` and ``g2p_edge_inputs``, hand-made inputs at the P2G
+and G2P kernels' edges; ``g2p_staged_share``, the share of lanes whose
+window the fused G2P kernel stages in shared memory. The other
+diagnostics of the JAX module (energy series, memory stats) are not
+ported yet (ROADMAP.md queue 1 item 8)."""
 
 from __future__ import annotations
 
@@ -158,29 +160,156 @@ def p2g_edge_inputs(material: str = "jelly", seed: int = 0) -> dict:
     e_arr = np.cumsum(counts).astype(np.int32)
     s_arr = (e_arr - counts).astype(np.int32)
 
-    index = {b: k for k, (b, _) in enumerate(slots)}
+    nbr = _neighbours([b for b, _ in slots], K)
+
+    st, cfg = _edge_state(material, grid, origin, n + 5, rng)
+    return dict(st=st, s_arr=s_arr, e_arr=e_arr, nbr=nbr, cfg=cfg)
+
+
+def _neighbours(blocks, K: int) -> np.ndarray:
+    """(27, K) int32: the slot of each neighbour block of the slots whose
+    blocks are `blocks` (row (ox*3+oy)*3+oz for offset (ox-1, oy-1,
+    oz-1)); K where there is none."""
+    index = {b: k for k, b in enumerate(blocks)}
     nbr = np.full((27, K), K, np.int32)
     for (bx, by, bz), k in index.items():
         for row in range(27):
             o = (row // 9 - 1, (row // 3) % 3 - 1, row % 3 - 1)
             nbr[row, k] = index.get((bx + o[0], by + o[1], bz + o[2]), K)
+    return nbr
 
-    mid, params, aux0 = models.pack_params(
-        material, **(dict(E=2e4, nu=0.35) if material == "jelly" else {}))
-    cfg = SimConfig(res=(EDGE_RES,) * 3, base_dt=1e-4, active_materials=(mid,))
+
+def _edge_state(material: str, grid, origin, pw: int, rng):
+    """A packed state (48, pw) whose first len(grid) lanes are active
+    particles at grid positions `grid` (cells, exact in float32) with
+    sort-time origins `origin`, of `material` ("mixed": jelly and water
+    on alternate lanes), with random v, F near I, C and, for water, aux
+    (J) spread around 1; and the SimConfig of the res-32 grid and
+    materials."""
+    n = grid.shape[0]
+    names = ("jelly", "water") if material == "mixed" else (material,)
+    packed = [models.pack_params(m, **(dict(E=2e4, nu=0.35) if m == "jelly" else {}))
+              for m in names]
+    which = np.arange(n) % len(names)
+    mid = np.array([packed[i][0] for i in which], np.int32)
+    cfg = SimConfig(res=(EDGE_RES,) * 3, base_dt=1e-4,
+                    active_materials=tuple(sorted(p[0] for p in packed)))
     vol = np.float32(cfg.dx ** 3 / 8)
-    st = np.zeros((NCH, n + 5), np.float32)
+    st = np.zeros((NCH, pw), np.float32)
     st[RX:RX + 3, :n] = (grid / np.float32(EDGE_RES)).T
     st[RV:RV + 3, :n] = 0.5 * rng.standard_normal((3, n))
     st[RF:RF + 9, :n] = np.eye(3, dtype=np.float32).reshape(9, 1) \
         + 0.05 * rng.standard_normal((9, n))
     st[RC:RC + 9, :n] = 0.5 * rng.standard_normal((9, n))
-    st[RAUX, :n] = aux0 + (0.1 * rng.standard_normal(n) if material == "water" else 0.0)
+    water = mid == models.MATERIAL_NAMES["water"]
+    st[RAUX, :n] = np.array([packed[i][2] for i in which], np.float32) \
+        + np.where(water, 0.1 * rng.standard_normal(n), 0.0)
     st[RMASS, :n] = 1000.0 * vol
     st[RVOL, :n] = vol
     st[RMAT].view(np.int32)[:n] = mid
-    st[RPAR:RPAR + 8, :n] = np.asarray(params, np.float32)[:, None]
+    st[RPAR:RPAR + 8, :n] = np.array([packed[i][1] for i in which], np.float32).T
     st[RACT, :n] = 1.0
     st[RORG:RORG + 3, :n] = origin.T
-    st[RMATF, :n] = float(mid)
-    return dict(st=st, s_arr=s_arr, e_arr=e_arr, nbr=nbr, cfg=cfg)
+    st[RMATF, :n] = mid.astype(np.float32)
+    return st, cfg
+
+
+# -- hand-made inputs at the edges of the fused G2P kernel --------------------
+
+G2P_EDGE_LANES = 2048  # Pw: a multiple of the JAX kernel's 512-lane chunk
+
+
+def g2p_edge_inputs(material: str = "jelly", seed: int = 0) -> dict:
+    """Hand-made inputs at the fused G2P kernel's edges, as numpy arrays:
+    a sorted packed state (48, Pw) on a res-32 grid, its lanes' slot keys,
+    velocity records and the slots' neighbour table; for holding the
+    kernel against its plain twin (``chip_smoke.py``) and the twin against
+    the JAX package (``tests/port/test_torch_g2p_edges.py``). `material`
+    is "jelly", "water" or "mixed" (jelly and water on alternate lanes).
+    Positions are exact in float32, as in ``p2g_edge_inputs``. The lanes,
+    in order:
+
+    * a slot of 600 lanes, more than a CUDA block of the kernel holds,
+      uniform within 0.45 cell around its block (block-local -0.45 and
+      4.45 on every axis among them: supports reaching window nodes 0 and
+      6), four of them inactive among the active ones, one with a NaN in
+      F (the finish must deactivate and reset it);
+    * 128 lanes on exact half-cells (64 on all three axes, 64 on one),
+      where a support weight per such axis is exactly 0;
+    * 48 slots of 1 to 9 lanes in a row, so that the CUDA blocks over
+      them span more slots than the kernel stages; an inactive lane in
+      some of them;
+    * four one-lane slots, at opposite corners 0.45 cell outside their
+      blocks and on half-cells;
+    * 16 lanes whose first support node is clamped or lies outside the
+      window (block-local positions -1.3, -0.8, 7.6 and 8.9 on one axis:
+      base -2 and 7);
+    * 6 active lanes with key K (no slot: they gather v = B = 0);
+    * inactive lanes with key K up to Pw.
+
+    Returns dict(st, keys, vrec, nbr, cfg): st float32 (48, Pw), keys
+    int32 (Pw,) in ascending order, vrec float32 (K, 192) random velocity
+    records, nbr int32 (27, K) (as in ``p2g_edge_inputs``) and the
+    SimConfig; windows come from ``ops.blocked.windows(vrec, nbr)``."""
+    rng = np.random.default_rng(seed)
+    lo, hi = -EDGE_HALO, blocked.BLOCK + EDGE_HALO
+
+    def uniform(n):
+        return rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+
+    big = uniform(600)
+    big[:8] = np.array([[x, y, z] for x in (lo, hi) for y in (lo, hi) for z in (lo, hi)])
+    halves = np.stack(np.meshgrid(*[np.arange(4) + 0.5] * 3, indexing="ij"), -1).reshape(64, 3)
+    one_axis = uniform(64)
+    one_axis[np.arange(64), np.arange(64) % 3] = rng.integers(0, 4, 64) + 0.5
+    clamp = uniform(16)
+    clamp[np.arange(16), np.arange(16) % 3] = np.tile([-1.3, -0.8, 7.6, 8.9], 4)
+    slots = [  # (block, block-local positions)
+        ((1, 1, 1), big),
+        ((2, 1, 1), np.concatenate([halves, one_axis])),
+    ]
+    small = [(bx, by, bz) for bx in range(3, 7) for by in range(3, 7) for bz in range(4, 7)]
+    slots += [(b, uniform(int(c))) for b, c in zip(small, rng.integers(1, 10, len(small)))]
+    slots += [((1, 2, 1), np.array([[lo, hi, lo]])), ((2, 2, 1), np.array([[hi, lo, hi]])),
+              ((1, 1, 2), np.array([[0.5, 3.5, 2.5]])), ((2, 1, 2), np.array([[hi, 0.5, lo]])),
+              ((0, 0, 0), clamp)]
+    K = len(slots)
+    n_keyless = 6
+    origin = np.concatenate([np.full((len(p), 3), blocked.BLOCK * np.array(b), np.float32)
+                             for b, p in slots] + [np.full((n_keyless, 3), 8.0, np.float32)])
+    local = np.concatenate([p for _, p in slots] + [uniform(n_keyless)]).astype(np.float32)
+    grid = origin + local
+    n = grid.shape[0]
+    keys = np.full(G2P_EDGE_LANES, K, np.int32)
+    keys[:n - n_keyless] = np.repeat(np.arange(K), [len(p) for _, p in slots])
+
+    st, cfg = _edge_state(material, grid, origin, G2P_EDGE_LANES, rng)
+    st[RACT, [5, 300, 301, 599]] = 0.0  # inactive among the active lanes
+    st[RF + 4, 17] = np.nan
+    runs = np.flatnonzero(np.diff(keys[:n]) != 0) + 1  # first lane of each slot but 0
+    st[RACT, runs[2:2 + len(small):7] + 1] = 0.0  # inside some small slots
+    vrec = (0.3 * rng.standard_normal((K, blocked.VREC_LANES))).astype(np.float32)
+    return dict(st=st, keys=keys, vrec=vrec, nbr=_neighbours([b for b, _ in slots], K),
+                cfg=cfg)
+
+
+def g2p_staged_share(keys, st, lanes_per_block: int, staged: int, K: int) -> float:
+    """The share of the active lanes with a slot that the fused G2P kernel
+    gathers from shared memory: by its rule, a block of `lanes_per_block`
+    lanes stages the windows of slots [lo, lo + n), lo the smallest key
+    among its active lanes with a slot, n = min(largest - lo + 1,
+    `staged`); any other such lane gathers from device memory. 1.0 where
+    no lane has a slot."""
+    pw = keys.shape[0]
+    keyed = (st[RACT] > 0.5) & (keys >= 0) & (keys < K)
+    n_blocks = -(-pw // lanes_per_block)
+    pad = n_blocks * lanes_per_block - pw
+    k = keys.long()
+    kmin = torch.nn.functional.pad(torch.where(keyed, k, K), (0, pad), value=K)
+    kmax = torch.nn.functional.pad(torch.where(keyed, k, -1), (0, pad), value=-1)
+    lo = kmin.view(n_blocks, lanes_per_block).amin(1)
+    n = torch.clamp(kmax.view(n_blocks, lanes_per_block).amax(1) - lo + 1, 0, staged)
+    blk = torch.arange(pw, device=keys.device) // lanes_per_block
+    on_chip = keyed & (k >= lo[blk]) & (k - lo[blk] < n[blk])
+    n_keyed = int(keyed.sum())
+    return float(on_chip.sum()) / n_keyed if n_keyed else 1.0

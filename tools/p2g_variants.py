@@ -10,7 +10,7 @@ replaced (one slot per block as written, or 2 or 4; no row prefetch; the
 dense 49 i + 7 j + k tile layout with lanes in offset order), built with
 the port's nvcc flags into ``taichi_mpm_torch/_build/variants/`` and
 loaded in place of the built kernel. On each state of
-``chip_smoke.p2g_states`` (the 8M jelly cube and the 1.4M adaptive dam,
+``chip_smoke.kernel_states`` (the 8M jelly cube and the 1.4M adaptive dam,
 after one frame) both entry points are timed with CUDA events (10
 launches, after one) in the order A, B, ..., B, A, and their tiles must
 keep the bits of the source as written. One JSON line per variant and
@@ -100,7 +100,7 @@ def main():
         return 2
     built = build_all()
     load = cuda_build.load
-    for label, sim in chip_smoke.p2g_states():
+    for label, sim in chip_smoke.kernel_states():
         runs = chip_smoke.p2g_launches(sim)
         ref, ms = {}, {name: {k: [] for k in runs} for name in built}
         try:
