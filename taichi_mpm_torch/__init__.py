@@ -1,8 +1,9 @@
 """taichi_mpm_torch — the PyTorch / CUDA port of taichi_mpm_tpu.
 
-The blocked fixed-dt 3-D path (``MPM``, ``add_particles``,
-``add_collider``, ``step``) with hand-written CUDA kernels for P2G and
-G2P (``csrc/``). Entry points run on the card unless the caller passes
+The blocked 3-D path (``MPM``, ``add_particles``, ``add_collider``,
+``step``; ``AsyncMPM`` at global adaptive dt; CPIC rigid coupling), all
+eight materials, with hand-written CUDA kernels for P2G and G2P
+(``csrc/``). Entry points run on the card unless the caller passes
 ``device="cpu"``, which runs the kernels' plain-torch twins.
 """
 
@@ -16,7 +17,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 from taichi_mpm_torch.config import SimConfig  # noqa: E402
 from taichi_mpm_torch.core import levelset  # noqa: E402
+from taichi_mpm_torch.core.adaptive import AsyncMPM  # noqa: E402
 from taichi_mpm_torch.core.solver import MPM  # noqa: E402
 from taichi_mpm_torch.core.state import Particles, empty_particles  # noqa: E402
 
-__all__ = ["MPM", "SimConfig", "Particles", "empty_particles", "levelset"]
+__all__ = ["MPM", "AsyncMPM", "SimConfig", "Particles", "empty_particles", "levelset"]

@@ -42,7 +42,10 @@ class SimConfig:
     # substep.
     clean_boundary: bool = False
 
-    # Rigid-body coupling (CPIC): not ported yet, kept for field parity.
+    # Rigid-body coupling (CPIC): the number of rigid bodies (set when the
+    # scene is finalized), the iterations of the {rigidify, articulate,
+    # rasterize} prologue per substep, and the 2-D CDF tag dilation passes
+    # (kept for field parity: the port's scenes are 3-D).
     num_rigids: int = 0
     coupling_iterations: int = 1
     cdf_expand: int = 0

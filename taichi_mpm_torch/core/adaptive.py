@@ -12,8 +12,9 @@ arithmetic as XLA compiles it (``snap_pot``), so that the substep count
 is the reference's.
 
 ``AsyncMPM(per_block=True)``, the per-block bucketed scheduler, is not
-ported (ROADMAP.md queue 1 item 7). The port's scenes are 3-D, so the
-JAX package's oracle frame ``adaptive_frame_fn`` is not reached.
+ported (ROADMAP.md queue 1, "per-block bucketed async"). The port's
+scenes are 3-D, so the JAX package's oracle frame ``adaptive_frame_fn``
+is not reached.
 """
 
 from __future__ import annotations
@@ -94,8 +95,9 @@ class AsyncMPM(MPM):
         if per_block:
             raise NotImplementedError(
                 "AsyncMPM(per_block=True), the per-block bucketed scheduler "
-                "(ops/async_bucketed.py), is not ported yet (ROADMAP.md queue 1 "
-                "item 7); use per_block=False for global adaptive dt")
+                "(ops/async_bucketed.py), is not ported yet "
+                "(ROADMAP.md queue 1, 'per-block bucketed async'); "
+                "use per_block=False for global adaptive dt")
         super().__init__(*args, **kw)
         self.unit_delta_t = unit_delta_t
         self.strength_dt_mul = strength_dt_mul
@@ -109,11 +111,12 @@ class AsyncMPM(MPM):
             raise NotImplementedError(
                 "adaptive CPIC with TMT_FUSED=0 runs the dense oracle frame "
                 "(core/adaptive.adaptive_cpic_frame_fn), not ported yet "
-                "(ROADMAP.md queue 1 item 2); unset TMT_FUSED")
+                "(ROADMAP.md queue 1, 'the dense oracle path'); unset TMT_FUSED")
 
     def step(self, frame_dt: Optional[float] = None):
         """Advance one frame of frame_dt (default self.frame_dt) at
-        adaptive dt."""
+        adaptive dt. Returns the particles, as the reference does (read
+        from the carry, which unpacks them)."""
         fresh = self._pcarry is None
         self._prepare_frame()
         fdt = frame_dt or self.frame_dt
@@ -141,3 +144,4 @@ class AsyncMPM(MPM):
         self.last_substeps = n
         self.last_dt_range = (float(min(dts)), float(max(dts))) if dts else None
         self.update_counter += n * int((carry[0][RACT] > 0.5).sum())
+        return self.particles

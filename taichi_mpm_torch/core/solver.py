@@ -61,9 +61,17 @@ class MPM:
         frame_dt: float = 1e-2,
         gravity: Optional[Sequence[float]] = None,
         capacity: Optional[int] = None,
+        optimized: Optional[bool] = None,
         device=None,
         **cfg_kw,
     ):
+        """optimized: the reference's choice of the blocked path (None or
+        True); the port has only that path, so False, the dense oracle
+        path, raises."""
+        if optimized is False:
+            raise NotImplementedError(
+                "optimized=False selects the dense oracle path, not ported yet "
+                "(ROADMAP.md queue 1, 'the dense oracle path'); pass None or True")
         res = tuple(int(r) for r in res)
         if len(res) != 3:
             raise NotImplementedError(
@@ -81,6 +89,7 @@ class MPM:
         self.device = resolve_device(device)
         self.frame_dt = frame_dt
         self.capacity = capacity
+        self.optimized = optimized
         # the fused kernels (prep inside P2G, finish inside G2P);
         # TMT_FUSED=0 selects the unfused route
         self.fused = os.environ.get("TMT_FUSED", "1") != "0"
@@ -156,7 +165,7 @@ class MPM:
         if pos is None:
             raise NotImplementedError(
                 "texture seeding (pos=None) is not ported yet (ROADMAP.md "
-                "queue 1); pass explicit positions")
+                "queue 1, 'texture seeding'); pass explicit positions")
         if density is None:
             density = 400.0
         pos = np.asarray(pos, np.float32)
@@ -324,7 +333,7 @@ class MPM:
             raise NotImplementedError(
                 "CPIC with TMT_FUSED=0 runs the pytree CPIC frame "
                 "(rigid/cpic_blocked.cpic_frame_carry), not ported yet "
-                "(ROADMAP.md queue 1 item 6); unset TMT_FUSED")
+                "(ROADMAP.md queue 1, 'the rest of CPIC'); unset TMT_FUSED")
 
     def _prepare_frame(self):
         """Finalize the scene, check its route and pack the carry when

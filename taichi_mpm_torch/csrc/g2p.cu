@@ -14,15 +14,17 @@
 // _finish_tile, with g2p_pallas.window_accum): after the gather it runs
 // the resample tail in place: APIC/RPIC damping -> C,
 // cdg = I - invD*dt*inv_dx*B, the return map of the lane's material
-// (row 47: JELLY F <- cdg F with no plastic events; WATER F unchanged,
-// aux = max(aux * (tr cdg - 2), 0.1), an event when aux > 1),
+// (materials.cuh, any of the eight: F <- cdg F for jelly, elastic and
+// linear; WATER F unchanged, aux = max(aux * (tr cdg - 2), 0.1), an event
+// when aux > 1; the SVD-based maps of snow, sand, von Mises and visco,
+// sand and von Mises counting their plastic events),
 // x += dt*v clamped to [0, (res - clamp_eps)*dx], and the NaN scrub (a
 // lane whose new x, v or F is not finite is deactivated and reset:
-// x = v = C = 0, F = I, aux kept). Rows 0-14 (F of jelly lanes, and of
-// any lane the scrub resets), 15-23, 24 (water) and 36 are written. A
-// lane whose row 36 is 0 passes through untouched. Per CUDA block it
-// writes the partial max |v| over lanes still active and the partial
-// plasticity count; the wrapper reduces them.
+// x = v = C = 0, F = I, aux kept). Rows 0-14 (F of all but water lanes,
+// and of any lane the scrub resets), 15-23, 24 (snow, water, sand, visco)
+// and 36 are written. A lane whose row 36 is 0 passes through untouched.
+// Per CUDA block it writes the partial max |v| over lanes still active
+// and the partial plasticity count; the wrapper reduces them.
 //
 // g2p_blocked_launch replaces the TPU kernel
 // taichi_mpm_tpu/ops/g2p_pallas.py g2p_blocked: the gather only, written
@@ -64,7 +66,13 @@
 //    either way: the bits do not depend on the path, or on the order of
 //    the keys.
 // 4. The finish; a water lane stores F only where the scrub resets it
-//    (its F is otherwise unchanged).
+//    (its F is otherwise unchanged). The return maps of snow, sand and
+//    von Mises run one SVD (cmat3.cuh), visco two and a polar Newton
+//    iteration: ~1.3 and ~3.4 kflop per lane against the ~0.8 kflop of
+//    the gather, which makes visco's the one instantiation bound by
+//    operations (chip_smoke.py counts both). On an H100 at 8M they take
+//    1.20-1.38 ms (63-64 registers) and 3.45 ms (93 registers) against
+//    jelly's 0.58 (PERF.md).
 // A window's nodes stay in the dense 49 i + 7 j + k order: lanes in the
 // seeded lattice order read the same or neighbouring nodes at a time, and
 // random positions defeat any fixed layout. Blocks of 128 lanes with 22 KB
@@ -79,6 +87,14 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "materials.cuh"
+
+// One library per material set, as in p2g.cu: -DTMT_MATS=<set> compiles
+// g2p_fused for that set alone, TMT_MATS=0 the material-free g2p_blocked.
+#ifndef TMT_MATS
+#define TMT_MATS 0
+#endif
+constexpr int WRONG_LIBRARY = -1;
 
 namespace {
 
@@ -166,21 +182,28 @@ __device__ __forceinline__ void gather_window(const float pos[3], int slot,
       v, B);
 }
 
-// The state rows the finish reads besides x and the origin: F, and aux
-// and row 47 where the material set needs them.
+// The state rows the finish reads besides x and the origin: F, and
+// where the material set needs them aux (snow, water, sand, visco), the
+// parameter slots of its return maps (materials.cuh) and row 47.
 template <int MATS>
 struct FinishRows {
-  static constexpr bool kWater = (MATS & (1 << WATER)) != 0;
-  static constexpr bool kMixed = MATS != (1 << JELLY) && MATS != (1 << WATER);
+  static constexpr bool kAux = (MATS & PLAST_AUX) != 0;
+  static constexpr int kPar = plast_param_slots<MATS>();
+  static constexpr bool kMixed = !single_material<MATS>();
   float F[9];
   float aux = 0.0f;
+  float par[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   float matf = 0.0f;
 
   template <class Load>
   __device__ __forceinline__ void load(Load ld) {
 #pragma unroll
     for (int k = 0; k < 9; ++k) F[k] = ld(RF + k);
-    if (kWater) aux = ld(RAUX);
+    if (kAux) aux = ld(RAUX);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if ((kPar >> k) & 1) par[k] = ld(RPAR + k);
+    }
     if (kMixed) matf = ld(RMATF);
   }
 };
@@ -280,27 +303,17 @@ g2p_kernel(float* __restrict__ st, long long pw, const int* __restrict__ keys,
     float cdg[9];
 #pragma unroll
     for (int k = 0; k < 9; ++k) cdg[k] = ((k % 4 == 0) ? 1.0f : 0.0f) - prm.k_cdg * B[k];
-    const float* F = rows.F;
-    float Fn[9];
-    const bool water = MATS == (1 << WATER) ||
-                       (MATS != (1 << JELLY) && (int)rows.matf == WATER);
-    float aux_new = 0.0f;
-    if (water) {
-      // cforms.plast_water: F unchanged, j = max(aux (tr cdg - 2), 0.1)
-      aux_new = nan_max(rows.aux * (cdg[0] + cdg[4] + cdg[8] - 2.0f), 0.1f);
-#pragma unroll
-      for (int k = 0; k < 9; ++k) Fn[k] = F[k];
-    } else {
-      // JELLY (cforms.plast_elastic): F <- cdg F
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          Fn[3 * i + j] =
-              cdg[3 * i] * F[j] + cdg[3 * i + 1] * F[3 + j] + cdg[3 * i + 2] * F[6 + j];
-        }
-      }
-    }
+    // the return map of the lane's material (materials.cuh); what it
+    // writes back: F (all but water), aux (snow, water, sand, visco)
+    Plastic pl;
+    bool write_F = true, write_aux = false;
+    dispatch<MATS>(single_material<MATS>() ? 0 : (int)rows.matf, [&](auto mat) {
+      constexpr int M = decltype(mat)::id;
+      material_plasticity<M>(rows.F, cdg, rows.aux, rows.par, prm.dt, pl);
+      write_F = M != WATER;
+      write_aux = ((PLAST_AUX >> M) & 1) != 0;
+    });
+    const float* Fn = pl.F;
     float xn[3];
     bool finite = true;
 #pragma unroll
@@ -320,13 +333,12 @@ g2p_kernel(float* __restrict__ st, long long pw, const int* __restrict__ keys,
       }
 #pragma unroll
       for (int k = 0; k < 9; ++k) put(RC + k, Cn[k]);
-      if (water) {
-        put(RAUX, aux_new);
-        count = aux_new > 1.0f ? 1 : 0;
-      } else {
+      if (write_aux) put(RAUX, pl.aux);
+      if (write_F) {
 #pragma unroll
         for (int k = 0; k < 9; ++k) put(RF + k, Fn[k]);
       }
+      count = pl.count;
     } else {
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
@@ -365,6 +377,7 @@ g2p_kernel(float* __restrict__ st, long long pw, const int* __restrict__ keys,
   }
 }
 
+#if TMT_MATS == 0
 __global__ void __launch_bounds__(THREADS)
 g2p_blocked_kernel(const float* __restrict__ st, long long pw, const int* __restrict__ keys,
                    const float* __restrict__ win, int K, float inv_dx, float* __restrict__ out) {
@@ -387,6 +400,7 @@ g2p_blocked_kernel(const float* __restrict__ st, long long pw, const int* __rest
 #pragma unroll
   for (int k = 0; k < 9; ++k) out[(long long)(3 + k) * pw + p] = B[k];
 }
+#endif
 
 template <int MATS>
 cudaError_t launch_fused(int blocks, cudaStream_t s, float* st, long long pw, const int* keys,
@@ -401,6 +415,7 @@ cudaError_t launch_fused(int blocks, cudaStream_t s, float* st, long long pw, co
 
 }  // namespace
 
+
 extern "C" int g2p_blocks(long long pw) { return (int)((pw + THREADS - 1) / THREADS); }
 
 // The shape of a g2p_fused block: lanes per block and windows staged.
@@ -410,13 +425,15 @@ extern "C" int g2p_staged_windows() { return STAGED; }
 // Launch on `stream`. st: (48, pw) f32 packed state, updated in place;
 // keys: (pw,) i32 slot key per lane (K = none); win: (K, 3, 7, 7, 7) f32
 // velocity windows; vmax_part/plast_part: (g2p_blocks(pw),) block partials;
-// mats: the scene's materials as a bit set (JELLY and/or WATER).
-// Returns cudaGetLastError().
+// mats: the scene's materials as a bit set, which must be TMT_MATS.
+// Returns cudaGetLastError(), or WRONG_LIBRARY.
 extern "C" int g2p_fused_launch(float* st, long long pw, const int* keys, const float* win,
                                 int K, float* vmax_part, int* plast_part, float dt,
                                 float inv_dx, float k_cdg, float sym_w, float skew_w,
                                 float hi0, float hi1, float hi2, int apic, int mats,
                                 void* stream) {
+#if TMT_MATS != 0
+  if (mats != TMT_MATS) return WRONG_LIBRARY;
   G2PParams prm;
   prm.dt = dt;
   prm.inv_dx = inv_dx;
@@ -428,25 +445,30 @@ extern "C" int g2p_fused_launch(float* st, long long pw, const int* keys, const 
   prm.hi[2] = hi2;
   prm.apic = apic;
   const int blocks = g2p_blocks(pw);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (blocks == 0) return static_cast<int>(cudaGetLastError());
-  const auto launch = mats == (1 << JELLY)   ? launch_fused<(1 << JELLY)>
-                      : mats == (1 << WATER) ? launch_fused<(1 << WATER)>
-                                             : launch_fused<(1 << JELLY) | (1 << WATER)>;
-  return static_cast<int>(launch(blocks, s, st, pw, keys, win, K, vmax_part, plast_part, prm));
+  return static_cast<int>(launch_fused<TMT_MATS>(blocks, static_cast<cudaStream_t>(stream), st,
+                                                 pw, keys, win, K, vmax_part, plast_part, prm));
+#else
+  return WRONG_LIBRARY;
+#endif
 }
 
 // Launch on `stream`. st: (48, pw) f32 packed state (read only: rows 0-2
 // and 43-45); keys: (pw,) i32 slot key per lane (K = none); win:
 // (K, 3, 7, 7, 7) f32 velocity windows; out: (12, pw) f32 rows v (3) and
-// B row-major (9). Returns cudaGetLastError().
+// B row-major (9). Returns cudaGetLastError(), or WRONG_LIBRARY outside
+// the material-free library.
 extern "C" int g2p_blocked_launch(const float* st, long long pw, const int* keys,
                                   const float* win, int K, float inv_dx, float* out,
                                   void* stream) {
+#if TMT_MATS == 0
   const int blocks = g2p_blocks(pw);
   if (blocks > 0) {
     g2p_blocked_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         st, pw, keys, win, K, inv_dx, out);
   }
   return static_cast<int>(cudaGetLastError());
+#else
+  return WRONG_LIBRARY;
+#endif
 }

@@ -5,10 +5,10 @@
 // (_p2g_fused_kernel, _build_pd, with p2g_pallas._chunk_ops and
 // tile_correct): for each active block slot, build every particle's P2G
 // operand from the packed (48, Pw) state (m*v, m, the fused affine
-// A = invD*m*C - invD*inv_dx*dt*force with the JELLY fixed-corotated or
-// the WATER equation-of-state force; block-local position) and accumulate
-// the slot's 7^3 halo tile of momentum and mass with quadratic B-spline
-// weights.
+// A = invD*m*C - invD*inv_dx*dt*force with the force of the particle's
+// material, any of the eight of materials.cuh; block-local position) and
+// accumulate the slot's 7^3 halo tile of momentum and mass with quadratic
+// B-spline weights.
 //
 // p2g_blocked_launch replaces the TPU kernels
 // taichi_mpm_tpu/ops/p2g_pallas.py p2g_blocked and p2g_blocked_batched
@@ -28,8 +28,9 @@
 // where w is the tensor product of the per-axis quadratic weights (a
 // contribution outside the tile is dropped, as in the reference). The
 // kernel is compiled for the scene's material set (MATS, a bit set
-// 1 << id): a scene of one material reads only its own rows, and only a
-// mixed scene reads row 47 to choose the force per particle.
+// 1 << id; one library per set, see the end of this file): a scene of one
+// material reads only its own rows, and only a mixed scene reads row 47
+// to choose the force per particle.
 //
 // What bounds it on the H100. Bytes: at 8M jelly particles p2g_fused
 // reads 32 of the 48 state rows of each particle once (act, x, v, F, C,
@@ -37,8 +38,13 @@
 // and writes the live slots' tiles of 5.5 KB (~0.11 GB): 0.34 ms at
 // 3.35 TB/s; p2g_blocked reads 16 operand rows (~0.51 GB): 0.19 ms.
 // Operations: ~1.7 kflop per jelly particle (polar Newton, force, the 9
-// support weights, 27 nodes x 31) take 0.2 ms at 67 TFLOP/s. So bytes
-// bound both (chip_smoke.py counts them). What the kernels spend beyond
+// support weights, 27 nodes x 31) take 0.2 ms at 67 TFLOP/s; the SVD of
+// the Hencky force (elastic, sand, von Mises) adds ~0.5 kflop and 5
+// special functions. So bytes bound them all (chip_smoke.py counts them).
+// Yet on an H100 at 8M the Hencky staging takes 2.06 ms against jelly's
+// 1.10 (102 registers against 96; PERF.md): a lane stages one particle
+// at a time, and the SVD's 18 dependent Jacobi rotations do not hide
+// behind the warp's scatter. What the kernels spend beyond
 // that goes to the scatter: each particle puts 27 four-channel terms into
 // nodes that its neighbours share, one after the other in sorted order.
 //
@@ -89,6 +95,17 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "materials.cuh"
+
+// One library per material set: nvcc -DTMT_MATS=<set> compiles p2g_fused
+// for that set alone (ops/cuda_build.py builds each set at its first use),
+// and TMT_MATS=0 the material-free p2g_blocked. An entry point that the
+// library was not built for returns WRONG_LIBRARY, which the wrapper
+// raises.
+#ifndef TMT_MATS
+#define TMT_MATS 0
+#endif
+constexpr int WRONG_LIBRARY = -1;
 
 namespace {
 
@@ -136,41 +153,21 @@ __device__ __forceinline__ void stage_particle(const float* raw, const P2GParams
 #pragma unroll
   for (int k = 0; k < 9; ++k) C[k] = R(RC + k);
   const float mass = R(RMASS), vol = R(RVOL);
-  const float k0 = R(RPAR), k1 = R(RPAR + 1);
 
-  // force = -vol * P F^T of the particle's material (row 47 holds its id
-  // as a value, read only in a mixed scene; the wrapper admits only the
-  // materials handled here)
-  const bool water = MATS == (1 << WATER) ||
-                     (MATS != (1 << JELLY) && (int)R(RMATF) == WATER);
+  // force = -vol * P F^T of the particle's material (materials.cuh; row
+  // 47 holds its id as a value, read only in a mixed scene). A material
+  // reads only its own rows: F (all but water), aux (snow, water) and
+  // the parameter slots 0-1, and 2 for snow.
+  float F[9], par[8];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) F[k] = R(RF + k);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) par[k] = R(RPAR + k);
+  const int mat_id = single_material<MATS>() ? 0 : (int)R(RMATF);
   float force[9];
-  if (water) {
-    // k = params[0], gamma = params[1], j = aux (cforms.force_water)
-    const float diag = water_force_diag(R(RAUX), vol, k0, k1);
-#pragma unroll
-    for (int k = 0; k < 9; ++k) force[k] = (k % 4 == 0) ? diag : 0.0f;
-  } else {
-    // JELLY: -vol * [2 mu (F - R) F^T + lam (J - 1) J I], mu = params[0],
-    // lam = params[1] (cforms.force_jelly / _pft_fixed_corotated)
-    float F[9], Rm[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) F[k] = R(RF + k);
-    polar_newton(F, Rm);
-    const float J = det3(F);
-    const float diag = k1 * (J - 1.0f) * J;
-    const float two_mu = 2.0f * k0;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        float pft = (F[3 * i] - Rm[3 * i]) * F[3 * j] +
-                    (F[3 * i + 1] - Rm[3 * i + 1]) * F[3 * j + 1] +
-                    (F[3 * i + 2] - Rm[3 * i + 2]) * F[3 * j + 2];
-        pft = pft * two_mu + (i == j ? diag : 0.0f);
-        force[3 * i + j] = pft * -vol;
-      }
-    }
-  }
+  dispatch<MATS>(mat_id, [&](auto mat) {
+    material_force<decltype(mat)::id>(F, R(RAUX), par, vol, force);
+  });
   float A[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
@@ -213,6 +210,7 @@ struct StageState {
     L(RVOL);
     L(RPAR);
     L(RPAR + 1);
+    if (has<MATS>(SNOW)) L(RPAR + 2);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       L(RX + c);
@@ -225,8 +223,8 @@ struct StageState {
 #pragma unroll
       for (int k = 0; k < 9; ++k) L(RF + k);
     }
-    if (MATS != (1 << JELLY)) L(RAUX);
-    if (MATS != (1 << JELLY) && MATS != (1 << WATER)) L(RMATF);
+    if ((MATS & FORCE_AUX) != 0) L(RAUX);
+    if (!single_material<MATS>()) L(RMATF);
   }
   __device__ __forceinline__ void build(const float* raw, float* sv) const {
     stage_particle<MATS>(raw, prm, sv);
@@ -365,14 +363,18 @@ void launch(const Stage& stage, long long pw, const int* s_arr, const int* e_arr
 
 }  // namespace
 
+
 // Launch on `stream`. st: (48, pw) f32 packed state, rows 43-45 holding the
 // sort-time block origins; s_arr/e_arr: (K,) i32 sorted particle ranges;
 // out: (K, 7, 7, 7, 4) f32 halo tiles [i, j, k, c]; mats: the scene's
-// materials as a bit set (JELLY and/or WATER). Returns cudaGetLastError().
+// materials as a bit set, which must be TMT_MATS. Returns
+// cudaGetLastError(), or WRONG_LIBRARY.
 extern "C" int p2g_fused_launch(const float* st, long long pw, const int* s_arr,
                                 const int* e_arr, int K, float* out, float inv_dx,
                                 float invD, float cf_scale, float gdt0, float gdt1,
                                 float gdt2, int particle_gravity, int mats, void* stream) {
+#if TMT_MATS != 0
+  if (mats != TMT_MATS) return WRONG_LIBRARY;
   P2GParams prm;
   prm.inv_dx = inv_dx;
   prm.invD = invD;
@@ -381,26 +383,28 @@ extern "C" int p2g_fused_launch(const float* st, long long pw, const int* s_arr,
   prm.gdt[1] = gdt1;
   prm.gdt[2] = gdt2;
   prm.particle_gravity = particle_gravity;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K > 0) {
-    if (mats == (1 << JELLY)) {
-      launch(StageState<(1 << JELLY)>{st, prm}, pw, s_arr, e_arr, K, out, s);
-    } else if (mats == (1 << WATER)) {
-      launch(StageState<(1 << WATER)>{st, prm}, pw, s_arr, e_arr, K, out, s);
-    } else {
-      launch(StageState<(1 << JELLY) | (1 << WATER)>{st, prm}, pw, s_arr, e_arr, K, out, s);
-    }
+    launch(StageState<TMT_MATS>{st, prm}, pw, s_arr, e_arr, K, out,
+           static_cast<cudaStream_t>(stream));
   }
   return static_cast<int>(cudaGetLastError());
+#else
+  return WRONG_LIBRARY;
+#endif
 }
 
 // Launch on `stream`. pdata: (16, pw) f32 P2G operand [m*v (3), m, A
 // row-major (9), block-local pos (3)]; s_arr/e_arr: (K,) i32 sorted
 // particle ranges (s == e: an empty slot, zero tile); out: (K, 7, 7, 7, 4)
-// f32 halo tiles [i, j, k, c]. Returns cudaGetLastError().
+// f32 halo tiles [i, j, k, c]. Returns cudaGetLastError(), or
+// WRONG_LIBRARY outside the material-free library.
 extern "C" int p2g_blocked_launch(const float* pdata, long long pw, const int* s_arr,
                                   const int* e_arr, int K, float* out, void* stream) {
+#if TMT_MATS == 0
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K > 0) launch(StageOperand{pdata}, pw, s_arr, e_arr, K, out, s);
   return static_cast<int>(cudaGetLastError());
+#else
+  return WRONG_LIBRARY;
+#endif
 }

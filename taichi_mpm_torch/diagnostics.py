@@ -2,19 +2,22 @@
 ``stage_report``, the per-stage profile of a substep;
 ``p2g_edge_inputs`` and ``g2p_edge_inputs``, hand-made inputs at the P2G
 and G2P kernels' edges; ``g2p_staged_share``, the share of lanes whose
-window the fused G2P kernel stages in shared memory. The other
+window the fused G2P kernel stages in shared memory;
+``sand_knife_edges`` and ``sand_edges_per_substep``, the sand lanes whose
+plastic event is within rounding of its edges. The other
 diagnostics of the JAX module (energy series, memory stats) are not
-ported yet (ROADMAP.md queue 1 item 8)."""
+ported yet (ROADMAP.md queue 1, "I/O and diagnostics")."""
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
 import torch
 
 from taichi_mpm_torch.config import SimConfig
-from taichi_mpm_torch.materials import models
+from taichi_mpm_torch.materials import cforms, models
 from taichi_mpm_torch.ops import blocked, g2p, p2g, packed
 from taichi_mpm_torch.ops.rows import (
     NCH, RACT, RAUX, RC, RF, RMASS, RMAT, RMATF, RORG, RPAR, RV, RVOL, RX,
@@ -90,6 +93,58 @@ def stage_report(sim, substeps: int = 20, repeats: int = 3) -> dict:
     return report
 
 
+# -- sand's knife edges --------------------------------------------------------
+
+SAND_EDGE_TOL = 1e-6  # |tr|, |delta_gamma| this close to 0 are within rounding
+
+
+def sand_knife_edges(keys, st, win, dt, cfg: SimConfig, tol: float = SAND_EDGE_TOL) -> int:
+    """The active sand lanes of a fused G2P step on `st` (keys, windows
+    `win`) whose return map decides within `tol` of an edge: |tr| or
+    |delta_gamma| at most `tol` (``cforms.sand_edges``), evaluated by the
+    twin's formulas on the cdg of its gather. tr and delta_gamma are sums
+    of logarithms of singular values near 1, exact to ~1e-7, so two
+    roundings of one state (a kernel and its twin, the card and the CPU)
+    may put such a lane on either side, and count its plastic event or
+    not; ``tol`` is 10 times that. (On the 1,200-particle sand frame of
+    ``tests/port/test_torch_materials_frame.py`` the port and JAX count 4
+    events apart, with 22 lanes within 1e-6 of an edge over its 6
+    substeps and 4 within 3e-7.)"""
+    if cforms.SAND not in cfg.active_materials:
+        return 0
+    acc = g2p._gather_plain(keys, st, win, cfg)
+    k = g2p._k_cdg(cfg, dt)
+    cdg = tuple(e - k * b for e, b in zip(g2p._EYE, acc[3:]))
+    tr, dg = cforms.sand_edges(tuple(st[RF + i] for i in range(9)), cdg, st[RAUX],
+                               tuple(st[RPAR + i] for i in range(8)))
+    sand = st[RACT] > 0.5
+    if len(cfg.active_materials) > 1:
+        sand &= st[RMAT].view(torch.int32) == cforms.SAND
+    near = (tr.abs() <= tol) | (dg.abs() <= tol)
+    return int((sand & near).sum())
+
+
+@contextlib.contextmanager
+def sand_edges_per_substep():
+    """Within the block, each fused G2P step first appends its
+    ``sand_knife_edges`` count to the yielded list: over a frame, the
+    number of sand events that another rounding of the same frame may
+    count otherwise. It wraps ``ops.g2p.g2p_fused`` for the block's
+    duration, and adds the twin's gather and SVD to every step."""
+    counts = []
+    fused = g2p.g2p_fused
+
+    def counted(keys, st, win, dt, cfg):
+        counts.append(sand_knife_edges(keys, st, win, dt, cfg))
+        return fused(keys, st, win, dt, cfg)
+
+    g2p.g2p_fused = counted
+    try:
+        yield counts
+    finally:
+        g2p.g2p_fused = fused
+
+
 # -- hand-made inputs at the edges of the P2G kernels -------------------------
 
 EDGE_RES = 32  # cells per axis: dx = 1/32 keeps the positions exact
@@ -98,10 +153,11 @@ EDGE_HALO = 0.45  # cells a particle strays outside its sort-time block
 
 def p2g_edge_inputs(material: str = "jelly", seed: int = 0) -> dict:
     """Hand-made P2G inputs at the kernels' edges, as numpy arrays: a
-    packed state (48, Pw) of one material on a res-32 grid, its slots'
-    sorted particle ranges and their neighbour table; for holding a
-    kernel against its plain twin (``chip_smoke.py``) and the twin
-    against the JAX package (``tests/port/test_torch_p2g_edges.py``).
+    packed state (48, Pw) of `material` (see ``edge_material_names``) on a
+    res-32 grid, its slots' sorted particle ranges and their neighbour
+    table; for holding a kernel against its plain twin (``chip_smoke.py``)
+    and the twin against the JAX package
+    (``tests/port/test_torch_p2g_edges.py``, ``test_torch_material_edges.py``).
     Positions are exact in float32, so the block-local position the
     kernels form is the one chosen here. The slots, in order:
 
@@ -179,15 +235,32 @@ def _neighbours(blocks, K: int) -> np.ndarray:
     return nbr
 
 
+EDGE_MATERIALS = tuple(models.MATERIAL_NAMES)  # the eight, in id order
+
+
+def edge_material_names(material: str) -> tuple:
+    """The materials of edge inputs `material`: one of the eight, "mixed"
+    (jelly and water) or "all" (the eight on successive lanes)."""
+    if material == "mixed":
+        return ("jelly", "water")
+    if material == "all":
+        return EDGE_MATERIALS
+    return (material,)
+
+
 def _edge_state(material: str, grid, origin, pw: int, rng):
     """A packed state (48, pw) whose first len(grid) lanes are active
     particles at grid positions `grid` (cells, exact in float32) with
-    sort-time origins `origin`, of `material` ("mixed": jelly and water
-    on alternate lanes), with random v, F near I, C and, for water, aux
-    (J) spread around 1; and the SimConfig of the res-32 grid and
-    materials."""
+    sort-time origins `origin`, of `material` (see edge_material_names;
+    several materials take lanes in turn), with random v, F near I, C and
+    aux spread where the material keeps state in it: water's J around 1;
+    and for the other materials, whose draws come after these, snow's Jp
+    around 1, sand's log Jp around 0 (so that the return map meets both
+    tr >= 0 and tr < 0) and visco's yield stress tau over [0, 2e4] (so
+    that |P| lies on both sides of it); and the SimConfig of the res-32
+    grid and materials."""
     n = grid.shape[0]
-    names = ("jelly", "water") if material == "mixed" else (material,)
+    names = edge_material_names(material)
     packed = [models.pack_params(m, **(dict(E=2e4, nu=0.35) if m == "jelly" else {}))
               for m in names]
     which = np.arange(n) % len(names)
@@ -204,6 +277,12 @@ def _edge_state(material: str, grid, origin, pw: int, rng):
     water = mid == models.MATERIAL_NAMES["water"]
     st[RAUX, :n] = np.array([packed[i][2] for i in which], np.float32) \
         + np.where(water, 0.1 * rng.standard_normal(n), 0.0)
+    if set(names) - {"jelly", "water"}:
+        spread = {"snow": 0.1 * rng.standard_normal(n), "sand": 0.05 * rng.standard_normal(n),
+                  "visco": rng.uniform(0.0, 2e4, n) - 1000.0}
+        for name, noise in spread.items():
+            lanes = mid == models.MATERIAL_NAMES[name]
+            st[RAUX, :n][lanes] += noise[lanes].astype(np.float32)
     st[RMASS, :n] = 1000.0 * vol
     st[RVOL, :n] = vol
     st[RMAT].view(np.int32)[:n] = mid
@@ -224,8 +303,11 @@ def g2p_edge_inputs(material: str = "jelly", seed: int = 0) -> dict:
     a sorted packed state (48, Pw) on a res-32 grid, its lanes' slot keys,
     velocity records and the slots' neighbour table; for holding the
     kernel against its plain twin (``chip_smoke.py``) and the twin against
-    the JAX package (``tests/port/test_torch_g2p_edges.py``). `material`
-    is "jelly", "water" or "mixed" (jelly and water on alternate lanes).
+    the JAX package (``tests/port/test_torch_g2p_edges.py``,
+    ``test_torch_material_edges.py``). `material` is one of the eight,
+    "mixed" (jelly and water on alternate lanes) or "all" (the eight in
+    turn); the state of each material reaches its return map's branches
+    (``_edge_state``).
     Positions are exact in float32, as in ``p2g_edge_inputs``. The lanes,
     in order:
 
@@ -233,7 +315,8 @@ def g2p_edge_inputs(material: str = "jelly", seed: int = 0) -> dict:
       uniform within 0.45 cell around its block (block-local -0.45 and
       4.45 on every axis among them: supports reaching window nodes 0 and
       6), four of them inactive among the active ones, one with a NaN in
-      F (the finish must deactivate and reset it);
+      F (the finish must deactivate and reset it; on "all" one of each
+      material);
     * 128 lanes on exact half-cells (64 on all three axes, 64 on one),
       where a support weight per such axis is exactly 0;
     * 48 slots of 1 to 9 lanes in a row, so that the CUDA blocks over
@@ -285,7 +368,8 @@ def g2p_edge_inputs(material: str = "jelly", seed: int = 0) -> dict:
 
     st, cfg = _edge_state(material, grid, origin, G2P_EDGE_LANES, rng)
     st[RACT, [5, 300, 301, 599]] = 0.0  # inactive among the active lanes
-    st[RF + 4, 17] = np.nan
+    # a NaN in F: on lane 17, and on "all" on one lane of each material
+    st[RF + 4, np.arange(16, 24) if material == "all" else 17] = np.nan
     runs = np.flatnonzero(np.diff(keys[:n]) != 0) + 1  # first lane of each slot but 0
     st[RACT, runs[2:2 + len(small):7] + 1] = 0.0  # inside some small slots
     vrec = (0.3 * rng.standard_normal((K, blocked.VREC_LANES))).astype(np.float32)

@@ -5,8 +5,7 @@ F is a 9-tuple, params an 8-tuple of tensors (slot layout in
 ``materials.models``), aux/vol plain tensors. Forces return the 9-tuple of
 -vol * P F^T; plasticity returns (F_new 9-tuple, aux_new, count). These
 plain-torch forms serve the CPU path and the kernels' plain twins; the
-CUDA kernels implement JELLY (``force_jelly`` / ``plast_elastic``) and
-WATER (``force_water`` / ``plast_water``) per particle.
+CUDA kernels repeat all eight per particle (``csrc/materials.cuh``).
 """
 
 from __future__ import annotations
@@ -143,8 +142,10 @@ def plast_water(F, cdg, aux, params, dt):
     return F, j, (j > 1.0).to(torch.int32)
 
 
-def plast_sand(F, cdg, aux, params, dt):
-    alpha, cohesion, beta = params[2], params[3], params[4]
+def _sand_strain(F, cdg, aux, params):
+    """The SVD of cdg F and the sand return map's log strains: (U, V,
+    eps, sum_eps, tr, eps_hat, ehn, delta_gamma)."""
+    alpha, cohesion = params[2], params[3]
     mu0, lam0 = params[0], params[1]
     logJp = aux
     F = c_mm(cdg, F)
@@ -156,11 +157,26 @@ def plast_sand(F, cdg, aux, params, dt):
     tr = sum_eps + logJp
     eps_hat = tuple(e - tr / 3.0 for e in eps)
     ehn = torch.sqrt(eps_hat[0] ** 2 + eps_hat[1] ** 2 + eps_hat[2] ** 2)
+    delta_gamma = ehn + (3.0 * lam0 + 2.0 * mu0) / (2.0 * mu0) * tr * alpha
+    return U, V, eps, sum_eps, tr, eps_hat, ehn, delta_gamma
+
+
+def sand_edges(F, cdg, aux, params):
+    """(tr, delta_gamma) of plast_sand: the map goes to the tip where
+    tr >= 0 and onto the cone where delta_gamma > 0, so where either is
+    within rounding of 0 two roundings of the same state may disagree."""
+    *_, tr, _, _, delta_gamma = _sand_strain(F, cdg, aux, params)
+    return tr, delta_gamma
+
+
+def plast_sand(F, cdg, aux, params, dt):
+    cohesion, beta = params[3], params[4]
+    logJp = aux
+    U, V, eps, sum_eps, tr, eps_hat, ehn, delta_gamma = _sand_strain(F, cdg, aux, params)
 
     sig_tip = torch.exp(cohesion)
     logJp_A = beta * sum_eps + logJp
 
-    delta_gamma = ehn + (3.0 * lam0 + 2.0 * mu0) / (2.0 * mu0) * tr * alpha
     safe_norm = torch.clamp(ehn, min=1e-20)
     coef = delta_gamma / safe_norm
     elastic_case = delta_gamma <= 0.0

@@ -148,13 +148,25 @@ def c_polar_newton(F, iters: int = 6):
 _JACOBI_PAIRS = ((0, 1), (0, 2), (1, 2))
 
 
+def _rsqrt(x):
+    """1 / sqrt(x) as float32 square root then division, on every device:
+    the kernels' 1.0f / sqrtf (csrc/cmat3.cuh). torch.rsqrt computes just
+    that on the CPU, but on the card it is CUDA's approximate rsqrtf,
+    whose 2-ulp error the 18 rotations of an SVD carry into the singular
+    values (on an H100 the unfused 125k sand frame then drifts to v
+    8.9e-5 from the CPU frame, against 1.5e-5), while there the division
+    is IEEE's (on the CPU torch's 1 / sqrt rounds otherwise in 0.6% of
+    lanes)."""
+    return torch.rsqrt(x) if x.device.type == "cpu" else 1.0 / torch.sqrt(x)
+
+
 def _jacobi_rotation(app, aqq, apq):
     trivial = torch.abs(apq) < _EPS
     safe_apq = torch.where(trivial, 1.0, apq)
     tau = (aqq - app) / (2.0 * safe_apq)
     t = torch.sign(tau) / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau))
     t = torch.where(tau == 0.0, 1.0, t)
-    c = torch.rsqrt(1.0 + t * t)
+    c = _rsqrt(1.0 + t * t)
     s = t * c
     c = torch.where(trivial, 1.0, c)
     s = torch.where(trivial, 0.0, s)

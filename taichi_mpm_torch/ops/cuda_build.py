@@ -1,15 +1,22 @@
 """Build and load the port's CUDA kernels.
 
-Each source in ``taichi_mpm_torch/csrc/`` is compiled by ``nvcc`` into a
-shared library with a plain C interface and loaded with ctypes. Builds
-happen at first use, never at import, into ``taichi_mpm_torch/_build/``
-(listed in ``.gitignore``), one library per source keyed by a hash of the
-source text and the flags, so an edited source is rebuilt and an
-unchanged one is reused. ``build(*names)`` starts one ``nvcc`` per
-missing library at once and waits for all of them.
+Each source in ``taichi_mpm_torch/csrc/`` is compiled by ``nvcc`` into
+shared libraries with a plain C interface, loaded with ctypes: one per
+material set (``-DTMT_MATS=<set>``, the scene's materials as a bit set
+``1 << id``), holding that set's fused kernel alone, so that a scene
+compiles only its own materials, as the JAX package's static
+``active_materials`` does. Set 0 holds the material-free kernels
+(``p2g_blocked``, ``g2p_blocked``). Builds happen at first use, never at
+import, into ``taichi_mpm_torch/_build/`` (listed in ``.gitignore``),
+keyed by a hash of the sources, the flags and the set, so an edited
+source is rebuilt and an unchanged one is reused. ``build(*libs)``
+starts one ``nvcc`` per missing (source, material set) at once and
+waits for all of them. Each library keeps ``nvcc``'s ``-Xptxas -v`` report beside it
+(``ptxas_report``): registers, spills and shared memory per kernel.
 
-No ``--use_fast_math``: the polar Newton iteration and the NaN scrub keep
-IEEE ``sqrtf`` and division.
+No ``--use_fast_math``: the polar Newton iteration, the SVD and the NaN
+scrub keep IEEE ``sqrtf`` and division, and ``logf``/``expf``/``powf``
+their full precision.
 """
 
 from __future__ import annotations
@@ -17,9 +24,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -27,8 +36,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# what a launcher returns for an entry point its library was not built for
+WRONG_LIBRARY = -1
 
 _loaded: dict = {}
 
@@ -44,48 +55,100 @@ def _nvcc() -> str:
                        "with the CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(mats: int):
+    return (*NVCC_FLAGS, f"-DTMT_MATS={int(mats)}")
+
+
+def library_path(name: str, mats: int = 0) -> Path:
+    """The library of source `name` for material set `mats` (0: the
+    material-free kernels)."""
+    h = hashlib.sha256(" ".join(_flags(mats)).encode())
     for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.read_bytes())
     digest = h.hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return BUILD_DIR / f"{name}-m{int(mats)}-{digest}.so"
 
 
-def build(*names: str) -> None:
-    """Compile the named kernels that are not built yet, all at once."""
-    todo = [(n, library_path(n)) for n in names if not library_path(n).exists()]
+def build(*libs) -> dict:
+    """Compile the libraries that are not built yet, all at once; each is
+    a (source name, material set) pair. Returns the seconds each one took,
+    from the common start to its nvcc's exit, by library file name."""
+    todo = {(name, int(mats)): library_path(name, mats) for name, mats in libs}
+    todo = [(spec, out) for spec, out in todo.items() if not out.exists()]
     if not todo:
-        return
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    t0 = time.perf_counter()
     procs = []
-    for name, out in todo:
+    for (name, mats), out in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(mats), "-o", tmp, str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    errors = []
+    errors, seconds = [], {}
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
+        seconds[out.name] = time.perf_counter() - t0
         if proc.returncode == 0:
+            out.with_suffix(".log").write_bytes(log)
             os.replace(tmp, out)  # atomic: a reader never sees half a file
         else:
             os.unlink(tmp)
-            errors.append(f"nvcc failed for {name}.cu:\n{log.decode(errors='replace')}")
+            errors.append(f"nvcc failed for {out.name}:\n{log.decode(errors='replace')}")
     if errors:
         raise RuntimeError("\n".join(errors))
+    return seconds
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, building it if needed."""
-    lib = _loaded.get(name)
+def load(name: str, mats: int = 0) -> ctypes.CDLL:
+    """The loaded library of source `name` for material set `mats`,
+    building it if needed."""
+    key = (name, int(mats))
+    lib = _loaded.get(key)
     if lib is None:
-        build(name)
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+        build(key)
+        lib = ctypes.CDLL(str(library_path(*key)))
+        _loaded[key] = lib
     return lib
+
+
+# the kernels' labels, by a part of their mangled names
+_KERNEL_LABELS = {"StageState": "p2g_fused", "StageOperand": "p2g_blocked",
+                  "g2p_kernel": "g2p_fused", "g2p_blocked_kernel": "g2p_blocked"}
+
+
+def ptxas_report(name: str, mats: int = 0) -> dict:
+    """Per kernel of a built library, from its ``-Xptxas -v`` log:
+    registers, spill stores and loads (bytes) and static shared memory
+    (bytes)."""
+    log = library_path(name, mats).with_suffix(".log").read_text(errors="replace")
+    out, kernel = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = _KERNEL_LABELS.get(
+                next((k for k in _KERNEL_LABELS if k in m.group(1)), None), m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and kernel:
+            out.setdefault(kernel, {}).update(spill_stores=int(m.group(1)),
+                                              spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and kernel:
+            out.setdefault(kernel, {}).update(registers=int(m.group(1)),
+                                              smem=int(m.group(2) or 0))
+    return out
+
+
+def check_launch(rc: int, what: str, mats: int = 0) -> None:
+    """Raise for a launcher's non-zero return code."""
+    if rc == WRONG_LIBRARY:
+        raise RuntimeError(f"{what}: the library loaded for material set {mats} was not "
+                           "built for it")
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
 
 
 class LaunchCount:

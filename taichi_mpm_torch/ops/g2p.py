@@ -183,7 +183,8 @@ def g2p_fused(keys, st, win, dt, cfg: SimConfig):
     if st.device.type == "cpu":
         return g2p_fused_plain(keys, st, win, dt, cfg)
     check_device_materials(cfg)
-    lib = cuda_build.load("g2p")
+    mats = material_set(cfg)
+    lib = cuda_build.load("g2p", mats)
     lib.g2p_blocks.restype = ctypes.c_int
     lib.g2p_blocks.argtypes = [ctypes.c_longlong]
     pw = st.shape[1]
@@ -200,9 +201,8 @@ def g2p_fused(keys, st, win, dt, cfg: SimConfig):
     rc = fn(st.data_ptr(), pw, keys.data_ptr(), win.data_ptr(), win.shape[0],
             vmax_part.data_ptr(), plast_part.data_ptr(),
             float(np.float32(dt)), float(cfg.inv_dx), _k_cdg(cfg, dt), sym_w, skew_w,
-            *_clip_hi(cfg), int(cfg.apic), material_set(cfg), stream)
-    if rc != 0:
-        raise RuntimeError(f"g2p_fused kernel launch failed: CUDA error {rc}")
+            *_clip_hi(cfg), int(cfg.apic), mats, stream)
+    cuda_build.check_launch(rc, "g2p_fused", mats)
     stats.launches += 1
     return torch.amax(vmax_part), plast_part.sum(dtype=torch.int32)
 
@@ -226,7 +226,6 @@ def g2p_blocked(keys, st, win, cfg: SimConfig):
     stream = torch.cuda.current_stream(st.device).cuda_stream
     rc = fn(st.data_ptr(), pw, keys.data_ptr(), win.data_ptr(), win.shape[0],
             float(cfg.inv_dx), out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"g2p_blocked kernel launch failed: CUDA error {rc}")
+    cuda_build.check_launch(rc, "g2p_blocked")
     blocked_stats.launches += 1
     return out

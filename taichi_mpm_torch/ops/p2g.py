@@ -49,9 +49,8 @@ from taichi_mpm_torch.ops.rows import (
 stats = cuda_build.LaunchCount("p2g_fused")
 blocked_stats = cuda_build.LaunchCount("p2g_blocked")
 
-# materials the CUDA kernels implement; the others run only on the CPU
-# through the plain twins until their device code lands
-DEVICE_MATERIALS = (cforms.JELLY, cforms.WATER)
+# materials the CUDA kernels implement: all eight (csrc/materials.cuh)
+DEVICE_MATERIALS = tuple(sorted(MATERIAL_IDS))
 
 
 def check_device_materials(cfg: SimConfig):
@@ -60,18 +59,11 @@ def check_device_materials(cfg: SimConfig):
         raise NotImplementedError(
             f"kernel_order={cfg.kernel_order}: the blocked kernels are "
             "quadratic only")
-    other = [m for m in cfg.active_materials if m not in DEVICE_MATERIALS]
-    if other:
-        names = ", ".join(MATERIAL_IDS[m] for m in other)
-        raise NotImplementedError(
-            f"material(s) {names} have no CUDA kernel yet (only jelly and "
-            "water); "
-            "see ROADMAP.md queue 1, 'device code of the other materials'")
 
 
 def material_set(cfg: SimConfig) -> int:
     """The scene's materials as the bit set (1 << id) the CUDA kernels are
-    compiled for."""
+    compiled for: one library per set (``cuda_build``)."""
     return sum(1 << m for m in cfg.active_materials)
 
 
@@ -184,7 +176,8 @@ def p2g_fused(s_arr, e_arr, st, dt, cfg: SimConfig):
     check_device_materials(cfg)
     K = s_arr.shape[0]
     out = torch.empty((K, TILE, TILE, TILE, 4), dtype=torch.float32, device=st.device)
-    lib = cuda_build.load("p2g")
+    mats = material_set(cfg)
+    lib = cuda_build.load("p2g", mats)
     fn = lib.p2g_fused_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -192,9 +185,8 @@ def p2g_fused(s_arr, e_arr, st, dt, cfg: SimConfig):
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     stream = torch.cuda.current_stream(st.device).cuda_stream
     rc = fn(st.data_ptr(), st.shape[1], s_arr.data_ptr(), e_arr.data_ptr(), K,
-            out.data_ptr(), *_launch_args(cfg, dt), material_set(cfg), stream)
-    if rc != 0:
-        raise RuntimeError(f"p2g_fused kernel launch failed: CUDA error {rc}")
+            out.data_ptr(), *_launch_args(cfg, dt), mats, stream)
+    cuda_build.check_launch(rc, "p2g_fused", mats)
     stats.launches += 1
     return out
 
@@ -217,7 +209,6 @@ def p2g_blocked(s_arr, e_arr, pdata):
     stream = torch.cuda.current_stream(pdata.device).cuda_stream
     rc = fn(pdata.data_ptr(), pdata.shape[1], s_arr.data_ptr(), e_arr.data_ptr(), K,
             out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"p2g_blocked kernel launch failed: CUDA error {rc}")
+    cuda_build.check_launch(rc, "p2g_blocked")
     blocked_stats.launches += 1
     return out

@@ -17,7 +17,7 @@ The near set is given as ``mini``: the (48, B) packed rows of its lanes
 (row map in ``ops/rows.py``) and ``nd``, its shared stencil data
 (``cdf.stencil_node_data``, 27 offsets stacked on a leading axis). The
 pytree frame of the JAX module (its ``TMT_FUSED=0`` route) is not ported
-(ROADMAP.md queue 1 item 6).
+(ROADMAP.md queue 1, "the rest of CPIC").
 """
 
 from __future__ import annotations

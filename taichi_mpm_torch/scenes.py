@@ -9,8 +9,9 @@ with sticky walls.
 ``BENCH_MODE=cpic``): water poured on a free-spinning 6-paddle wheel on a
 hub, joined by a rotation articulation.
 
-``water_dam`` is the adaptive-dt dam break of ``scripts/async/water.py``,
-seeded on a lattice (texture seeding is not ported yet).
+``water_dam`` is the adaptive-dt dam break of ``scripts/async/water.py``
+and ``sand_column`` the sand column of ``scripts/async/sand.py``, seeded
+on a lattice (texture seeding is not ported yet).
 """
 
 from __future__ import annotations
@@ -55,8 +56,9 @@ def benchmark_cube(
     **mat_kw,
 ) -> MPM:
     """cells=25 -> 125k particles; cells=100 -> 8M (the reference's
-    benchmark=125 / benchmark=8000). Runs on the card unless `device`
-    names another."""
+    benchmark=125 / benchmark=8000). `material` is a material name, or a
+    tuple of names that take the lattice's particles in turn (each with
+    `mat_kw`). Runs on the card unless `device` names another."""
     sim = MPM(
         res=(res, res, res),
         base_delta_t=base_dt,
@@ -66,7 +68,9 @@ def benchmark_cube(
     dx = sim.cfg.dx
     margin = (res - cells) // 2 * dx
     pos = cube_lattice(cells, dx, origin=(margin, margin, margin))
-    sim.add_particles(material, pos=pos, density=400.0, ppc=8.0, **mat_kw)
+    names = (material,) if isinstance(material, str) else tuple(material)
+    for i, name in enumerate(names):
+        sim.add_particles(name, pos=pos[i::len(names)], density=400.0, ppc=8.0, **mat_kw)
     pad = 3.5 * dx
     sim.add_collider(
         levelset.box_domain(
@@ -83,9 +87,11 @@ WHEEL_CENTER = (0.5, 0.4, 0.5)
 
 def cpic_wheel(n: int = 100_000, res: int = 96, seed: int = 0, device=None,
                lo=(0.25, 0.6, 0.35), hi=(0.75, 0.95, 0.65), vel=None, solver=MPM,
-               **solver_kw) -> MPM:
+               material: str = "water", **solver_kw) -> MPM:
     """The CPIC benchmark of ``bench.py`` (``_bench_cpic``): n water
-    particles (density 1000) uniform in the box [lo, hi] (by default
+    particles (density 1000; or, with material="sand", sand at density
+    2000 and friction angle 35, as ``scripts/mls-cpic/sand_*.py`` seed it)
+    uniform in the box [lo, hi] (by default
     [0.25, 0.75] x [0.6, 0.95] x [0.35, 0.65]) from default_rng(seed),
     at rest unless `vel` is given, over a hub (cylinder, radius 0.04,
     half height 0.06, 16 sides, axis z) and a 6-paddle wheel, both
@@ -100,7 +106,10 @@ def cpic_wheel(n: int = 100_000, res: int = 96, seed: int = 0, device=None,
                  penalty=1e3, device=device, **solver_kw)
     extent = (np.asarray(hi, np.float64) - np.asarray(lo, np.float64)).astype(np.float32)
     pos = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32) * extent + np.asarray(lo, np.float32)
-    sim.add_particles("water", pos=pos, vel=vel, density=1000.0)
+    if material == "sand":
+        sim.add_particles("sand", pos=pos, vel=vel, density=2000.0, friction_angle=35.0)
+    else:
+        sim.add_particles(material, pos=pos, vel=vel, density=1000.0)
     body = dict(density=1.0, friction=0.2, codimensional=True, angular_damping=3.0,
                 scripted_position=lambda t: WHEEL_CENTER, rotation_axis=(0, 0, 1))
     hub = sim.add_particles("rigid", mesh=cylinder_mesh(radius=0.04, half_height=0.06, n=16,
@@ -122,4 +131,21 @@ def water_dam(res: int = 128, ppc_axis: int = 2, device=None) -> AsyncMPM:
     sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 1] - 0.08, friction=0.0))
     pos = box_lattice((0.1, 0.08, 0.1), (0.35, 0.5, 0.9), sim.cfg.dx, ppc_axis)
     sim.add_particles("water", pos=pos, density=1000.0, ppc=float(ppc_axis ** 3))
+    return sim
+
+
+def sand_column(res: int = 64, ppc_axis: int = 2, device=None) -> AsyncMPM:
+    """The adaptive-dt sand column collapse of ``scripts/async/sand.py``:
+    AsyncMPM(res^3, base_delta_t=1e-3, frame_dt=0.01, unit_delta_t=1e-6),
+    a floor at y = 0.1 with friction 0.4, sand (density 2000, friction
+    angle 35) in the box (0.45, 0.1, 0.45)-(0.55, 0.5, 0.55), seeded with
+    ppc_axis^3 particles per cell on a lattice (the script's texture
+    density 8; texture seeding is not ported yet). Runs on the card unless
+    `device` names another."""
+    sim = AsyncMPM(res=(res, res, res), base_delta_t=1e-3, frame_dt=0.01,
+                   unit_delta_t=1e-6, device=device)
+    sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 1] - 0.1, friction=0.4))
+    pos = box_lattice((0.45, 0.1, 0.45), (0.55, 0.5, 0.55), sim.cfg.dx, ppc_axis)
+    sim.add_particles("sand", pos=pos, density=2000.0, friction_angle=35.0,
+                      ppc=float(ppc_axis ** 3))
     return sim

@@ -1,6 +1,6 @@
 """Is the port's sand drift over a frame rounding? A script, not a test.
 
-    python tests/port/sand_rounding.py [--seed N] [--collision]
+    python tests/port/sand_rounding.py [--seed N] [--collision] [--column]
 
 Prints, for the sand return map (``cforms.plast_sand``):
 
@@ -12,6 +12,12 @@ Prints, for the sand return map (``cforms.plast_sand``):
    boundary clean): per material, the port against the JAX frame, and the
    JAX frame against itself with every sand F moved by one ulp (up or
    down, drawn from ``--seed``).
+
+With ``--column``, instead: one frame (0.01 s, 20 adaptive substeps) of
+``scenes.sand_column`` (``scripts/async/sand.py`` at res 64) on the CPU,
+against the same frame with every F of the input moved by one ulp, for
+three draws of the directions (seeds 0-2): the noise by which
+``chip_smoke.py``'s ``sand_column_check`` sets its F and aux bounds.
 
 If the port's difference is of the size a one-ulp change of the input
 makes, it is rounding, not a fault.
@@ -103,13 +109,44 @@ def frame(seed, collision):
                   f"JAX - JAX(sand F +-1 ulp) {max_err(J, np.asarray(getattr(jq, f))[s]):.3e}")
 
 
+def column():
+    from taichi_mpm_torch import scenes
+
+    def run(seed=None):
+        sim = scenes.sand_column(device="cpu")
+        sim._ensure_finalized()
+        if seed is not None:
+            p = sim.particles
+            F, act = p.F.numpy(), p.active.numpy()
+            toward = np.where(np.random.default_rng(seed).random(F.shape) < 0.5, -np.inf, np.inf)
+            F[act] = np.nextafter(F[act], toward[act].astype(np.float32))
+        sim.step()
+        return sim
+
+    base = run()
+    act = base.particles.active.numpy()
+    for seed in range(3):
+        moved = run(seed)
+        errs = {f: max_err(getattr(base.particles, f).numpy()[act],
+                           getattr(moved.particles, f).numpy()[act])
+                for f in ("x", "v", "F", "C", "aux")}
+        print(f"column: substeps {base.last_substeps} and {moved.last_substeps}, "
+              f"frame - frame(F +-1 ulp, seed {seed}): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=5, help="draws the direction of each ulp step")
     ap.add_argument("--collision", action="store_true",
                     help="particle collision and boundary clean on, as in test_torch_frame.py")
+    ap.add_argument("--column", action="store_true",
+                    help="the one-ulp noise of a sand column frame instead")
     args = ap.parse_args()
     torch.set_num_threads(1)
+    if args.column:
+        column()
+        return
     one_call()
     frame(args.seed, args.collision)
 

@@ -168,5 +168,5 @@ def test_async_mpm_frames_are_adaptive_frames(fast_jelly, monkeypatch):
 
 
 def test_async_mpm_per_block_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="queue 1, .per-block bucketed async."):
         tadaptive.AsyncMPM(res=(32, 32, 32), per_block=True, device="cpu")

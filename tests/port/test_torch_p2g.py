@@ -97,8 +97,13 @@ def test_p2g_wrapper_checks_inputs():
 
 
 def test_device_material_check_names_material():
-    _, tcfg = configs((1, 4))  # jelly, sand
-    with pytest.raises(NotImplementedError, match="sand"):
+    """Every material has device code, alone and in any mix; only a
+    kernel order other than the quadratic one is refused."""
+    for mats in [(m,) for m in range(8)] + [(1, 4), (2, 4, 7), tuple(range(8))]:
+        _, tcfg = configs(mats)
         tp2g.check_device_materials(tcfg)
-    _, on_card = configs((1, 3))  # jelly, water: both have device code
-    tp2g.check_device_materials(on_card)
+        assert tp2g.material_set(tcfg) == sum(1 << m for m in mats)
+    assert tp2g.DEVICE_MATERIALS == tuple(range(8))
+    _, cubic = configs((1, 4), kernel_order=3)
+    with pytest.raises(NotImplementedError, match="kernel_order=3"):
+        tp2g.check_device_materials(cubic)

@@ -1,0 +1,59 @@
+"""The port's scene API against the reference's surface.
+
+``MPM(..., optimized=...)`` takes the reference's keyword: None and True
+choose the blocked path, the only one the port has, and False (the dense
+oracle path) raises. ``AsyncMPM`` is exported from the package and its
+``step`` returns the particles, as the reference's does. The package's
+messages cite ROADMAP.md's items by name, and every name they cite is
+one of its headings, so a renumbering of the queue cannot make them
+stale."""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import taichi_mpm_torch
+from taichi_mpm_torch import MPM
+from taichi_mpm_torch.core import adaptive
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[2]
+
+
+@pytest.mark.parametrize("optimized", [None, True])
+def test_mpm_takes_optimized(optimized):
+    sim = MPM(res=(16, 16, 16), optimized=optimized, device="cpu")
+    assert sim.optimized is optimized
+
+
+def test_mpm_unoptimized_names_the_dense_path():
+    with pytest.raises(NotImplementedError, match="the dense oracle path"):
+        MPM(res=(16, 16, 16), optimized=False, device="cpu")
+
+
+def test_async_mpm_is_exported_and_step_returns_particles():
+    assert taichi_mpm_torch.AsyncMPM is adaptive.AsyncMPM
+    assert "AsyncMPM" in taichi_mpm_torch.__all__
+    sim = taichi_mpm_torch.AsyncMPM(res=(16, 16, 16), base_delta_t=2e-4, frame_dt=4e-4,
+                                    unit_delta_t=1e-6, device="cpu")
+    pos = np.random.default_rng(3).uniform(0.4, 0.6, (200, 3)).astype(np.float32)
+    sim.add_particles("sand", pos=pos, density=2000.0, friction_angle=35.0)
+    p = sim.step()
+    assert p is sim.particles
+    assert int(p.count()) == 200 and sim.last_substeps >= 2
+
+
+def test_roadmap_citations_name_their_items():
+    roadmap = (ROOT / "ROADMAP.md").read_text().lower()
+    cited = []
+    for path in sorted((ROOT / "taichi_mpm_torch").rglob("*.py")):
+        text = path.read_text()
+        assert not re.search(r"queue \d+ item \d+", text), path
+        cited += re.findall(r"ROADMAP\.md\s+queue\s+1,\s+['\"]([^'\"\n]+)['\"]", text)
+    assert cited
+    for name in cited:
+        assert name.lower() in roadmap, name

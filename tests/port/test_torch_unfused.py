@@ -103,7 +103,7 @@ def test_unfused_cpic_raises(monkeypatch):
     sim.add_particles("rigid", mesh=plate_mesh(half_u=0.25, half_v=0.25, axis=1),
                       scripted_position=lambda t: (0.5, 0.45, 0.5),
                       scripted_rotation=lambda t: (0.0, 0.0, 0.0), codimensional=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1, .the rest of CPIC."):
         sim.step()
 
 

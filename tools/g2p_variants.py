@@ -6,9 +6,11 @@ Run from the root of a checkout on a machine with an H100 and nvcc:
     python3 tools/g2p_variants.py
 
 Each variant is ``taichi_mpm_torch/csrc/g2p.cu`` with a few lines
-replaced, built with the port's nvcc flags (and ``-Xptxas -v``, whose
-register counts it prints) into ``taichi_mpm_torch/_build/variants/`` and
-loaded in place of the built kernel:
+replaced, built with the port's nvcc flags (``-Xptxas -v`` among them,
+whose register counts it prints) into ``taichi_mpm_torch/_build/variants/``
+for the material sets the states need (jelly's and water's
+``g2p_fused``, the material-free ``g2p_blocked``) and loaded in place of
+the built libraries:
 
 * ``as_written``: 4 windows staged per block of 128 lanes, rows loaded
   before the gather, the largest shared-memory carveout, F not stored on
@@ -86,10 +88,7 @@ VARIANTS = {
                    "  auto ld = [&](int r) { return __ldcs(S + (long long)r * pw); };"),
                   ("  auto put = [&](int r, float value) { S[(long long)r * pw] = value; };",
                    "  auto put = [&](int r, float value) { __stcs(S + (long long)r * pw, value); };")),
-    "water_f_store": (("      if (water) {\n        put(RAUX, aux_new);\n",
-                       "      if (water) {\n#pragma unroll\n"
-                       "        for (int k = 0; k < 9; ++k) put(RF + k, Fn[k]);\n"
-                       "        put(RAUX, aux_new);\n"),),
+    "water_f_store": (("      if (write_F) {\n", "      {\n"),),
     "gather_only": GATHER_ONLY,
     "rows_only": ROWS_ONLY,
 }
@@ -121,24 +120,35 @@ def ptxas_registers(log: str) -> dict:
     return regs
 
 
+# the material sets of the libraries a variant is built for: the
+# material-free one (g2p_blocked), jelly's and water's (g2p_fused)
+SETS = (0, 1 << 1, 1 << 3)
+
+
 def build_all():
-    """One nvcc per variant, all at once; returns name -> (library, registers)."""
+    """One nvcc per variant and material set, all at once; returns
+    name -> ({set: library}, registers)."""
     from taichi_mpm_torch.ops import cuda_build
 
     OUT.mkdir(parents=True, exist_ok=True)
-    shutil.copy(CSRC / "common.cuh", OUT / "common.cuh")
+    for header in CSRC.glob("*.cuh"):
+        shutil.copy(header, OUT / header.name)
     procs = {}
     for name, edits in VARIANTS.items():
         (OUT / f"g2p_{name}.cu").write_text(variant_source(edits))
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
-               "-o", str(OUT / f"g2p_{name}.so"), str(OUT / f"g2p_{name}.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for mats in SETS:
+            cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, f"-DTMT_MATS={mats}",
+                   "-o", str(OUT / f"g2p_{name}_m{mats}.so"), str(OUT / f"g2p_{name}.cu")]
+            procs[name, mats] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT)
     built = {}
-    for name, proc in procs.items():
+    for (name, mats), proc in procs.items():
         log = proc.communicate()[0].decode(errors="replace")
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        built[name] = (ctypes.CDLL(str(OUT / f"g2p_{name}.so")), ptxas_registers(log))
+            raise RuntimeError(f"nvcc failed for {name} (set {mats}):\n{log}")
+        libs, regs = built.setdefault(name, ({}, {}))
+        libs[mats] = ctypes.CDLL(str(OUT / f"g2p_{name}_m{mats}.so"))
+        regs.update(ptxas_registers(log))
     return built
 
 
@@ -163,8 +173,8 @@ def main():
         ref, ms = None, {name: {k: [] for k in runs} for name in built}
         try:
             for name in [*built, *reversed(list(built))]:
-                lib = built[name][0]
-                cuda_build.load = lambda _, lib=lib: lib
+                libs = built[name][0]
+                cuda_build.load = lambda _, mats=0, libs=libs: libs[mats]
                 new = st.clone()
                 outs = [new, *g2p.g2p_fused(keys, new, win, dt, cfg),
                         g2p.g2p_blocked(keys, st, win, cfg)]
@@ -179,9 +189,9 @@ def main():
         finally:
             cuda_build.load = load
         K = win.shape[0]
-        for name, (lib, regs) in built.items():
-            share = diagnostics.g2p_staged_share(keys, st, lib.g2p_block_lanes(),
-                                                 lib.g2p_staged_windows(), K)
+        for name, (libs, regs) in built.items():
+            share = diagnostics.g2p_staged_share(keys, st, libs[0].g2p_block_lanes(),
+                                                 libs[0].g2p_staged_windows(), K)
             print(json.dumps(dict(state=label, variant=name, ms=ms[name], staged_share=share,
                                   registers=regs)), flush=True)
         del sim, runs, scratch, win, ref

@@ -8,8 +8,10 @@ Run from the root of a checkout on a machine with an H100 and nvcc:
 Each variant is ``taichi_mpm_torch/csrc/p2g.cu`` with a few lines
 replaced (one slot per block as written, or 2 or 4; no row prefetch; the
 dense 49 i + 7 j + k tile layout with lanes in offset order), built with
-the port's nvcc flags into ``taichi_mpm_torch/_build/variants/`` and
-loaded in place of the built kernel. On each state of
+the port's nvcc flags into ``taichi_mpm_torch/_build/variants/`` for the
+material sets the states need (jelly's and water's ``p2g_fused``, the
+material-free ``p2g_blocked``) and loaded in place of the built
+libraries. On each state of
 ``chip_smoke.kernel_states`` (the 8M jelly cube and the 1.4M adaptive dam,
 after one frame) both entry points are timed with CUDA events (10
 launches, after one) in the order A, B, ..., B, A, and their tiles must
@@ -68,25 +70,36 @@ def variant_source(edits) -> str:
     return src
 
 
+# the material sets of the libraries a variant is built for: the
+# material-free one (p2g_blocked), jelly's and water's (p2g_fused)
+SETS = (0, 1 << 1, 1 << 3)
+
+
 def build_all():
-    """One nvcc per variant, all at once; returns name -> (library, ptxas lines)."""
+    """One nvcc per variant and material set, all at once; returns
+    name -> ({set: library}, ptxas lines)."""
     from taichi_mpm_torch.ops import cuda_build
 
     OUT.mkdir(parents=True, exist_ok=True)
-    shutil.copy(CSRC / "common.cuh", OUT / "common.cuh")
+    for header in CSRC.glob("*.cuh"):
+        shutil.copy(header, OUT / header.name)
     procs = {}
     for name, edits in VARIANTS.items():
         (OUT / f"p2g_{name}.cu").write_text(variant_source(edits))
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
-               "-o", str(OUT / f"p2g_{name}.so"), str(OUT / f"p2g_{name}.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for mats in SETS:
+            cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, f"-DTMT_MATS={mats}",
+                   "-o", str(OUT / f"p2g_{name}_m{mats}.so"), str(OUT / f"p2g_{name}.cu")]
+            procs[name, mats] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT)
     built = {}
-    for name, proc in procs.items():
+    for (name, mats), proc in procs.items():
         log = proc.communicate()[0].decode(errors="replace")
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        regs = [line.split(":", 1)[1].strip() for line in log.splitlines() if "registers" in line]
-        built[name] = (ctypes.CDLL(str(OUT / f"p2g_{name}.so")), regs)
+            raise RuntimeError(f"nvcc failed for {name} (set {mats}):\n{log}")
+        libs, regs = built.setdefault(name, ({}, []))
+        libs[mats] = ctypes.CDLL(str(OUT / f"p2g_{name}_m{mats}.so"))
+        regs += [f"set {mats}: " + line.split(":", 1)[1].strip()
+                 for line in log.splitlines() if "registers" in line]
     return built
 
 
@@ -105,7 +118,7 @@ def main():
         ref, ms = {}, {name: {k: [] for k in runs} for name in built}
         try:
             for name in [*built, *reversed(list(built))]:
-                cuda_build.load = lambda _, lib=built[name][0]: lib
+                cuda_build.load = lambda _, mats=0, libs=built[name][0]: libs[mats]
                 for kernel, fn in runs.items():
                     tiles = fn()
                     torch.cuda.synchronize()
