@@ -133,6 +133,30 @@ Phases, each printed as one JSON line:
    3 timed frames of 2e-3 s, with their substeps, ms and host syncs per
    substep, which must not exceed the fixed-dt frames'. Each kernel of
    an adaptive path must have launched once per substep, no other.
+11. ``script_dam``: ``scripts/async/water.py`` at res 128 through the
+   port's runner (``scenes.water_script``, ``runner.simulate``): seeded
+   from its texture (1,056,758 particles, bit for bit the CPU's seeding),
+   a warm-up frame and 3 timed frames of 0.01 s, a verbose BGEO every
+   frame into a temporary directory, a snapshot after frame 1, the energy
+   every frame: ``p2g_fused`` and ``g2p_fused`` once per substep, all
+   particles active, finite and in the domain, the last BGEO read back
+   equal to the scene in bits, the energy finite; printed: ms per
+   substep, particle-steps/s and host syncs per substep beside the
+   lattice dam's (phase ``dam``), seconds to seed, BGEO ms and MB/s, save
+   ms and bytes, energy ms, the memory peak. ``script_resume``: from that
+   snapshot, two fresh scenes step a 5e-4 s frame with the same bits and
+   substeps, and the scene copied at the snapshot steps it within the
+   bounds of phase 2 (particles matched by an index tag in a parameter
+   slot no material reads) with the same substeps; the same on the 125k
+   jelly cube over 6 substeps at fixed dt. ``energy_check``: each
+   material's 125k cube, ``energy()`` of the card's frame against the
+   CPU's, and of the card's state stirred against that state on the
+   CPU, within 1e-5 of the sum of the terms' magnitudes.
+   ``emission_check``: ``scripts/mls-cpic/sand_paddles.py`` at res 64
+   (two scripted paddle wheels, capacity 50,000, the sand source every
+   frame), 3 frames of 1e-3 s on the card and on the CPU: equal emitted
+   counts, the CPIC bounds of ``cpic_check``, the CPIC kernels once per
+   substep.
 
 Then the ``kernels`` line: per kernel its launches on each path, its
 CUDA-event time at the 8M shapes (and at the dam's), its plain version's
@@ -1623,14 +1647,15 @@ def phase_dam(card, fused):
         st, _, pm, _ = sim.packed_carry
         kernels = dict(kernel_ms=kernel_ms(sim), g2p_fused_staged_share=staged_share(
             pm["slot_keys"], st, pm["ids"].shape[0]))
+    timed = summary(frames[1:], n)
     emit(dict(phase="dam", card=card, fused=sim.fused, particles=n, K=sim.block_capacity,
-              substeps=substeps, frames=frames, **summary(frames[1:], n),
+              substeps=substeps, frames=frames, **timed,
               n_sorts=sim.n_sorts, setup_s=setup_s, y_min=float(x[:, 1].min()),
               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
               **kernels, clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"),
               failures=failures))
     raise_failures(failures)
-    return launches, kernels.get("kernel_ms")
+    return launches, kernels.get("kernel_ms"), timed
 
 
 def phase_cpic_adaptive(card, fixed_syncs):
@@ -1663,6 +1688,355 @@ def phase_cpic_adaptive(card, fixed_syncs):
               launches=launches, failures=failures))
     raise_failures(failures)
     return launches
+
+# -- the scene-script path ------------------------------------------------------
+
+SCRIPT_DAM_PARTICLES = 1_056_758  # scripts/async/water.py's seeding at res 128 (CPU numpy)
+SCRIPT_DAM_TIMED_FRAMES = 3  # after one warm-up frame
+RESUME_FRAME_DT = 5e-4
+ID_ROW_PARAM = 7  # a params slot no material reads: each particle's index goes there
+# tests/port/test_torch_energy.py's tolerance: |E_card - E_cpu| over the sum
+# of the magnitudes of the kinetic, elastic and gravitational terms
+ENERGY_RTOL = 1e-5
+EMISSION_FRAMES = 3
+EMISSION_FRAME_DT = 1e-3  # the runner's --frame-dt for the sand paddles
+
+
+class Timed:
+    """A scene whose step, visualize, save and energy calls are timed on
+    the host clock, fenced by torch.cuda.synchronize, with each step's
+    substeps and host syncs; every other attribute is the scene's, so
+    ``runner.simulate`` drives it as the scene itself."""
+
+    TIMED = ("step", "visualize", "save", "energy")
+
+    def __init__(self, sim):
+        object.__setattr__(self, "sim", sim)
+        object.__setattr__(self, "ms", {name: [] for name in self.TIMED})
+        object.__setattr__(self, "energies", [])
+        object.__setattr__(self, "steps", [])
+
+    def __getattr__(self, name):
+        attr = getattr(self.sim, name)
+        if name not in self.TIMED:
+            return attr
+
+        def timed(*a, **k):
+            import torch
+
+            from taichi_mpm_torch.utils import HostSyncs
+
+            torch.cuda.synchronize()
+            syncs, t0 = HostSyncs.count, time.perf_counter()
+            out = attr(*a, **k)
+            torch.cuda.synchronize()
+            self.ms[name].append((time.perf_counter() - t0) * 1e3)
+            if name == "step":
+                self.steps.append(dict(substeps=self.sim.last_substeps,
+                                       host_syncs=HostSyncs.count - syncs))
+            if name == "energy":
+                self.energies.append(out)
+            return out
+
+        return timed
+
+    def __setattr__(self, name, value):
+        setattr(self.sim, name, value)
+
+
+def tag_ids(sim):
+    """Write each particle's slot index into params[:, ID_ROW_PARAM] of a
+    finalized scene, so that a resumed run (sorted afresh) can be matched
+    to the run it was cut from particle by particle."""
+    import torch
+
+    p = sim.particles
+    p.params[:, ID_ROW_PARAM] = torch.arange(p.capacity, dtype=torch.float32, device=p.device)
+    sim._set_particles(p)
+
+
+def id_errors(a, b, label, failures, bounds=FRAME_BOUNDS):
+    """Two scenes' particles matched by their id tags: the same particles
+    alive, the fields within `bounds`. Returns the errors."""
+    from taichi_mpm_torch import convert
+
+    def by_id(sim):
+        arr = convert.particles_to_numpy(sim.particles)
+        act = arr["active"]
+        order = np.argsort(arr["params"][act, ID_ROW_PARAM], kind="stable")
+        return {k: v[act][order] for k, v in arr.items()}
+
+    pa, pb = by_id(a), by_id(b)
+    if not np.array_equal(pa["params"][:, ID_ROW_PARAM], pb["params"][:, ID_ROW_PARAM]):
+        failures.append(f"{label}: other particles alive")
+        return {}
+    errs = {}
+    for name, bnd in bounds:
+        errs[name] = float(np.abs(pa[name].astype(np.float64) - pb[name].astype(np.float64)).max())
+        if not errs[name] <= bnd:
+            failures.append(f"{label}: {name} differs by {errs[name]} > {bnd}")
+    return errs
+
+
+def same_bits(a, b, label, failures):
+    """Two scenes' particles (every field) and times equal in bits."""
+    from taichi_mpm_torch import convert
+
+    pa, pb = convert.particles_to_numpy(a.particles), convert.particles_to_numpy(b.particles)
+    diff = [name for name in pa if pa[name].tobytes() != pb[name].tobytes()]
+    if diff or a.t != b.t:
+        failures.append(f"{label}: not the same bits ({diff}, t {a.t} vs {b.t})")
+    return not diff
+
+
+def phase_script_dam(card, lattice):
+    """scripts/async/water.py at res 128 through runner.simulate on the
+    card: seeded from its texture (1,056,758 particles, the CPU's seeding
+    bit for bit), a warm-up frame and SCRIPT_DAM_TIMED_FRAMES timed frames
+    of 0.01 s, verbose BGEO every frame into a temporary directory, a
+    snapshot after frame 1 and a copy of the scene there (the
+    uninterrupted run of ``script_resume``), the energy every frame.
+    `lattice` is the lattice dam's summary (phase ``dam``) of this run.
+    Returns the launches and what script_resume needs."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from taichi_mpm_torch import diagnostics, runner, scenes
+    from taichi_mpm_torch.io import bgeo
+
+    failures = []
+    t0 = time.perf_counter()
+    bgeo.native_lib()  # built with g++ at first use: outside the frames' BGEO times
+    bgeo_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim = scenes.water_script(res=128, device="cuda")
+    seed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim._ensure_finalized()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    cpu_seed = scenes.water_script(res=128, device="cpu")._pending[0]["x"]
+    n = sim.particles.count()
+    if not n == len(cpu_seed) == SCRIPT_DAM_PARTICLES:
+        failures.append(f"{n:,} particles seeded, the CPU seeds {len(cpu_seed):,}")
+    elif not np.array_equal(sim.positions(), cpu_seed):
+        failures.append("the seeded positions differ from the CPU's")
+    tag_ids(sim)
+    torch.cuda.reset_peak_memory_stats()
+
+    out = tempfile.TemporaryDirectory(prefix="chip_smoke_script_dam_")
+    args = runner.parse_args(["--frames", str(1 + SCRIPT_DAM_TIMED_FRAMES), "--out", out.name,
+                              "--verbose-bgeo"])
+    timed = Timed(sim)
+    kept = dict(dir=out, snapshot=runner.snapshot_path(out.name, 1))
+
+    def snapshot_after_frame_1(s, f):
+        if f == 2:
+            s.save(kept["snapshot"])
+            kept["uninterrupted"] = copy.deepcopy(sim)
+
+    zero_counts()
+    runner.simulate(timed, args, frame_update=snapshot_after_frame_1, print_energy=True)
+    launches = read_counts()
+    substeps = [st["substeps"] for st in timed.steps]
+    failures += route_failures(launches, True, sum(substeps))
+    check_domain(sim, n, failures)
+    if sim.update_counter != sum(substeps) * n:
+        failures.append(f"update counter {sim.update_counter} != {sum(substeps)} x {n}")
+    if not all(np.isfinite(e) for e in timed.energies) or len(timed.energies) != len(substeps):
+        failures.append(f"energies {timed.energies}")
+    last = runner.frame_path(out.name, SCRIPT_DAM_TIMED_FRAMES)
+    pos, attrs = bgeo.read_bgeo(last)
+    p = sim.particles
+    act = p.active
+    want = {"v": p.v[act], "mass": p.mass[act], "boundary": p.near_b[act].float(),
+            "distance": p.bdist[act]}
+    if not np.array_equal(pos, sim.positions()):
+        failures.append("the last BGEO's positions are not the scene's")
+    for name, a in want.items():
+        if not np.array_equal(attrs[name], a.cpu().numpy()):
+            failures.append(f"the last BGEO's {name} is not the scene's")
+
+    timed_steps = timed.steps[1:]
+    step_s = sum(timed.ms["step"][1:]) / 1e3
+    n_timed = sum(st["substeps"] for st in timed_steps)
+    bgeo_bytes = os.path.getsize(last)
+    save_bytes = os.path.getsize(kept["snapshot"])
+    emit(dict(phase="script_dam", card=card, particles=n, seed_s=seed_s, upload_s=upload_s,
+              bgeo_build_s=bgeo_build_s,
+              K=sim.block_capacity, substeps=substeps, timed_substeps=n_timed,
+              ms_per_substep=step_s * 1e3 / n_timed,
+              particle_steps_per_s=n * n_timed / step_s,
+              host_syncs_per_substep=sum(st["host_syncs"] for st in timed_steps) / n_timed,
+              lattice_dam=lattice, frame_ms=timed.ms["step"],
+              bgeo_ms=timed.ms["visualize"], bgeo_bytes=bgeo_bytes,
+              bgeo_mb_per_s=[bgeo_bytes / 1e3 / ms for ms in timed.ms["visualize"]],
+              save_ms=timed.ms["save"], save_bytes=save_bytes, energy_ms=timed.ms["energy"],
+              energies=timed.energies, n_sorts=sim.n_sorts,
+              memory=diagnostics.device_memory_report(), launches=launches,
+              kernel_ms=kernel_ms(sim),
+              clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"), failures=failures))
+    raise_failures(failures)
+    return launches, kept
+
+
+def resume_check(make, snapshot, uninterrupted, frame_dt, label, failures):
+    """Two fresh scenes (make()) load `snapshot` and step a frame of
+    `frame_dt`: the same bits and substeps; the uninterrupted scene steps
+    the same frame: within the frame bounds, particle by particle, with
+    the same substeps. Returns the errors and load times."""
+    import torch
+
+    resumed, load_ms = [], []
+    for _ in range(2):
+        sim = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.load(snapshot)
+        torch.cuda.synchronize()
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+        sim.step(frame_dt)
+        resumed.append(sim)
+    a, b = resumed
+    out = dict(load_ms=load_ms, load_bytes=os.path.getsize(snapshot),
+               bits_equal=same_bits(a, b, f"{label}: two resumes", failures))
+    uninterrupted.step(frame_dt)
+    subs = [getattr(s, "last_substeps", None) for s in (a, b, uninterrupted)]
+    if len(set(subs)) != 1:
+        failures.append(f"{label}: substeps {subs} (resumed, resumed, uninterrupted)")
+    if uninterrupted.t != a.t:
+        failures.append(f"{label}: t {a.t} resumed, {uninterrupted.t} uninterrupted")
+    out.update(substeps=subs[0], vs_uninterrupted=id_errors(
+        a, uninterrupted, f"{label}: resumed vs uninterrupted", failures))
+    return out
+
+
+def phase_script_resume(kept):
+    """From script_dam's snapshot, a frame of RESUME_FRAME_DT: two fresh
+    scenes that load it give the same bits and substeps, and the scene
+    copied at the snapshot (the uninterrupted run) stays within the frame
+    bounds of them with the same substeps. The same on the 125k jelly cube
+    at fixed dt, snapshot after one 6-substep frame, over 6 substeps."""
+    import copy
+
+    from taichi_mpm_torch import scenes
+
+    failures = []
+    out = dict(phase="script_resume")
+    out["dam"] = resume_check(lambda: scenes.water_script(res=128, device="cuda"),
+                              kept["snapshot"], kept.pop("uninterrupted"), RESUME_FRAME_DT,
+                              "dam", failures)
+    jelly = cube(25, "cuda", 6)
+    jelly._ensure_finalized()
+    tag_ids(jelly)
+    jelly.step()
+    path = os.path.join(kept["dir"].name, "jelly.npz")
+    jelly.save(path)
+    out["jelly_125k"] = resume_check(lambda: cube(25, "cuda", 6), path, copy.deepcopy(jelly),
+                                     None, "jelly cube", failures)
+    kept["dir"].cleanup()
+    emit(dict(out, failures=failures))
+    raise_failures(failures)
+
+
+def energy_of(p, cfg):
+    """(MPM.energy's mechanical energy, the sum of the magnitudes of its
+    kinetic, elastic and gravitational terms) of particles `p`."""
+    import torch
+
+    from taichi_mpm_torch.core.solver import mechanical_energy
+    from taichi_mpm_torch.materials import models
+
+    act = p.active
+    m = torch.where(act, p.mass, 0.0).double()
+    pot = models.dispatch_potential_energy(cfg.active_materials, p.mat, p.F, p.aux, p.params,
+                                           p.vol)
+    g = torch.tensor(cfg.gravity, dtype=torch.float64, device=p.device)
+    scale = float((0.5 * m * (p.v.double() ** 2).sum(-1)).abs().sum()
+                  + torch.where(act, pot, 0.0).double().abs().sum()
+                  + (m * (p.x.double() @ g)).abs().sum())
+    return float(mechanical_energy(p, cfg)), scale
+
+
+def phase_energy_check():
+    """For each material: the 125k cube after one 6-substep frame on the
+    card and on the CPU, MPM.energy() of each (within ENERGY_RTOL); then
+    the card's state stirred (F far from I, spinning), its energy on the
+    card against the same state's on the CPU (within ENERGY_RTOL)."""
+    from taichi_mpm_torch.ops import packed
+
+    failures, out = [], {}
+    for name in MATERIALS:
+        card, cpu = cube(25, "cuda", 6, name), cube(25, "cpu", 6, name)
+        card.step()
+        cpu.step()
+        e_card, e_cpu = card.energy(), cpu.energy()
+        _, scale = energy_of(cpu.particles, cpu.cfg)
+        st = stirred(card.packed_carry[0], aux_sd=0.05)
+        p = packed.unpack_particles(st, card.particles.capacity)
+        s_card, s_scale = energy_of(p, card.cfg)
+        s_cpu, _ = energy_of(packed.unpack_particles(st.cpu(), card.particles.capacity), card.cfg)
+        res = dict(frame_card=e_card, frame_cpu=e_cpu, frame_rel=abs(e_card - e_cpu) / scale,
+                   stirred_card=s_card, stirred_cpu=s_cpu,
+                   stirred_rel=abs(s_card - s_cpu) / s_scale)
+        for key in ("frame_rel", "stirred_rel"):
+            if not res[key] <= ENERGY_RTOL:
+                failures.append(f"{name}: {key} {res[key]} > {ENERGY_RTOL}")
+        out[name] = res
+        del card, cpu, st, p
+    emit(dict(phase="energy_check", **out, failures=failures))
+    raise_failures(failures)
+
+
+def phase_emission_check():
+    """scripts/mls-cpic/sand_paddles.py at res 64 (two scripted paddle
+    wheels, sand from a source every frame), EMISSION_FRAMES frames of
+    EMISSION_FRAME_DT on the card and on the CPU: the same sand emitted
+    every frame, the frames within the CPIC bounds of cpic_check, states
+    and near_b equal, the bodies within 1e-5 / 1e-6; on the card each
+    kernel of the CPIC frame launched once per substep."""
+    from taichi_mpm_torch import scenes
+
+    sims = {dev: scenes.sand_paddles(res=64, device=dev) for dev in ("cuda", "cpu")}
+    failures, frames = [], []
+    zero_counts()
+    for f in range(EMISSION_FRAMES):
+        counts = {}
+        for dev, sim in sims.items():
+            sim.frame_dt = EMISSION_FRAME_DT
+            before = sim.particles.count() if sim.particles is not None else 0
+            scenes.sand_paddles_source(sim, f)
+            sim.step()
+            counts[dev] = sim.particles.count() - before
+        g, c = sims["cuda"], sims["cpu"]
+        if counts["cuda"] != counts["cpu"] or counts["cuda"] <= 0:
+            failures.append(f"frame {f}: emitted {counts}")
+        gp, cp = g.particles, c.particles
+        act = gp.active.cpu().numpy()
+        if not np.array_equal(act, cp.active.numpy()):
+            failures.append(f"frame {f}: card and CPU keep other particles")
+            break
+        errs = {}
+        for name, bnd in CPIC_BOUNDS:
+            errs[name] = max_abs(getattr(gp, name)[gp.active].cpu(), getattr(cp, name)[cp.active])
+            if not errs[name] <= bnd:
+                failures.append(f"frame {f} card vs CPU: {name} differs by {errs[name]} > {bnd}")
+        for name in ("states", "near_b"):
+            if not np.array_equal(getattr(gp, name).cpu().numpy()[act],
+                                  getattr(cp, name).numpy()[act]):
+                failures.append(f"frame {f} card vs CPU: {name} differ")
+        for name, bnd in BODY_BOUNDS:
+            errs["body_" + name] = max_abs(getattr(g.bodies, name).cpu(), getattr(c.bodies, name))
+            if not errs["body_" + name] <= bnd:
+                failures.append(f"frame {f}: body {name} differs by {errs['body_' + name]}")
+        frames.append(dict(emitted=counts["cuda"], particles=g.particles.count(), **errs))
+    substeps = EMISSION_FRAMES * round(EMISSION_FRAME_DT / sims["cuda"].cfg.base_dt)
+    launches = read_counts()  # the CPU frames launch no kernel
+    failures += route_failures(launches, True, substeps, CPIC_KERNELS)
+    emit(dict(phase="emission_check", frames=frames, launches=launches, failures=failures))
+    raise_failures(failures)
 
 
 def main():
@@ -1707,8 +2081,12 @@ def main():
     del sim
     launches["sand_8m"] = phase_sand_path(card)
     phase_dam_check()
-    launches["dam_fused"], dam_ms = phase_dam(card, fused=True)
-    launches["dam_unfused"], _ = phase_dam(card, fused=False)
+    launches["dam_fused"], dam_ms, lattice = phase_dam(card, fused=True)
+    launches["dam_unfused"], _, _ = phase_dam(card, fused=False)
+    launches["script_dam"], kept = phase_script_dam(card, lattice)
+    phase_script_resume(kept)
+    phase_energy_check()
+    phase_emission_check()
     phase_cpic_check()
     phase_cpic_check("sand")
     phase_sand_column_check()

@@ -3,8 +3,10 @@
 The blocked 3-D path (``MPM``, ``add_particles``, ``add_collider``,
 ``step``; ``AsyncMPM`` at global adaptive dt; CPIC rigid coupling), all
 eight materials, with hand-written CUDA kernels for P2G and G2P
-(``csrc/``). Entry points run on the card unless the caller passes
-``device="cpu"``, which runs the kernels' plain-torch twins.
+(``csrc/``); texture seeding, BGEO and checkpoint I/O, the energy and
+a frame runner for scene scripts (``runner``). Entry points run on the
+card unless the caller passes ``device="cpu"``, which runs the kernels'
+plain-torch twins.
 """
 
 import torch

@@ -65,15 +65,47 @@ def packed_from_numpy(st, device="cpu") -> torch.Tensor:
     return torch.as_tensor(np.array(a, np.float32, order="C"), device=device)
 
 
-def bodies_from_jax(bodies, device="cpu"):
-    """The port's RigidBodies from the JAX package's (or any object with
-    the same field names holding arrays), through numpy."""
+def bodies_from_numpy(arrays: dict, device="cpu"):
+    """The port's RigidBodies from a dict of numpy arrays keyed by field
+    name (float32)."""
     from taichi_mpm_torch.rigid.body import BODY_FIELDS, RigidBodies
 
     return RigidBodies(**{
-        name: torch.as_tensor(np.array(np.asarray(getattr(bodies, name)), np.float32),
-                              device=device)
+        name: torch.as_tensor(np.array(np.asarray(arrays[name]), np.float32), device=device)
         for name in BODY_FIELDS})
+
+
+def bodies_from_jax(bodies, device="cpu"):
+    """The port's RigidBodies from the JAX package's (or any object with
+    the same field names holding arrays), through numpy."""
+    from taichi_mpm_torch.rigid.body import BODY_FIELDS
+
+    return bodies_from_numpy({name: getattr(bodies, name) for name in BODY_FIELDS}, device)
+
+
+def snapshot_fields(data, prefix: str, names) -> dict:
+    """The arrays `prefix`.<name> of a snapshot (an npz in the format both
+    packages write, ``io.checkpoint``) that it holds, by field name. The
+    two packages' snapshots share field names, dtypes (float32; int32 mat
+    and states; bool active and near_b) and lane order (a snapshot holds
+    the particles as the scene reads them, unpacked from the sorted
+    carry), so only the capacity can differ: ``grow_rows`` fits it."""
+    return {n: np.asarray(data[f"{prefix}.{n}"]) for n in names if f"{prefix}.{n}" in data}
+
+
+def grow_rows(snap: dict, current: dict, snap_cap: int) -> dict:
+    """Snapshot particle arrays fitted to a scene's capacity: an array
+    whose leading dimension is the snapshot's capacity `snap_cap` fills
+    rows [0, snap_cap) and the scene's own arrays (`current`) keep the
+    rows above; any other array is taken as it is (the JAX package's
+    ``io.checkpoint._restore``)."""
+    out = {}
+    for name, a in snap.items():
+        cur = current[name]
+        if a.shape[0] == snap_cap and snap_cap < cur.shape[0]:
+            a = np.concatenate([a.astype(cur.dtype), cur[snap_cap:]], 0)
+        out[name] = a
+    return out
 
 
 def scene_from_jax(scene, colliders=(), device="cpu"):

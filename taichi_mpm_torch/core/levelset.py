@@ -136,6 +136,21 @@ def box_domain(lo, hi, friction=0.0, velocity=None) -> Collider:
     return Collider(sdf=sdf, friction=friction, velocity=velocity, normal_fn=normal_fn)
 
 
+def cylinder(center, axis: int, radius, friction=0.0, velocity=None) -> Collider:
+    """Infinite cylinder obstacle along the given axis."""
+
+    def sdf(x, t):
+        c = _vec(center, x)
+        r = torch.sqrt(sum((x[..., k] - c[k]) ** 2 for k in range(x.shape[-1]) if k != axis))
+        return r - radius
+
+    return Collider(sdf=sdf, friction=friction, velocity=velocity)
+
+
+def union(*colliders_same_friction) -> Tuple[Collider, ...]:
+    return tuple(colliders_same_friction)
+
+
 @dataclasses.dataclass(frozen=True)
 class DirichletRegion:
     """Pins grid velocity to `velocity` wherever mask(x, t) is True."""
@@ -143,3 +158,11 @@ class DirichletRegion:
     mask: Callable  # (x (..., d), t) -> bool (...)
     velocity: Tuple[float, ...] = ()
 
+
+def dirichlet_slab(axis: int, lo: float, hi: float, velocity=()) -> DirichletRegion:
+    """Grid velocity pinned to `velocity` (default 0) where
+    lo <= x[axis] < hi."""
+    return DirichletRegion(
+        mask=lambda x, t: (x[..., axis] >= lo) & (x[..., axis] < hi),
+        velocity=tuple(velocity),
+    )

@@ -1,9 +1,10 @@
-"""MPM scene driver: the user-facing API on the blocked fixed-dt path
-(torch counterpart of ``taichi_mpm_tpu.core.solver.MPM``).
+"""MPM scene driver: the user-facing API on the blocked path (torch
+counterpart of ``taichi_mpm_tpu.core.solver.MPM``).
 
-``MPM(res=...)``, then ``add_particles`` (materials, or ``"rigid"`` with a
-mesh for a CPIC rigid body), ``add_articulation``, ``add_collider`` and
-``step()``. Without rigid bodies every frame runs
+``MPM(res=...)``, then ``add_particles`` (a material at explicit
+positions or seeded from a density texture, or ``"rigid"`` with a mesh
+for a CPIC rigid body), ``add_articulation``, ``add_collider`` and
+``step()`` or ``simulate``. Without rigid bodies every frame runs
 ``ops.packed.packed_frame_carry``: the fused P2G and G2P kernels on the
 card, with a lazy re-sort; with ``TMT_FUSED=0`` in the environment (read
 at construction, as in the JAX package) the unfused route instead: the
@@ -15,6 +16,12 @@ substeps (the fused P2G kernel and the gather-only G2P kernel, with the
 sparse corrections between); the unfused CPIC route raises. The packed
 carry (sorted state, page map, drift) persists across frames;
 ``particles`` is unpacked from it only when read.
+
+Read-out and I/O: ``positions``, ``velocities``, ``energy``
+(``mechanical_energy``), ``visualize`` (a BGEO file per frame, with the
+rigid bodies' meshes as OBJ), ``visualize_cdf``,
+``visualize_particle_cdf``, ``save`` and ``load`` (snapshots in the JAX
+package's format) and ``general_action``.
 
 Only the blocked path exists in the port so far: 2-D scenes and kernel
 orders other than 2 need the dense oracle path (ROADMAP.md queue 1,
@@ -35,6 +42,7 @@ from taichi_mpm_torch.core.state import Particles, empty_particles
 from taichi_mpm_torch.materials import models as materials
 from taichi_mpm_torch.ops import blocked, packed
 from taichi_mpm_torch.rigid import cpic_packed
+from taichi_mpm_torch.utils import const
 
 
 def resolve_device(device) -> torch.device:
@@ -47,6 +55,21 @@ def resolve_device(device) -> torch.device:
                 "device='cpu' to run the plain-torch path on the CPU")
         device = "cuda"
     return torch.device(device)
+
+
+def mechanical_energy(p: Particles, cfg: SimConfig):
+    """Kinetic + elastic potential + gravitational potential energy of
+    the active particles, a 0-d tensor on their device (the conservation
+    diagnostic of the JAX package's ``mechanical_energy``)."""
+    act = p.active
+    m = torch.where(act, p.mass, 0.0)
+    kinetic = 0.5 * torch.sum(m * torch.sum(p.v * p.v, -1))
+    pot = materials.dispatch_potential_energy(cfg.active_materials, p.mat, p.F, p.aux,
+                                              p.params, p.vol)
+    elastic = torch.sum(torch.where(act, pot, 0.0))
+    g = const(cfg.gravity, torch.float32, p.device)
+    grav = -torch.sum(m * torch.sum(p.x * g, -1))
+    return kinetic + elastic + grav
 
 
 class MPM:
@@ -149,23 +172,42 @@ class MPM:
         vol: Optional[float] = None,
         **mat_kw,
     ):
-        """Seed particles of a material at explicit positions.
+        """Seed particles of a material at explicit positions `pos`, or,
+        with pos=None, from a density texture ``density_tex`` (a callable
+        of points (n, d) giving the particles per cell there): Poisson-disk
+        seeding by the periodic tile (``pd=True``, ``pd_periodic=True``,
+        the default), by Bridson dart throwing (``pd_periodic=False``) or
+        rejection sampling (``pd=False``); with ``pd_source=True`` an
+        emitter that adds the layer leaving the texture within
+        ``delta_t`` (default frame_dt) at velocity `vel`, for
+        ``frame_update`` callbacks. A texture's ppc is its maximum.
 
         vol = dx^d / ppc and mass = vol * density by default. A callable
         ``<param>_tex`` kwarg sets a per-particle parameter from the seed
         positions (the parameter must sit verbatim in one slot); a
-        non-callable one is dropped, as in the reference.
+        non-callable one is dropped, as in the reference. After the first
+        frame a batch fills free capacity slots (``_inject``).
 
         ``type="rigid"`` adds a rigid body from ``mesh=`` (a (T, 3, 3)
         triangle array) or ``mesh_fn=`` (an OBJ path) with the keywords of
         ``rigid.scene.RigidSceneBuilder.add_rigid``; ``vel`` is its initial
-        velocity. Returns the body id (>= 1; 0 is the background)."""
+        velocity. Returns the body id (>= 1; 0 is the background), else
+        the number of particles added."""
         if type == "rigid":
             return self._add_rigid(density=density, initial_velocity=vel, **mat_kw)
         if pos is None:
-            raise NotImplementedError(
-                "texture seeding (pos=None) is not ported yet (ROADMAP.md "
-                "queue 1, 'texture seeding'); pass explicit positions")
+            if "density_tex" not in mat_kw:
+                raise ValueError("add_particles needs pos= or density_tex=")
+            pos, ppc = self._sample_from_texture(
+                density_tex=mat_kw.pop("density_tex"),
+                pd=mat_kw.pop("pd", True),
+                pd_source=mat_kw.pop("pd_source", False),
+                pd_periodic=mat_kw.pop("pd_periodic", True),
+                delta_t=mat_kw.pop("delta_t", self.frame_dt),
+                velocity=vel,
+            )
+            if len(pos) == 0:
+                return 0
         if density is None:
             density = 400.0
         pos = np.asarray(pos, np.float32)
@@ -201,6 +243,46 @@ class MPM:
         else:
             self._pending.append(batch)
         return n
+
+    def _sample_from_texture(self, density_tex, pd, pd_source, pd_periodic, delta_t,
+                             velocity):
+        """Seed positions (float32, host) and ppc of a density texture, by
+        the JAX package's rules and random streams."""
+        from taichi_mpm_torch.sampling import poisson
+
+        d = self.cfg.dim
+        lo = np.zeros(d)
+        hi = np.asarray(self.cfg.res) * self.cfg.dx
+        dx = self.cfg.dx
+        if pd and pd_periodic:
+            if pd_source:
+                v = np.asarray(velocity if velocity is not None else np.zeros(d))
+                offset = v * float(self.t)
+                g = np.asarray(self.cfg.gravity)
+                adv = v * delta_t + 0.5 * g * (delta_t + self.cfg.base_dt) * delta_t
+                pos = poisson.sample_from_source(density_tex, lo, hi, dx, d, offset, adv)
+            else:
+                pos = poisson.sample_from_periodic_data(density_tex, lo, hi, dx, d)
+        elif pd:
+            mn, mx, ppc = poisson._density_bbox(density_tex, lo, hi, dx, d)
+            if mn is None:
+                return np.zeros((0, d), np.float32), 1.0
+            cand = poisson.bridson(mn, mx, poisson.min_distance_for_ppc(dx, ppc, d))
+            pos = cand[density_tex(cand) > 0]
+        else:
+            # rejection sampling at ppc per cell
+            mn, mx, ppc = poisson._density_bbox(density_tex, lo, hi, dx, d)
+            if mn is None:
+                return np.zeros((0, d), np.float32), 1.0
+            rng = np.random.default_rng(0)
+            axes = [np.arange(0, self.cfg.res[k]) for k in range(d)]
+            cells = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, d)
+            m = int(np.ceil(ppc))
+            cand = (np.repeat(cells, m, 0) + rng.random((len(cells) * m, d))) * dx
+            keep = rng.random(len(cand)) <= density_tex(cand) / max(ppc, 1e-30)
+            pos = cand[keep].astype(np.float32)
+        _, _, ppc = poisson._density_bbox(density_tex, lo, hi, dx, d)
+        return pos, max(ppc, 1e-30)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -261,25 +343,39 @@ class MPM:
 
     # -- state finalization --------------------------------------------------
 
-    def _finalize(self, capacity: Optional[int] = None):
-        if not self._pending:
+    def _finalize(self, capacity: Optional[int] = None, allow_empty: bool = False):
+        if not self._pending and not allow_empty:
             raise RuntimeError("no particles added")
-        cat = {k: np.concatenate([b[k] for b in self._pending], 0)
-               for k in self._pending[0]}
-        n = cat["x"].shape[0]
+        n = sum(b["x"].shape[0] for b in self._pending)
         cap = capacity or self.capacity or n
         p = empty_particles(cap, self.cfg.dim, self.device)
-        for name in ("x", "v", "mat", "params", "aux", "mass", "vol"):
-            getattr(p, name)[:n] = self._tensor(cat[name])
-        p.active[:n] = True
-        self.cfg = self.cfg.with_materials(int(m) for m in np.unique(cat["mat"]))
-        self._particles = p
-        self._pcarry = None
+        if self._pending:
+            cat = {k: np.concatenate([b[k] for b in self._pending], 0)
+                   for k in self._pending[0]}
+            for name in ("x", "v", "mat", "params", "aux", "mass", "vol"):
+                getattr(p, name)[:n] = self._tensor(cat[name])
+            p.active[:n] = True
+            self.cfg = self.cfg.with_materials(int(m) for m in np.unique(cat["mat"]))
+        self._set_particles(p)
         self._pending = []
         if self._rigid_builder is not None:
             self.bodies, self.rigid_scene = self._rigid_builder.build(
                 tuple(self.colliders), device=self.device)
             self.cfg = dataclasses.replace(self.cfg, num_rigids=self._rigid_builder.num)
+
+    def _finalize_for_load(self, snap_cap: int):
+        """Finalize a scene a snapshot is loaded into; a scene whose
+        particles all come later (an emitter's) gets empty capacity for
+        at least the snapshot's."""
+        if self.particles is None or self._pending:
+            self._finalize(self.capacity or (None if self._pending else snap_cap),
+                           allow_empty=True)
+
+    def _set_particles(self, p: Particles):
+        """Replace the particle state; the packed carry goes with it and
+        the next frame sorts afresh."""
+        self._particles = p
+        self._pcarry = None
 
     def _active_block_cap(self) -> int:
         """Initial page-map capacity K: 1.5x the dilated occupancy
@@ -391,3 +487,130 @@ class MPM:
         self._ensure_finalized()
         p = self.particles
         return p.v[p.active].cpu().numpy()
+
+    def simulate(self, num_frames: int, frame_update=None):
+        """`num_frames` frames, each after frame_update(self, f) where
+        given (an emitter's add_particles, scripted changes). Returns the
+        particles."""
+        for f in range(num_frames):
+            if frame_update is not None:
+                frame_update(self, f)
+            self.step()
+        return self.particles
+
+    # -- diagnostics and I/O --------------------------------------------------
+
+    def energy(self) -> float:
+        """Mechanical energy of the particles (``mechanical_energy``),
+        computed on the scene's device."""
+        self._ensure_finalized()
+        return float(mechanical_energy(self.particles, self.cfg))
+
+    def general_action(self, action: str, **kw):
+        """The reference's string-dispatched actions: 'save', 'load' (with
+        file_name= or path=), 'add_articulation' (type=, obj0=, obj1=, and
+        the articulation's keywords) and 'calculate_energy'."""
+        if action in ("save", "load"):
+            path = kw["file_name"] if "file_name" in kw else kw["path"]
+            return getattr(self, action)(path)
+        if action == "add_articulation":
+            kw2 = dict(kw)
+            return self.add_articulation(kw2.pop("type"), kw2.pop("obj0"), kw2.pop("obj1", 0),
+                                         **kw2)
+        if action == "calculate_energy":
+            return self.energy()
+        raise ValueError(f"unknown general_action {action!r}")
+
+    def visualize(self, path: str, verbose: bool = False, write_rigid: bool = True,
+                  writer: str = "native"):
+        """Write the active particles to a BGEO file (``io.bgeo``); verbose
+        adds their v, mass, boundary (near_b) and distance (bdist). With
+        rigid bodies their current meshes go beside it as
+        ``<stem>_rigid_<id>.obj``. writer "numpy" takes the native
+        writer's numpy twin."""
+        from taichi_mpm_torch.io.bgeo import write_bgeo
+
+        self._ensure_finalized()
+        p = self.particles
+        act = p.active
+        attrs = {}
+        if verbose:
+            attrs["v"] = p.v[act].cpu().numpy()
+            attrs["mass"] = p.mass[act].cpu().numpy()
+            attrs["boundary"] = p.near_b[act].to(torch.float32).cpu().numpy()
+            attrs["distance"] = p.bdist[act].cpu().numpy()
+        write_bgeo(path, p.x[act].cpu().numpy(), attrs, writer=writer)
+        if write_rigid and self.bodies is not None:
+            self.write_rigid_meshes(os.path.splitext(path)[0] + "_rigid")
+
+    def write_rigid_meshes(self, prefix: str):
+        """Each rigid body's current world-space mesh as
+        ``<prefix>_<id>.obj`` (a triangle soup)."""
+        from taichi_mpm_torch.rigid.body import rotate
+
+        if self.bodies is None:
+            raise ValueError("no rigid bodies in the scene")
+        pos = self.bodies.pos.cpu().numpy()
+        rot = self.bodies.rot.cpu()
+        for rid in range(1, self._rigid_builder.num):
+            elem = self._rigid_builder.meshes[rid]  # (E, 3, 3) body frame
+            world = rotate(rot[rid][None], torch.as_tensor(elem.reshape(-1, 3))).numpy() + pos[rid]
+            with open(f"{prefix}_{rid}.obj", "w") as f:
+                f.write(f"# taichi_mpm_torch rigid body {rid}\n")
+                for v in world:
+                    f.write(f"v {v[0]} {v[1]} {v[2]}\n")
+                for e in range(elem.shape[0]):
+                    i0 = 3 * e + 1
+                    f.write(f"f {i0} {i0 + 1} {i0 + 2}\n")
+
+    def visualize_cdf(self, path: str):
+        """The current grid CDF as a point cloud of the tagged nodes, with
+        their distance, states and rigid_id (the reference's CDF debug
+        dump)."""
+        from taichi_mpm_torch.io.bgeo import write_bgeo
+        from taichi_mpm_torch.rigid import cdf
+        from taichi_mpm_torch.rigid.body import boundary_particle_world
+
+        if self.bodies is None:
+            raise ValueError("no rigid bodies in the scene")
+        scene = self.rigid_scene
+        xb, _, elem_w = boundary_particle_world(self.bodies, scene.bp_rid, scene.bp_offset,
+                                                scene.bp_normal, scene.bp_elem)
+        dist, rid, states = cdf.rasterize_rigid_boundary(xb, elem_w, scene.bp_rid,
+                                                         self.bodies.num, self.cfg)
+        states = states.cpu().numpy()
+        sel = states != 0
+        coords = np.stack(np.meshgrid(*[np.arange(n) for n in self.cfg.grid_nodes],
+                                      indexing="ij"), -1).reshape(-1, self.cfg.dim)[sel]
+        write_bgeo(path, (coords * self.cfg.dx).astype(np.float32),
+                   {"distance": dist.cpu().numpy()[sel],
+                    "states": states[sel].astype(np.float32),
+                    "rigid_id": rid.cpu().numpy()[sel].astype(np.float32)})
+
+    def visualize_particle_cdf(self, path: str):
+        """The active particles that carry CPIC affinity bits, with their
+        distance, states and boundary flag."""
+        from taichi_mpm_torch.io.bgeo import write_bgeo
+
+        self._ensure_finalized()
+        p = self.particles
+        sel = p.active & (p.states != 0)
+        write_bgeo(path, p.x[sel].cpu().numpy(),
+                   {"distance": p.bdist[sel].cpu().numpy(),
+                    "states": p.states[sel].to(torch.float32).cpu().numpy(),
+                    "boundary": p.near_b[sel].to(torch.float32).cpu().numpy()})
+
+    def save(self, path: str):
+        """A snapshot of the state (``io.checkpoint``, the JAX package's
+        format)."""
+        from taichi_mpm_torch.io.checkpoint import save_checkpoint
+
+        self._ensure_finalized()
+        save_checkpoint(path, self)
+
+    def load(self, path: str):
+        """Restore a snapshot (this package's or the JAX package's) into
+        this rebuilt scene; the next frame sorts afresh."""
+        from taichi_mpm_torch.io.checkpoint import load_checkpoint
+
+        load_checkpoint(path, self)

@@ -1,17 +1,22 @@
 """Diagnostics (torch counterpart of ``taichi_mpm_tpu.diagnostics``):
-``stage_report``, the per-stage profile of a substep;
+``FrameProfiler``, the wall clock and particle-steps per second of
+frames; ``trace``, a ``torch.profiler`` trace of the device's work;
+``device_memory_report``, the card's memory in use and its peak;
+``simulate_with_energy``, a frame loop that reads the mechanical energy
+after each frame; ``stage_report``, the per-stage profile of a substep;
 ``p2g_edge_inputs`` and ``g2p_edge_inputs``, hand-made inputs at the P2G
 and G2P kernels' edges; ``g2p_staged_share``, the share of lanes whose
 window the fused G2P kernel stages in shared memory;
 ``sand_knife_edges`` and ``sand_edges_per_substep``, the sand lanes whose
-plastic event is within rounding of its edges. The other
-diagnostics of the JAX module (energy series, memory stats) are not
-ported yet (ROADMAP.md queue 1, "I/O and diagnostics")."""
+plastic event is within rounding of its edges."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
+from dataclasses import dataclass, field
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -25,6 +30,97 @@ from taichi_mpm_torch.ops.rows import (
 from taichi_mpm_torch.ops.substep import grid_update_flat
 
 STAGES = ("prep", "p2g", "merge", "grid", "windows", "g2p", "finish")
+
+
+# -- frames, traces, memory and energy -----------------------------------------
+
+
+@dataclass
+class FrameProfiler:
+    """Wall clock per frame and particle-steps per second (the
+    reference's work metric over time), with a rolling report."""
+
+    substeps_per_frame: int = 1
+    frames: List[dict] = field(default_factory=list)
+
+    @contextlib.contextmanager
+    def frame(self, n_particles: int):
+        """Time the block as one frame of `n_particles` particles; a
+        frame on the card should end in ``sim.sync()`` inside the block."""
+        t0 = time.perf_counter()
+        yield
+        wall = time.perf_counter() - t0
+        self.frames.append(dict(wall=wall, particles=n_particles,
+                                psteps=n_particles * self.substeps_per_frame))
+
+    @property
+    def update_counter(self) -> int:
+        """Total particle updates (the reference's work metric)."""
+        return int(sum(f["psteps"] for f in self.frames))
+
+    def particle_steps_per_sec(self, skip_first: int = 1) -> float:
+        fs = self.frames[skip_first:] or self.frames
+        wall = sum(f["wall"] for f in fs)
+        return sum(f["psteps"] for f in fs) / max(wall, 1e-12)
+
+    def report(self) -> str:
+        if not self.frames:
+            return "no frames recorded"
+        walls = np.asarray([f["wall"] for f in self.frames])
+        return "\n".join([
+            f"frames: {len(self.frames)}  "
+            f"wall/frame: median {np.median(walls)*1e3:.1f} ms "
+            f"(min {walls.min()*1e3:.1f}, max {walls.max()*1e3:.1f})",
+            f"particle updates: {self.update_counter:,}",
+            f"throughput: {self.particle_steps_per_sec()/1e6:.2f} M particle-steps/s",
+        ])
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = "taichi_mpm_torch_trace"):
+    """A ``torch.profiler`` trace of the block (the CPU's and, where
+    there is a card, its kernels), written to `log_dir` as a Chrome trace
+    (``trace.json``); the profiler is yielded, so ``key_averages()`` can
+    be read after the block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"[taichi_mpm_torch] trace written to {path}")
+
+
+def device_memory_report(device=None) -> Optional[dict]:
+    """The card's memory (``torch.cuda.memory_stats``): bytes in use, the
+    peak since the last reset and the card's total; None without one."""
+    if not torch.cuda.is_available():
+        return None
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type != "cuda":
+        return None
+    stats = torch.cuda.memory_stats(dev)
+    return {
+        "bytes_in_use": stats.get("allocated_bytes.all.current"),
+        "peak_bytes_in_use": stats.get("allocated_bytes.all.peak"),
+        "bytes_limit": torch.cuda.get_device_properties(dev).total_memory,
+    }
+
+
+def simulate_with_energy(sim, num_frames: int, frame_update=None):
+    """`num_frames` frames, each after frame_update(sim, f) where given;
+    returns the mechanical energy after each (``MPM.energy``)."""
+    energies = []
+    for f in range(num_frames):
+        if frame_update is not None:
+            frame_update(sim, f)
+        sim.step()
+        energies.append(sim.energy())
+    return np.asarray(energies)
 
 
 def _ms_per_call(fn, calls: int, repeats: int, device) -> float:

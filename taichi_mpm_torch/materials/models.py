@@ -1,6 +1,7 @@
-"""Material ids, host-side parameter packing and the per-particle dt
-limit over particle arrays (the parts of ``taichi_mpm_tpu.materials.models``
-the port uses).
+"""Material ids, host-side parameter packing, the per-particle dt limit
+and the potential energy over particle arrays (the parts of
+``taichi_mpm_tpu.materials.models`` the port uses; the matrix-form forces
+and return maps are ``materials.cforms``' component forms).
 
 Parameter slot layout of the 8-wide per-particle ``params``:
   slot 0: mu_0      (water: k)
@@ -17,6 +18,8 @@ from __future__ import annotations
 
 import math
 
+import torch
+
 from taichi_mpm_torch.materials import cforms
 from taichi_mpm_torch.materials.cforms import (  # noqa: F401  (re-exported ids)
     ELASTIC,
@@ -28,6 +31,7 @@ from taichi_mpm_torch.materials.cforms import (  # noqa: F401  (re-exported ids)
     VON_MISES,
     WATER,
 )
+from taichi_mpm_torch.math.svd import polar_decomp, svd
 
 MATERIAL_NAMES = {
     "elastic": ELASTIC,
@@ -141,3 +145,43 @@ def dispatch_allowed_dt(active_materials, mat, F, aux, params, vol, mass, speed,
     Fc = tuple(F[..., i, j] for i in range(3) for j in range(3))
     pc = tuple(params[..., k] for k in range(8))
     return cforms.dispatch_allowed_dt(active_materials, mat, Fc, aux, pc, vol, mass, speed, dx)
+
+
+# -- potential energy (the conservation diagnostic) ----------------------------
+
+
+def _det(F):
+    return (F[..., 0, 0] * (F[..., 1, 1] * F[..., 2, 2] - F[..., 1, 2] * F[..., 2, 1])
+            - F[..., 0, 1] * (F[..., 1, 0] * F[..., 2, 2] - F[..., 1, 2] * F[..., 2, 0])
+            + F[..., 0, 2] * (F[..., 1, 0] * F[..., 2, 1] - F[..., 1, 1] * F[..., 2, 0]))
+
+
+def potential_energy(mat_id: int, F, aux, params, vol):
+    """Elastic potential energy per particle of material `mat_id` (F
+    (..., 3, 3), params (..., 8)): linear's small-strain energy, jelly's
+    fixed-corotated one (polar decomposition), elastic's Hencky one (SVD);
+    0 for the other materials, as in the JAX package."""
+    mu, lam = params[..., 0], params[..., 1]
+    if mat_id == LINEAR:
+        eye = torch.eye(3, dtype=F.dtype, device=F.device)
+        e = 0.5 * (F + F.transpose(-1, -2)) - eye
+        tr = torch.diagonal(e, dim1=-2, dim2=-1).sum(-1)
+        return vol * (mu * torch.sum(e * e, (-2, -1)) + 0.5 * lam * tr ** 2)
+    if mat_id == JELLY:
+        J = _det(F)
+        R, _ = polar_decomp(F)
+        diff = F - R
+        return vol * (mu * torch.sum(diff * diff, (-2, -1)) + 0.5 * lam * (J - 1.0) ** 2)
+    if mat_id == ELASTIC:
+        _, sig, _ = svd(F)
+        log_s = torch.log(torch.clamp(torch.abs(sig), min=1e-6))
+        return vol * (mu * torch.sum(log_s * log_s, -1) + 0.5 * lam * torch.sum(log_s, -1) ** 2)
+    return torch.zeros(F.shape[:-2], dtype=F.dtype, device=F.device)
+
+
+def dispatch_potential_energy(active_materials, mat, F, aux, params, vol):
+    """``potential_energy`` of each particle by its material id `mat`."""
+    out = torch.zeros(F.shape[:-2], dtype=F.dtype, device=F.device)
+    for m in active_materials:
+        out = torch.where(mat == m, potential_energy(m, F, aux, params, vol), out)
+    return out

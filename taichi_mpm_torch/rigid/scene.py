@@ -75,6 +75,7 @@ class RigidSceneBuilder:
         self.bp = []
         self.pos_funcs = [None]
         self.rot_funcs = [None]
+        self.meshes = [None]  # body-frame element soup per rigid (frame output)
         self.articulations = []
         q = np.zeros(4, np.float32)
         q[0] = 1.0
@@ -161,6 +162,7 @@ class RigidSceneBuilder:
         self.pos_funcs.append(scripted_position)
         self.rot_funcs.append(scripted_rotation)
 
+        self.meshes.append(elem)
         bpos, bnrm, eidx = meshlib.sample_boundary_particles(elem, self.dx)
         self.bp.append(dict(offset=bpos, normal=bnrm, elem=elem[eidx],
                             rid=np.full(len(bpos), rid, np.int32)))

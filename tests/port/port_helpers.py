@@ -194,3 +194,38 @@ def fast_arrays(n=1200, seed=7, mats=("jelly",), drift=(12.0, -3.0, 0.0), v_scal
     a, mids = scene_arrays(n, seed=seed, mats=mats, v_scale=v_scale)
     a["v"][:n] += np.float32(drift)
     return a, mids
+
+
+# -- particles matched by identity ----------------------------------------------
+
+ID_SLOT = 7  # a params slot no material reads: tests tag each particle's index there
+
+
+def tag_ids(arrays):
+    """The numpy particle arrays with each slot's index in params[:, ID_SLOT]."""
+    a = dict(arrays)
+    a["params"] = np.array(a["params"], np.float32)
+    a["params"][:, ID_SLOT] = np.arange(a["params"].shape[0], dtype=np.float32)
+    return a
+
+
+def by_id(p):
+    """The active particles of `p` (either package's) as numpy arrays,
+    ordered by their id tag: a resumed run sorts afresh, so its lanes
+    come in another order than the run it was cut from."""
+    a = convert.particles_to_numpy(p)
+    act = a["active"]
+    order = np.argsort(a["params"][act, ID_SLOT], kind="stable")
+    return {k: v[act][order] for k, v in a.items()}
+
+
+def assert_close_by_id(p, q, bounds=FRAME_BOUNDS, equal=()):
+    """Two particle sets with the same tagged particles alive, within
+    `bounds`, the fields `equal` exactly."""
+    a, b = by_id(p), by_id(q)
+    assert np.array_equal(a["params"][:, ID_SLOT], b["params"][:, ID_SLOT])
+    for name, bound in bounds.items():
+        err = max_err(a[name], b[name])
+        assert err <= bound, (name, err)
+    for name in equal:
+        assert np.array_equal(a[name], b[name]), name

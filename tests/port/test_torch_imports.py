@@ -22,7 +22,11 @@ def test_port_import_does_not_load_jax():
         "taichi_mpm_torch.rigid.cpic_packed, taichi_mpm_torch.rigid.articulation, "
         "taichi_mpm_torch.rigid.collision, taichi_mpm_torch.rigid.scene, "
         "taichi_mpm_torch.rigid.mesh, taichi_mpm_torch.math.quat, "
-        "taichi_mpm_torch.core.adaptive, taichi_mpm_torch.diagnostics\n"
+        "taichi_mpm_torch.core.adaptive, taichi_mpm_torch.diagnostics, "
+        "taichi_mpm_torch.sampling, taichi_mpm_torch.sampling.poisson, "
+        "taichi_mpm_torch.sampling.texture, taichi_mpm_torch.io, taichi_mpm_torch.io.bgeo, "
+        "taichi_mpm_torch.io.checkpoint, taichi_mpm_torch.math.svd, "
+        "taichi_mpm_torch.materials.models, taichi_mpm_torch.runner\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'taichi_mpm_tpu'))]\n"
         "assert not bad, bad\n"
