@@ -157,6 +157,37 @@ Phases, each printed as one JSON line:
    frame), 3 frames of 1e-3 s on the card and on the CPU: equal emitted
    counts, the CPIC bounds of ``cpic_check``, the CPIC kernels once per
    substep.
+12. The dense path (``core/transfer.py``: torch scatters and gathers over
+   the whole grid, as the JAX package's are XLA ops; it launches none of
+   the kernels, and each dense phase checks that). ``dense_check``: a
+   3-D scene of all eight materials (4,000 particles, res 32, a sticky
+   box, the per-particle collision and the boundary clean-up on) at
+   B-spline orders 1, 2 and 3, and the 2-D tetris scene
+   (``demos/tetris.py``): one 6-substep frame on the card against the
+   CPU's, held to the frame bounds of phase 2 (sand's aux to 7e-6,
+   ``DENSE_SAND_BOUNDS``), plastic events equal but for sand's knife
+   edges, a second card frame equal in bits; beside the sand lanes' gap,
+   their one-ulp noise on the card and on the CPU, and a control frame
+   with CUDA's approximate rsqrt, which must break the sand bounds.
+   ``dense_vs_blocked``: the 125k jelly cube at rest (3 substeps),
+   ``dense_all8`` at order 2 and ``oscillating_jello`` at res 50 (a frame
+   each), each on the dense and on the fused route, both on the card,
+   particles matched by id, within ``DENSE_VS_BLOCKED_BOUNDS`` (set from
+   the card's, the CPU twins' and the JAX package's readings, under the
+   bounds the JAX package holds its blocked path to). ``dense_path``:
+   ``scripts/benchmark/colliding_balls_energy.py`` at res 100 through
+   ``runner.simulate`` with its energy (67,044 Poisson-seeded jelly
+   particles, 33 substeps per 0.01 s frame): a warm-up and 10 timed
+   frames, ms per substep, particle-steps/s, host syncs per substep, the
+   memory peak, each frame's energy and its drift, the first frame's
+   energy against the CPU's within 1e-5 of its terms' magnitudes, every
+   particle active, finite and in the domain. ``dense_adaptive``:
+   ``AsyncMPM`` on the dense path, tests/test_adaptive.py's 2-D block and
+   ``scripts/benchmark/oscillating_jello.py`` at res 50, a frame each on
+   the card against the CPU's, with equal substep counts. ``dense_scale``:
+   the 8M jelly cube on the dense path, a 6-substep frame beside the
+   fused route's ms per substep of ``main_path``, the memory peak and the
+   stages' CUDA-event ms.
 
 Then the ``kernels`` line: per kernel its launches on each path, its
 CUDA-event time at the 8M shapes (and at the dam's), its plain version's
@@ -829,17 +860,20 @@ def cube(cells, device, substeps, material="jelly"):
 FRAME_BOUNDS = (("x", 5e-6), ("v", 5e-5), ("F", 5e-6), ("C", 5e-4), ("aux", 5e-6))
 
 
-def frame_errors(a, b, label, failures, bounds=FRAME_BOUNDS, plast_slack=0):
+def frame_errors(a, b, label, failures, bounds=FRAME_BOUNDS, plast_slack=0, lanes=None):
     """Two scenes after the same frame: the same particles alive, the
     same sort counts, plasticity counts that differ by no more than
     `plast_slack` (sand's lanes at its knife edges over the frame), the
-    fields within `bounds`. Returns the errors; a broken bound is appended
-    to `failures`."""
+    fields within `bounds` (over the lanes `lanes`, a bool mask, where
+    given). Returns the errors; a broken bound is appended to
+    `failures`."""
     pa, pb = a.particles, b.particles
-    act = pa.active.cpu().numpy()
+    act = pa.active.cpu().numpy().copy()  # a CPU tensor's numpy() shares its memory
     if not np.array_equal(pb.active.cpu().numpy(), act):
         failures.append(f"{label}: the frames keep other particles")
     act &= pb.active.cpu().numpy()
+    if lanes is not None:
+        act &= lanes
     errs = {}
     for name, bound in bounds:
         ea = getattr(pa, name).cpu().numpy()[act].astype(np.float64)
@@ -1229,7 +1263,7 @@ def phase_main_path(card, fused=True):
         clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"), failures=failures,
     ))
     raise_failures(failures)
-    return sim, launches
+    return sim, launches, timed_s * 1e3 / n_timed
 
 
 def phase_stage_report(sim, card):
@@ -1732,7 +1766,7 @@ class Timed:
             torch.cuda.synchronize()
             self.ms[name].append((time.perf_counter() - t0) * 1e3)
             if name == "step":
-                self.steps.append(dict(substeps=self.sim.last_substeps,
+                self.steps.append(dict(substeps=getattr(self.sim, "last_substeps", None),
                                        host_syncs=HostSyncs.count - syncs))
             if name == "energy":
                 self.energies.append(out)
@@ -2038,6 +2072,388 @@ def phase_emission_check():
     emit(dict(phase="emission_check", frames=frames, launches=launches, failures=failures))
     raise_failures(failures)
 
+# -- the dense path -------------------------------------------------------------
+
+ALL8 = ("elastic", "jelly", "snow", "water", "sand", "von_mises", "linear", "visco")
+DENSE_CHECK_SUBSTEPS = 6
+DENSE_VS_BLOCKED_SUBSTEPS = 3
+DENSE_PATH_RES = 100  # scripts/benchmark/colliding_balls_energy.py's default
+DENSE_PATH_TIMED_FRAMES = 10  # after one warm-up frame
+DENSE_SCALE_SUBSTEPS = 6
+# dense_check's sand lanes sit near the return map's knife edges, where
+# the frame's rounding reaches their aux: moving each component of the
+# input F by one ulp moves sand's aux by 4.5-5.0e-6 on the card and
+# 4.8-6.5e-6 on the CPU at orders 1-3 (``nudged``), the card-CPU gap is
+# 4.4-5.1e-6, and the control frame with CUDA's approximate rsqrt
+# (``approximate_rsqrt_frame``) moves it by 8.0-8.5e-6 (F 7.0-9.0e-6;
+# PERF.md, PR 8). Sand's aux is held to 7e-6, above every sound reading
+# and below the control; every other field and lane keeps the frame
+# bounds, and the control must break the sand bounds.
+DENSE_SAND_BOUNDS = tuple((name, 7e-6 if name == "aux" else bound)
+                          for name, bound in FRAME_BOUNDS)
+
+
+def dense_all8(device, order, optimized=False):
+    """A 3-D scene of all eight materials (dealt over 4,000 particles
+    uniform in [0.3, 0.6]^3 from default_rng(8), velocities 0.5 N(0, 1)) at
+    B-spline `order`, res 32, dt 1e-4, inside a sticky box [0.32, 0.7]^3
+    that some particles start outside of, with the per-particle collision
+    and the boundary clean-up on; on the dense path unless `optimized`."""
+    from taichi_mpm_torch import MPM
+    from taichi_mpm_torch.core import levelset
+
+    rng = np.random.default_rng(8)
+    pos = rng.uniform(0.3, 0.6, (4000, 3)).astype(np.float32)
+    vel = (0.5 * rng.standard_normal((4000, 3))).astype(np.float32)
+    sim = MPM(res=(32, 32, 32), base_delta_t=1e-4, frame_dt=DENSE_CHECK_SUBSTEPS * 1e-4,
+              kernel_order=order, optimized=optimized, particle_collision=True,
+              clean_boundary=True, device=device)
+    for i, name in enumerate(ALL8):
+        sim.add_particles(name, pos=pos[i::8], vel=vel[i::8], density=1000.0)
+    sim.add_collider(levelset.box_domain((0.32,) * 3, (0.7,) * 3, friction=-1.0))
+    return sim
+
+
+def dense_tetris(device):
+    from taichi_mpm_torch import scenes
+
+    sim = scenes.tetris(device=device)
+    sim.frame_dt = DENSE_CHECK_SUBSTEPS * sim.cfg.base_dt
+    return sim
+
+
+def no_launches(launches):
+    """The dense path launches no kernel of the port."""
+    return [f"{name} launched {n} times on the dense path" for name, n in launches.items() if n]
+
+
+def nudged(sim, seed=0):
+    """`sim` finalized, each component of every F moved by one ulp up or
+    down at random (default_rng(seed)): a frame from it against the
+    frame from `sim` as it was measures that frame's rounding noise."""
+    import torch
+
+    sim._ensure_finalized()
+    p = sim.particles
+    F = p.F.cpu().numpy()
+    toward = np.where(np.random.default_rng(seed).random(F.shape) < 0.5,
+                      np.float32(-np.inf), np.float32(np.inf)).astype(np.float32)
+    p.F = torch.as_tensor(np.nextafter(F, toward)).to(p.device)
+    sim._set_particles(p)
+    return sim
+
+
+def lane_errors(a, b, lanes, names=("F", "aux")):
+    """The largest difference of each field in `names` over the lanes
+    alive in both scenes and in `lanes`."""
+    pa, pb = a.particles, b.particles
+    act = pa.active.cpu().numpy() & pb.active.cpu().numpy() & lanes
+    return {name: float(np.abs(getattr(pa, name).cpu().numpy()[act].astype(np.float64)
+                               - getattr(pb, name).cpu().numpy()[act]).max())
+            for name in names}
+
+
+def approximate_rsqrt_frame(make):
+    """A card frame of `make("cuda")` with the dense SVD's 1/sqrt taken by
+    torch.rsqrt, CUDA's approximate rsqrtf (the card-only fault that
+    ``math.cmat3._rsqrt`` avoids): the control the sand bounds must
+    catch."""
+    import torch
+
+    from taichi_mpm_torch.math import cmat3
+
+    exact = cmat3._rsqrt
+    cmat3._rsqrt = torch.rsqrt
+    try:
+        sim = make("cuda")
+        sim.step()
+    finally:
+        cmat3._rsqrt = exact
+    return sim
+
+
+def phase_dense_check():
+    """Each dense scene (all eight materials in 3-D at orders 1, 2 and 3;
+    the 2-D tetris scene): one 6-substep frame on the card and on the
+    CPU, held to the frame bounds (sand lanes to DENSE_SAND_BOUNDS) with
+    the same particles alive and the plastic events equal but for sand's
+    knife edges (counted on the CPU frame,
+    ``diagnostics.dense_sand_edges_per_substep``); a second card frame
+    equal in bits; no kernel launched. For the 3-D scenes, beside the
+    sand lanes' gap: their one-ulp noise (``nudged``) on the card and on
+    the CPU, and the control frame (``approximate_rsqrt_frame``), whose
+    sand lanes must break DENSE_SAND_BOUNDS."""
+    from taichi_mpm_torch import diagnostics
+
+    failures, out = [], {}
+    makes = {f"all8_order{k}": (lambda dev, k=k: dense_all8(dev, k)) for k in (1, 2, 3)}
+    makes["tetris_2d"] = dense_tetris
+    zero_counts()
+    for label, make in makes.items():
+        card, cpu, rerun = make("cuda"), make("cpu"), make("cuda")
+        card.step()
+        rerun.step()
+        with diagnostics.dense_sand_edges_per_substep() as edges:
+            cpu.step()
+        sand = cpu.particles.mat.numpy() == SAND
+        errs = frame_errors(card, cpu, f"{label} card vs CPU", failures,
+                            plast_slack=sum(edges), lanes=~sand)
+        same_bits(card, rerun, f"{label} rerun", failures)
+        out[label] = dict(particles=card.particles.count(), plast=card.plasticity_counter,
+                          plast_cpu=cpu.plasticity_counter, sand_knife_edges=sum(edges),
+                          errors=errs, dense=card.packed_carry is None)
+        if not sand.any():
+            continue
+        out[label]["sand_errors"] = frame_errors(
+            card, cpu, f"{label} card vs CPU, sand", failures, DENSE_SAND_BOUNDS,
+            plast_slack=sum(edges), lanes=sand)
+        noise = {}
+        for dev, base in (("cuda", card), ("cpu", cpu)):
+            moved = nudged(make(dev))
+            moved.step()
+            noise[dev] = lane_errors(base, moved, sand)
+        control = approximate_rsqrt_frame(make)
+        control_errs = lane_errors(control, cpu, sand, [name for name, _ in DENSE_SAND_BOUNDS])
+        if all(control_errs[name] <= bound for name, bound in DENSE_SAND_BOUNDS):
+            failures.append(f"{label}: the approximate-rsqrt control passes the sand bounds "
+                            f"({control_errs})")
+        out[label].update(sand_noise_card=noise["cuda"], sand_noise_cpu=noise["cpu"],
+                          control_sand_errors=control_errs)
+    launches = read_counts()
+    failures += no_launches(launches)
+    emit(dict(phase="dense_check", **out, launches=launches, failures=failures))
+    raise_failures(failures)
+    return launches
+
+
+# dense_vs_blocked: the same frame on the dense route and on the fused
+# route, both on the card. Each scene is held to twice the largest of
+# three readings of that difference (x at least two ulps of a position in
+# [0.5, 1)): the card's, the port's CPU dense frame against the fused
+# kernels' twins, and the JAX package's dense substeps against its fused
+# Pallas kernels in interpret mode (tests/port/port_helpers.py
+# jax-dense-vs-blocked; PERF.md, PR 8). The bounds the JAX package holds
+# its blocked path to against its dense one (tests/test_blocked.py) are
+# the ceiling.
+DENSE_VS_BLOCKED_CEILING = dict(x=2e-6, v=2e-4, F=2e-5, C=2e-3, aux=2e-5)
+DENSE_VS_BLOCKED_BOUNDS = {
+    "cube25": dict(x=1.2e-7, v=6e-9, F=5e-10, C=8e-9),
+    "all8_order2": dict(x=1.2e-7, v=3e-6, F=1.1e-5, C=2.5e-6, aux=1e-5),
+    "jello50": dict(x=2.5e-7, v=1.3e-6, F=2e-6, C=7e-7),
+}
+assert all(b <= DENSE_VS_BLOCKED_CEILING[k]
+           for bounds in DENSE_VS_BLOCKED_BOUNDS.values() for k, b in bounds.items())
+
+
+def jello50(device, optimized):
+    from taichi_mpm_torch import scenes
+
+    sim = scenes.oscillating_jello(res=50, device=device)
+    sim.optimized = optimized  # the path is chosen at the first frame
+    return sim
+
+
+def phase_dense_vs_blocked():
+    """Three scenes, each one frame on the dense route and on the fused
+    route, both on the card, particles matched by id, within
+    DENSE_VS_BLOCKED_BOUNDS: benchmark_cube(cells=25) (125k jelly at
+    rest, 3 substeps), dense_all8 at order 2 (every material's stress,
+    F update and return map; sand's plastic events may differ by its
+    knife edges, counted on the dense frame) and
+    scripts/benchmark/oscillating_jello.py at res 50 (a stretched jelly
+    block, a frame of 20 substeps)."""
+    from taichi_mpm_torch import diagnostics
+
+    makes = {
+        "cube25": lambda opt: cube(25, "cuda", DENSE_VS_BLOCKED_SUBSTEPS),
+        "all8_order2": lambda opt: dense_all8("cuda", 2, optimized=opt),
+        "jello50": lambda opt: jello50("cuda", opt),
+    }
+    failures, out = [], {}
+    for label, make in makes.items():
+        fused, dense = make(True), make(True)
+        dense.optimized = False
+        for sim in (fused, dense):
+            sim._ensure_finalized()
+            tag_ids(sim)
+        fused.step()
+        with diagnostics.dense_sand_edges_per_substep() as edges:
+            dense.step()
+        if dense.packed_carry is not None or fused.packed_carry is None:
+            failures.append(f"{label}: the scenes did not take the dense and the fused path")
+        bounds = tuple(DENSE_VS_BLOCKED_BOUNDS[label].items())
+        errs = id_errors(dense, fused, f"{label} dense vs fused card frame", failures, bounds)
+        slack = sum(edges)
+        if not abs(dense.plasticity_counter - fused.plasticity_counter) <= slack:
+            failures.append(f"{label}: plastic events {dense.plasticity_counter} vs "
+                            f"{fused.plasticity_counter}, {slack} at sand's knife edges")
+        out[label] = dict(particles=dense.particles.count(),
+                          substeps=round(dense.frame_dt / dense.cfg.base_dt), errors=errs,
+                          bounds=dict(bounds), plast=dense.plasticity_counter,
+                          plast_fused=fused.plasticity_counter, sand_knife_edges=slack)
+    emit(dict(phase="dense_vs_blocked", **out, failures=failures))
+    raise_failures(failures)
+
+
+def phase_dense_path(card):
+    """The slice at full size: scripts/benchmark/colliding_balls_energy.py
+    at res 100 (two Poisson-seeded jelly balls, dt 3e-4, 33 substeps per
+    0.01 s frame) through runner.simulate with print_energy, a warm-up
+    frame and DENSE_PATH_TIMED_FRAMES timed frames, every launch count set
+    to 0 first: ms per substep, particle-steps/s, host syncs per substep
+    (0 at fixed dt), peak device memory, each frame's energy and its
+    drift from frame 0; the first frame's energy against the CPU's frame
+    within ENERGY_RTOL of its terms' magnitudes; every particle active,
+    finite and in the domain; no kernel launched. Returns the launches."""
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+
+    from taichi_mpm_torch import runner, scenes
+
+    failures = []
+    t0 = time.perf_counter()
+    sim = scenes.colliding_balls_energy(res=DENSE_PATH_RES, device="cuda")
+    sim._ensure_finalized()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n = sim.particles.count()
+    substeps = max(1, int(round(sim.frame_dt / sim.cfg.base_dt)))
+    cpu = scenes.colliding_balls_energy(res=DENSE_PATH_RES, device="cpu")
+    t0 = time.perf_counter()
+    cpu.step()
+    cpu_frame_s = time.perf_counter() - t0
+    e_cpu, scale = energy_of(cpu.particles, cpu.cfg)
+    torch.cuda.reset_peak_memory_stats()
+    timed = Timed(sim)
+    args = runner.parse_args(["--frames", str(1 + DENSE_PATH_TIMED_FRAMES)])
+    zero_counts()
+    log = io.StringIO()
+    with redirect_stdout(log):
+        runner.simulate(timed, args, print_energy=True)
+    launches = read_counts()
+    failures += no_launches(launches)
+    check_domain(sim, n, failures)
+    energies = timed.energies
+    rel = abs(energies[0] - e_cpu) / scale
+    if not rel <= ENERGY_RTOL:
+        failures.append(f"the first frame's energy {energies[0]} vs the CPU's {e_cpu}: {rel}")
+    if not all(np.isfinite(energies)):
+        failures.append(f"energies {energies}")
+    steps = timed.steps[1:]
+    step_s = sum(timed.ms["step"][1:]) / 1e3
+    n_timed = DENSE_PATH_TIMED_FRAMES * substeps
+    emit(dict(phase="dense_path", card=card, particles=n, res=DENSE_PATH_RES,
+              substeps_per_frame=substeps, timed_substeps=n_timed,
+              ms_per_substep=step_s * 1e3 / n_timed, particle_steps_per_s=n * n_timed / step_s,
+              host_syncs_per_substep=sum(st["host_syncs"] for st in steps) / n_timed,
+              warmup_frame_ms=timed.ms["step"][0], frame_ms=timed.ms["step"],
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, setup_s=setup_s,
+              energies=energies, drift=[e - energies[0] for e in energies],
+              energy_cpu_frame0=e_cpu, energy_rel_vs_cpu=rel, cpu_frame_s=cpu_frame_s,
+              runner_lines=log.getvalue().splitlines()[-2:], launches=launches,
+              clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"), failures=failures))
+    raise_failures(failures)
+    return launches
+
+
+def phase_dense_adaptive():
+    """AsyncMPM on the dense path, one frame each on the card and the CPU:
+    tests/test_adaptive.py's 2-D scene (a 64-particle jelly block, res
+    64^2, base_delta_t 1e-3, frame_dt 5e-3, unit 1e-6) and
+    scripts/benchmark/oscillating_jello.py at res 50 (optimized=False):
+    equal substep counts, the frame bounds, the dt range printed."""
+    from taichi_mpm_torch import scenes
+    from taichi_mpm_torch.core.adaptive import AsyncMPM
+
+    def block(device):
+        sim = AsyncMPM(res=(64, 64), base_delta_t=1e-3, frame_dt=5e-3, unit_delta_t=1e-6,
+                       device=device)
+        pos = np.stack(np.meshgrid(np.linspace(0.4, 0.6, 8), np.linspace(0.6, 0.8, 8)),
+                       -1).reshape(-1, 2)
+        sim.add_particles("jelly", pos=pos, E=5e4, nu=0.3)
+        return sim
+
+    def jello(device):
+        return scenes.oscillating_jello(res=50, device=device, solver=AsyncMPM,
+                                        unit_delta_t=1e-6)
+
+    failures, out = [], {}
+    for label, make in (("block_2d", block), ("jello_res50", jello)):
+        card, cpu = make("cuda"), make("cpu")
+        card.step()
+        cpu.step()
+        if card.last_substeps != cpu.last_substeps:
+            failures.append(f"{label}: {card.last_substeps} substeps vs the CPU's "
+                            f"{cpu.last_substeps}")
+        out[label] = dict(particles=card.particles.count(), substeps=card.last_substeps,
+                          dt_range=card.last_dt_range, dt_range_cpu=cpu.last_dt_range,
+                          errors=frame_errors(card, cpu, f"{label} card vs CPU", failures))
+    emit(dict(phase="dense_adaptive", **out, failures=failures))
+    raise_failures(failures)
+
+
+def dense_stage_ms(sim):
+    """CUDA-event ms of each stage of a dense substep on the scene's state:
+    the force, the rest of P2G (the stencil values and the ordered
+    scatter), the grid update, the gather and the G2P finish."""
+    from taichi_mpm_torch.core import transfer
+    from taichi_mpm_torch.materials import models
+
+    p, cfg, dt = sim.particles, sim.cfg, sim.cfg.base_dt
+    cols = tuple(sim.colliders)
+    grid = transfer.p2g(p, cfg, dt)
+    grid_v, _ = transfer.grid_update(grid, cfg, cols, sim.t, dt, sim._xg)
+    v, b = transfer.gather(p, grid_v, cfg)
+    ms = dict(
+        force=cuda_ms(lambda: models.dispatch_force(cfg.active_materials, p.mat, p.F, p.aux,
+                                                    p.params, p.vol), 2),
+        p2g=cuda_ms(lambda: transfer.p2g(p, cfg, dt), 2),
+        grid=cuda_ms(lambda: transfer.grid_update(grid, cfg, cols, sim.t, dt, sim._xg), 2),
+        gather=cuda_ms(lambda: transfer.gather(p, grid_v, cfg), 2),
+        finish=cuda_ms(lambda: transfer.g2p_finish(p, v, b, cfg, dt, return_count=True), 2))
+    ms["p2g_without_force"] = ms["p2g"] - ms["force"]
+    return ms
+
+
+def phase_dense_scale(card, fused_ms):
+    """benchmark_cube(cells=100) (8M jelly) on the dense path: a 1-substep
+    warm-up frame, then one DENSE_SCALE_SUBSTEPS-substep frame timed, its
+    ms per substep and peak memory beside the fused route's ms per
+    substep of this run (`fused_ms`, phase main_path); no bound on its
+    speed. All particles active, finite and in the domain; the stages'
+    CUDA-event ms on the state after the frame (``dense_stage_ms``)."""
+    import torch
+
+    from taichi_mpm_torch import scenes
+
+    failures = []
+    sim = scenes.benchmark_cube(cells=100, res=125, device="cuda", **CUBE_KW["jelly"])
+    sim.optimized = False
+    sim._ensure_finalized()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    sim.step(frame_dt=sim.cfg.base_dt)
+    sim.sync()
+    t0 = time.perf_counter()
+    sim.step(frame_dt=DENSE_SCALE_SUBSTEPS * sim.cfg.base_dt)
+    sim.sync()
+    frame_s = time.perf_counter() - t0
+    launches = read_counts()
+    failures += no_launches(launches)
+    check_domain(sim, 8_000_000, failures)
+    if sim.packed_carry is not None:
+        failures.append("the 8M cube did not take the dense path")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit(dict(phase="dense_scale", card=card, particles=sim.particles.count(),
+              substeps=DENSE_SCALE_SUBSTEPS, ms_per_substep=frame_s * 1e3 / DENSE_SCALE_SUBSTEPS,
+              fused_ms_per_substep=fused_ms, peak_mem_gb=peak_gb,
+              stage_ms=dense_stage_ms(sim), launches=launches, failures=failures))
+    raise_failures(failures)
+    return launches
+
 
 def main():
     import torch
@@ -2070,13 +2486,13 @@ def main():
     phase_cube25()
     phase_water25()
     phase_materials25()
-    sim, launches["jelly_8m"] = phase_main_path(card)
+    sim, launches["jelly_8m"], fused_ms = phase_main_path(card)
     phase_profile(sim, card)  # steps one more frame: before the phases that share its state
     phase_breakdown(sim, card)
     measured = phase_kernels(sim, card)
     by_material = phase_material_kernels(sim, card)
     del sim
-    sim, launches["jelly_8m_unfused"] = phase_main_path(card, fused=False)
+    sim, launches["jelly_8m_unfused"], _ = phase_main_path(card, fused=False)
     phase_stage_report(sim, card)
     del sim
     launches["sand_8m"] = phase_sand_path(card)
@@ -2095,6 +2511,11 @@ def main():
     phase_profile(sim, card, phase="cpic_profile")
     del sim
     launches["cpic_wheel_adaptive"] = phase_cpic_adaptive(card, fixed_syncs)
+    launches["dense_check"] = phase_dense_check()
+    phase_dense_vs_blocked()
+    launches["dense_balls"] = phase_dense_path(card)
+    phase_dense_adaptive()
+    launches["dense_jelly_8m"] = phase_dense_scale(card, fused_ms)
     emit({"kernels": kernels_line(measured, launches, dam_ms, by_material)})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,10 +11,12 @@ the snapping runs on the host in float32, reproducing the JAX package's
 arithmetic as XLA compiles it (``snap_pot``), so that the substep count
 is the reference's.
 
+On the dense path (2-D scenes, kernel orders 1 and 3,
+``optimized=False``) the frame is ``adaptive_frame_fn``: the dense
+substeps of ``core.solver`` at that dt, the limit read once per substep.
+
 ``AsyncMPM(per_block=True)``, the per-block bucketed scheduler, is not
-ported (ROADMAP.md queue 1, "per-block bucketed async"). The port's
-scenes are 3-D, so the JAX package's oracle frame ``adaptive_frame_fn``
-is not reached.
+ported (ROADMAP.md queue 1, "per-block bucketed async").
 """
 
 from __future__ import annotations
@@ -25,12 +27,13 @@ import numpy as np
 import torch
 
 from taichi_mpm_torch.config import SimConfig
-from taichi_mpm_torch.core.solver import MPM
+from taichi_mpm_torch.core.solver import MPM, substep
 from taichi_mpm_torch.core.state import Particles
 from taichi_mpm_torch.materials import models as materials
 from taichi_mpm_torch.ops import packed
 from taichi_mpm_torch.ops.rows import RACT
 from taichi_mpm_torch.rigid import cpic_packed
+from taichi_mpm_torch.utils import host_read
 
 # The constants XLA compiles jnp.log2 and jnp.exp2 with: log2(x) is
 # log(x) * 1.44269502 and exp2(k) is exp(k * 0.693147182), in float32.
@@ -42,7 +45,7 @@ def dt_limit(p: Particles, cfg: SimConfig, strength_dt_mul: float = 1.0,
              cfl_dt_mul: float = 1.0):
     """Global allowed dt of a Particles set, a 0-d tensor: min over active
     particles of the material sound-speed limit and the advection CFL."""
-    speed = torch.linalg.vector_norm(p.v, dim=-1)
+    speed = torch.sqrt(materials.sum_last(p.v * p.v))
     a_dt = materials.dispatch_allowed_dt(
         cfg.active_materials, p.mat, p.F, p.aux, p.params, p.vol, p.mass, speed, cfg.dx)
     strength = torch.min(torch.where(p.active, a_dt, 1e30)) * strength_dt_mul
@@ -79,6 +82,30 @@ def snap_pot(dt, unit_dt: float, max_dt: float):
     return np.minimum(np.maximum(snapped, unit), np.float32(max_dt))
 
 
+def adaptive_frame_fn(p: Particles, t, cfg: SimConfig, colliders, frame_dt, unit_dt, max_dt,
+                      strength_dt_mul: float = 1.0, cfl_dt_mul: float = 1.0,
+                      max_substeps: int = 100000, xg=None, dts=None):
+    """A dense frame at global adaptive dt: substeps until t reaches t +
+    frame_dt, each of dt = min(snap_pot(dt_limit), t_end - t) on the
+    schedule of ``ops.packed.AdaptiveDt`` (the JAX package's arithmetic,
+    so the substep count is the reference's). One host read per substep:
+    the dt limit. `xg` are the node positions; `dts`, where given, is a
+    list the substeps' dt are appended to. Returns (p, t, n_substeps, the
+    plasticity count as a 0-d tensor)."""
+    sched = packed.AdaptiveDt(t, cfg, frame_dt, unit_dt, max_dt, strength_dt_mul, cfl_dt_mul,
+                              max_substeps)
+    count = torch.zeros((), dtype=torch.int64, device=p.device)
+    n = 0
+    while sched.more(t, n):
+        lim = np.float32(host_read(dt_limit(p, cfg, strength_dt_mul, cfl_dt_mul)))
+        p, t, c = substep(p, t, cfg, colliders, sched.next_dt(t, lim), xg)
+        count = count + c
+        n += 1
+    if dts is not None:
+        dts.extend(sched.dts)
+    return p, t, n, count
+
+
 class AsyncMPM(MPM):
     """Solver with global adaptive dt (the reference's ``async_mpm``
     simulation type on the JAX package's global path). base_delta_t is
@@ -88,7 +115,7 @@ class AsyncMPM(MPM):
     ``update_counter`` sums substeps x active particles over the frames
     (the reference's work counter); ``last_substeps`` is the newest
     frame's substep count and ``last_dt_range`` its smallest and largest
-    dt."""
+    dt. The dense path runs ``adaptive_frame_fn``."""
 
     def __init__(self, *args, unit_delta_t: float = 1e-6, strength_dt_mul: float = 1.0,
                  cfl_dt_mul: float = 1.0, per_block: bool = False, **kw):
@@ -107,11 +134,12 @@ class AsyncMPM(MPM):
         self.last_dt_range = None
 
     def _check_route(self):
-        if self.bodies is not None and not self.fused:
+        if self.bodies is not None and (not self.fused or not self._blocked):
             raise NotImplementedError(
-                "adaptive CPIC with TMT_FUSED=0 runs the dense oracle frame "
-                "(core/adaptive.adaptive_cpic_frame_fn), not ported yet "
-                "(ROADMAP.md queue 1, 'the dense oracle path'); unset TMT_FUSED")
+                "adaptive CPIC on the dense path or with TMT_FUSED=0 runs the dense "
+                "CPIC frame (core/adaptive.adaptive_cpic_frame_fn), not ported yet "
+                "(ROADMAP.md queue 1, 'dense CPIC and 2-D rigid bodies'); use the "
+                "blocked path and unset TMT_FUSED")
 
     def step(self, frame_dt: Optional[float] = None):
         """Advance one frame of frame_dt (default self.frame_dt) at
@@ -123,6 +151,13 @@ class AsyncMPM(MPM):
         args = (fdt, self.unit_delta_t, self.cfg.base_dt, self.strength_dt_mul,
                 self.cfl_dt_mul)
         dts = []
+        if not self._blocked:
+            p, t, n, plast = adaptive_frame_fn(self._particles, self.t, self.cfg,
+                                               tuple(self.colliders), *args, xg=self._xg,
+                                               dts=dts)
+            self._end_dense_frame(p, t, plast)
+            self._record(n, dts, int(p.active.sum()))
+            return p
         if self.bodies is not None:
             out = cpic_packed.cpic_packed_adaptive_frame_carry(
                 self._pcarry, self.bodies, self.t, self.cfg, self.rigid_scene, args[0],
@@ -141,7 +176,10 @@ class AsyncMPM(MPM):
                 self._pcarry, self.t, self.cfg, tuple(self.colliders), *args,
                 fused=self.fused, dts=dts)
         self._end_frame(carry, t, nsorts, plast)
+        self._record(n, dts, int((carry[0][RACT] > 0.5).sum()))
+        return self.particles
+
+    def _record(self, n: int, dts, n_active: int):
         self.last_substeps = n
         self.last_dt_range = (float(min(dts)), float(max(dts))) if dts else None
-        self.update_counter += n * int((carry[0][RACT] > 0.5).sum())
-        return self.particles
+        self.update_counter += n * n_active

@@ -1,10 +1,21 @@
-"""MPM scene driver: the user-facing API on the blocked path (torch
-counterpart of ``taichi_mpm_tpu.core.solver.MPM``).
+"""MPM scene driver: the user-facing API (torch counterpart of
+``taichi_mpm_tpu.core.solver``, ``MPM`` and the dense substep and frame).
 
 ``MPM(res=...)``, then ``add_particles`` (a material at explicit
 positions or seeded from a density texture, or ``"rigid"`` with a mesh
 for a CPIC rigid body), ``add_articulation``, ``add_collider`` and
-``step()`` or ``simulate``. Without rigid bodies every frame runs
+``step()`` or ``simulate``.
+
+Two paths, chosen at the first frame as the JAX package chooses
+(``MPM._use_blocked``): the blocked path for 3-D scenes of quadratic
+B-splines unless ``optimized=False``, and the dense path otherwise (2-D
+scenes, kernel orders 1 and 3, ``optimized=False``). The dense path
+keeps ``Particles`` as they are and runs ``frame_fn``: a Python loop of
+``substep`` (``core.transfer``'s whole-grid P2G, grid update and G2P,
+then the per-particle collision and the boundary clean-up where the
+configuration asks for them), with no host read in a fixed-dt frame.
+
+On the blocked path, without rigid bodies every frame runs
 ``ops.packed.packed_frame_carry``: the fused P2G and G2P kernels on the
 card, with a lazy re-sort; with ``TMT_FUSED=0`` in the environment (read
 at construction, as in the JAX package) the unfused route instead: the
@@ -23,21 +34,23 @@ rigid bodies' meshes as OBJ), ``visualize_cdf``,
 ``visualize_particle_cdf``, ``save`` and ``load`` (snapshots in the JAX
 package's format) and ``general_action``.
 
-Only the blocked path exists in the port so far: 2-D scenes and kernel
-orders other than 2 need the dense oracle path (ROADMAP.md queue 1,
-"the dense oracle path"), and raise here.
+Rigid bodies need the blocked path: the dense CPIC frame and 2-D rigid
+bodies are not ported (ROADMAP.md queue 1, "dense CPIC and 2-D rigid
+bodies") and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from taichi_mpm_torch.config import SimConfig
+from taichi_mpm_torch.core import transfer
 from taichi_mpm_torch.core.state import Particles, empty_particles
 from taichi_mpm_torch.materials import models as materials
 from taichi_mpm_torch.ops import blocked, packed
@@ -55,6 +68,41 @@ def resolve_device(device) -> torch.device:
                 "device='cpu' to run the plain-torch path on the CPU")
         device = "cuda"
     return torch.device(device)
+
+
+def substep(p: Particles, t, cfg: SimConfig, colliders, dt, xg=None):
+    """One dense substep: P2G, grid update, G2P, then the per-particle
+    collision and the boundary clean-up where cfg asks for them. `xg` are
+    the grid's node positions (``transfer.node_positions``). Returns (p,
+    t + dt in float32, the plasticity count as a 0-d tensor); the JAX
+    package's substep returns no count."""
+    grid = transfer.p2g(p, cfg, dt)
+    grid_v, _ = transfer.grid_update(grid, cfg, colliders, t, dt, xg)
+    p, count = transfer.g2p(p, grid_v, cfg, dt, return_count=True)
+    if cfg.particle_collision:
+        p = transfer.particle_collision_resolution(p, cfg, colliders, t)
+    if cfg.clean_boundary:
+        p = clear_boundary_particles(p, cfg)
+    return p, np.float32(t) + np.float32(dt), count
+
+
+def clear_boundary_particles(p: Particles, cfg: SimConfig) -> Particles:
+    """Deactivate the particles within 7 cells of the domain's edge (the
+    reference deletes them)."""
+    pos = p.x * cfg.inv_dx
+    res = const(cfg.res, torch.float32, p.device)
+    near = (torch.amin(pos, -1) < 7.0) | (torch.amax(pos - res, -1) > -7.0)
+    return dataclasses.replace(p, active=p.active & ~near)
+
+
+def frame_fn(p: Particles, t, cfg: SimConfig, colliders, dt, n_substeps: int, xg=None):
+    """A dense frame of n_substeps substeps of dt. Returns (p, t, the
+    plasticity count as a 0-d tensor); reads nothing back to the host."""
+    count = torch.zeros((), dtype=torch.int64, device=p.device)
+    for _ in range(n_substeps):
+        p, t, c = substep(p, t, cfg, colliders, dt, xg)
+        count = count + c
+    return p, t, count
 
 
 def mechanical_energy(p: Particles, cfg: SimConfig):
@@ -88,27 +136,17 @@ class MPM:
         device=None,
         **cfg_kw,
     ):
-        """optimized: the reference's choice of the blocked path (None or
-        True); the port has only that path, so False, the dense oracle
-        path, raises."""
-        if optimized is False:
-            raise NotImplementedError(
-                "optimized=False selects the dense oracle path, not ported yet "
-                "(ROADMAP.md queue 1, 'the dense oracle path'); pass None or True")
+        """optimized: the reference's choice of the blocked path. None
+        takes it for 3-D scenes of quadratic B-splines (the card stands
+        where the JAX package's TPU stands) and the dense path otherwise;
+        True asks for it (a 3-D scene of another order then raises); False
+        takes the dense path (``_use_blocked``)."""
         res = tuple(int(r) for r in res)
-        if len(res) != 3:
-            raise NotImplementedError(
-                f"{len(res)}-D scenes need the dense oracle path, not ported "
-                "yet (ROADMAP.md queue 1, 'the dense oracle path')")
         if gravity is None:
-            gravity = (0.0, -10.0, 0.0)
+            gravity = (0.0, -10.0, 0.0) if len(res) == 3 else (0.0, -10.0)
         self.cfg = SimConfig(
             res=res, dx=dx, base_dt=base_delta_t, gravity=tuple(gravity), **cfg_kw
         )
-        if self.cfg.kernel_order != 2:
-            raise NotImplementedError(
-                f"kernel_order={self.cfg.kernel_order} needs the dense oracle "
-                "path, not ported yet (ROADMAP.md queue 1, 'the dense oracle path')")
         self.device = resolve_device(device)
         self.frame_dt = frame_dt
         self.capacity = capacity
@@ -120,9 +158,12 @@ class MPM:
         self._pending: List[dict] = []
         self._particles: Optional[Particles] = None
         self._pcarry = None  # persistent packed carry (st, keys, pm, drift)
+        self._blocked = None  # the path, chosen at the first frame (_use_blocked)
+        self._xg = None  # the dense path's node positions
         self.t = np.float32(0.0)
-        # work counters (reference plasticity counter; sorts per run)
-        self.plasticity_counter = 0
+        # work counters (reference plasticity counter; sorts per run); the
+        # dense path's count stays on the device until it is read
+        self._plast = 0
         self.n_sorts = 0
         # CPIC rigid-body state (built at finalize from the first 'rigid')
         self._rigid_builder = None
@@ -140,6 +181,12 @@ class MPM:
         if self._particles is None and self._pcarry is not None:
             self._particles = packed.unpack_particles(self._pcarry[0], self._cap_p)
         return self._particles
+
+    @property
+    def plasticity_counter(self) -> int:
+        """Plastic events summed over the frames (the reference's work
+        counter)."""
+        return int(self._plast)
 
     @property
     def block_capacity(self) -> Optional[int]:
@@ -424,7 +471,35 @@ class MPM:
 
     # -- time stepping --------------------------------------------------------
 
+    def _use_blocked(self) -> bool:
+        """Whether the scene runs on the blocked path (the JAX package's
+        gate): the blocked kernels hold quadratic weights, so a 3-D scene
+        of another order takes the dense path with a warning, or raises
+        where optimized=True asks for the blocked one."""
+        cfg = self.cfg
+        use_blocked = self.optimized
+        if use_blocked is None:
+            use_blocked = cfg.dim == 3
+        if use_blocked and cfg.dim == 3 and cfg.kernel_order != 2:
+            if self.optimized:
+                raise ValueError(
+                    "optimized=True requires kernel_order=2 (the blocked/"
+                    "fused kernels hardcode quadratic weights); got "
+                    f"kernel_order={cfg.kernel_order}. Use optimized=False.")
+            warnings.warn(
+                f"kernel_order={cfg.kernel_order}: falling back to the "
+                "oracle (unblocked) path; the optimized path only supports "
+                "quadratic B-splines.", stacklevel=3)
+            return False
+        return bool(use_blocked and cfg.dim == 3)
+
     def _check_route(self):
+        if self.bodies is not None and not self._blocked:
+            raise NotImplementedError(
+                "rigid bodies on the dense path (a 3-D CPIC scene with "
+                "optimized=False or kernel_order != 2) need the dense CPIC frame "
+                "(rigid/cpic.cpic_substep), not ported yet (ROADMAP.md queue 1, "
+                "'dense CPIC and 2-D rigid bodies'); use the blocked path")
         if self.bodies is not None and not self.fused:
             raise NotImplementedError(
                 "CPIC with TMT_FUSED=0 runs the pytree CPIC frame "
@@ -432,11 +507,18 @@ class MPM:
                 "(ROADMAP.md queue 1, 'the rest of CPIC'); unset TMT_FUSED")
 
     def _prepare_frame(self):
-        """Finalize the scene, check its route and pack the carry when
-        there is none."""
+        """Finalize the scene, choose its path at the first frame, check
+        its route and, on the blocked path, pack the carry when there is
+        none."""
         if (self._particles is None and self._pcarry is None) or self._pending:
             self._finalize()
+        if self._blocked is None:
+            self._blocked = self._use_blocked()
         self._check_route()
+        if not self._blocked:
+            if self._xg is None and self.colliders:
+                self._xg = transfer.node_positions(self.cfg, self.device)
+            return
         if self._pcarry is None:
             p = self.particles
             self._cap_p = p.capacity
@@ -450,16 +532,27 @@ class MPM:
         self._particles = None  # unpacked again from the carry on read
         self.t = t
         self.n_sorts += nsorts
-        self.plasticity_counter += int(plast)
+        self._plast += int(plast)
+
+    def _end_dense_frame(self, p, t, plast):
+        self._particles = p
+        self.t = t
+        self._plast = self._plast + plast  # a device tensor: read when asked
 
     def step(self, frame_dt: Optional[float] = None):
-        """Advance one frame on the blocked path (the CPIC frame when the
-        scene has rigid bodies). The page map grows at the sort when its
+        """Advance one frame: ``frame_fn`` on the dense path; on the
+        blocked path the packed frame, or the CPIC frame when the scene
+        has rigid bodies. The page map grows at the sort when its
         capacity overflows (ops.packed.sort_and_map); the CPIC capacities
         grow where they are used (rigid.cpic_packed)."""
         self._prepare_frame()
         fdt = frame_dt or self.frame_dt
         n_sub = max(1, int(round(fdt / self.cfg.base_dt)))
+        if not self._blocked:
+            self._end_dense_frame(*frame_fn(self._particles, self.t, self.cfg,
+                                            tuple(self.colliders), self.cfg.base_dt, n_sub,
+                                            self._xg))
+            return
         if self.bodies is not None:
             carry, self.bodies, t, nmax, nnear, ncoarse, nr, nsorts, plast = (
                 cpic_packed.cpic_packed_frame_carry(

@@ -8,7 +8,8 @@ after each frame; ``stage_report``, the per-stage profile of a substep;
 and G2P kernels' edges; ``g2p_staged_share``, the share of lanes whose
 window the fused G2P kernel stages in shared memory;
 ``sand_knife_edges`` and ``sand_edges_per_substep``, the sand lanes whose
-plastic event is within rounding of its edges."""
+plastic event is within rounding of its edges (on the dense path
+``dense_sand_knife_edges`` and ``dense_sand_edges_per_substep``)."""
 
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from taichi_mpm_torch.config import SimConfig
+from taichi_mpm_torch.core import transfer
 from taichi_mpm_torch.materials import cforms, models
 from taichi_mpm_torch.ops import blocked, g2p, p2g, packed
 from taichi_mpm_torch.ops.rows import (
@@ -239,6 +241,38 @@ def sand_edges_per_substep():
         yield counts
     finally:
         g2p.g2p_fused = fused
+
+
+def dense_sand_knife_edges(p, grid_v, cfg: SimConfig, dt, tol: float = SAND_EDGE_TOL) -> int:
+    """The active sand particles of a dense G2P step (``core.transfer.g2p``
+    on node velocities `grid_v`) whose return map decides within `tol` of
+    an edge (``models.sand_edges``), as ``sand_knife_edges`` counts them
+    on the blocked path."""
+    if models.SAND not in cfg.active_materials:
+        return 0
+    _, b = transfer.gather(p, grid_v, cfg)
+    tr, dg = models.sand_edges(p.F, transfer.cdg_of(b, cfg, dt), p.aux, p.params)
+    near = (tr.abs() <= tol) | (dg.abs() <= tol)
+    return int((p.active & (p.mat == models.SAND) & near).sum())
+
+
+@contextlib.contextmanager
+def dense_sand_edges_per_substep():
+    """``sand_edges_per_substep`` on the dense path: within the block,
+    each dense G2P step first appends its ``dense_sand_knife_edges``
+    count to the yielded list (it wraps ``core.transfer.g2p``)."""
+    counts = []
+    g2p_dense = transfer.g2p
+
+    def counted(p, grid_v, cfg, dt, return_count=False):
+        counts.append(dense_sand_knife_edges(p, grid_v, cfg, dt))
+        return g2p_dense(p, grid_v, cfg, dt, return_count=return_count)
+
+    transfer.g2p = counted
+    try:
+        yield counts
+    finally:
+        transfer.g2p = g2p_dense
 
 
 # -- hand-made inputs at the edges of the P2G kernels -------------------------

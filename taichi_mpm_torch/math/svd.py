@@ -20,16 +20,17 @@ from __future__ import annotations
 import torch
 
 from taichi_mpm_torch.math import cmat3
+from taichi_mpm_torch.utils import const
 
 
 def mm(a, b):
-    """Batched small matrix product, summed k = 0, 1, ... in order (the
-    JAX package's unrolled ``utils.mm``)."""
-    d = a.shape[-1]
-    rows = [torch.stack([sum(a[..., i, k] * b[..., k, j] for k in range(d))
-                         for j in range(b.shape[-1])], -1)
-            for i in range(a.shape[-2])]
-    return torch.stack(rows, -2)
+    """Batched small matrix product, summed k = 0, 1, ... in order from 0
+    (the JAX package's unrolled ``utils.mm``: sum(a_ik b_kj for k)), as
+    whole-matrix ops: column k of a times row k of b."""
+    out = 0 + a[..., :, 0:1] * b[..., 0:1, :]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., :, k:k + 1] * b[..., k:k + 1, :]
+    return out
 
 
 def _normalize(v, eps=1e-12):
@@ -125,7 +126,7 @@ def polar_decomp(F, sweeps: int = 6):
     return torch.matmul(U, VT), torch.matmul(V, sigma[..., :, None] * VT)
 
 
-def _inv_transpose(F):
+def inv_transpose(F):
     """Closed-form batched inverse-transpose of 2x2/3x3 (adjugate / det)."""
     if F.shape[-1] == 2:
         det = F[..., 0, 0] * F[..., 1, 1] - F[..., 0, 1] * F[..., 1, 0]
@@ -133,7 +134,17 @@ def _inv_transpose(F):
         row0 = torch.stack([F[..., 1, 1], -F[..., 1, 0]], -1)
         row1 = torch.stack([-F[..., 0, 1], F[..., 0, 0]], -1)
         return torch.stack([row0, row1], -2) * inv_det[..., None, None]
-    return cmat3.join33(cmat3.c_inv_transpose(cmat3.split33(F)))
+    # the cofactors (next row, next column) x (previous row, previous
+    # column) - (next, previous) x (previous, next), rows and columns
+    # cyclic: cmat3.c_adjugate_T's products, as whole-matrix ops
+    nxt = const((1, 2, 0), torch.int64, F.device)
+    prv = const((2, 0, 1), torch.int64, F.device)
+    n, p = F.index_select(-2, nxt), F.index_select(-2, prv)
+    adj = (n.index_select(-1, nxt) * p.index_select(-1, prv)
+           - n.index_select(-1, prv) * p.index_select(-1, nxt))
+    det = F[..., 0, 0] * adj[..., 0, 0] + F[..., 0, 1] * adj[..., 0, 1] + F[..., 0, 2] * adj[..., 0, 2]
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-20, 1e-20, det)
+    return adj * inv_det[..., None, None]
 
 
 def polar_newton(F, iters: int = 6):
@@ -141,7 +152,7 @@ def polar_newton(F, iters: int = 6):
     X <- (g X + X^{-T} / g) / 2, g from the Frobenius norms."""
     X = F
     for _ in range(iters):
-        Xit = _inv_transpose(X)
+        Xit = inv_transpose(X)
         nx = torch.sqrt(torch.sum(X * X, dim=(-2, -1), keepdim=True))
         ni = torch.sqrt(torch.sum(Xit * Xit, dim=(-2, -1), keepdim=True))
         g = torch.sqrt(torch.clamp(ni, min=1e-20) / torch.clamp(nx, min=1e-20))

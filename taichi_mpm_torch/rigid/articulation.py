@@ -175,8 +175,8 @@ def build_articulation(kind: str, obj0: int, obj1: int, bodies_np: dict, dim: in
     """An Articulation with body-frame parameters; bodies_np holds numpy
     'pos' (R, 3) and 'rot' (R, 4) at build time."""
     if dim != 3:
-        raise NotImplementedError("2-D articulations are not ported "
-                                  "(ROADMAP.md queue 1, 'the dense oracle path')")
+        raise NotImplementedError("2-D articulations are not ported yet "
+                                  "(ROADMAP.md queue 1, 'dense CPIC and 2-D rigid bodies')")
     pos, rot = bodies_np["pos"], bodies_np["rot"]
     if kind in ("rotation", "frozen"):
         return Articulation(kind=kind, obj=(obj0, obj1))

@@ -65,8 +65,8 @@ class RigidSceneBuilder:
                  rigid_penalty: float = 1e3):
         if dim != 3:
             raise NotImplementedError(
-                "2-D rigid scenes need the dense oracle path, not ported yet "
-                "(ROADMAP.md queue 1, 'the dense oracle path')")
+                "2-D rigid scenes need the dense CPIC frame and the 2-D CDF, not "
+                "ported yet (ROADMAP.md queue 1, 'dense CPIC and 2-D rigid bodies')")
         self.dim = dim
         self.dx = dx
         self.rigid_collision = rigid_collision

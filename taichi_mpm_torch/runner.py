@@ -13,6 +13,8 @@ and the module runs the scripts' counterparts in ``scenes`` itself:
 
     python -m taichi_mpm_torch.runner water --res 32 --frames 3 --cpu --out out/
     python -m taichi_mpm_torch.runner sand_paddles --frame-dt 1e-3 --out out/
+    python -m taichi_mpm_torch.runner colliding_balls_energy --res 32 --frames 2 --cpu
+    python -m taichi_mpm_torch.runner tetris --frames 5 --cpu --out out/
 
 Frames go to ``<out>/<frame>.bgeo`` (five digits), snapshots to
 ``<out>/snapshot_<frame>.npz`` every ``--snapshot-interval`` frames, and
@@ -137,14 +139,30 @@ def _sand_paddles(args):
     return sim, scenes.sand_paddles_source
 
 
+def _dense(name, res):
+    def make(args):
+        from taichi_mpm_torch import scenes
+
+        kw = {} if res is None else dict(res=args.res or res)
+        return getattr(scenes, name)(device=args.device, solver=mpm_class(args.device),
+                                     **kw), None
+
+    return make
+
+
 # the scene scripts' counterparts: name -> (args -> (sim, frame_update))
-SCENES = {"water": _water, "sand_paddles": _sand_paddles}
+SCENES = {"water": _water, "sand_paddles": _sand_paddles,
+          "colliding_balls_energy": _dense("colliding_balls_energy", 100),
+          "oscillating_jello": _dense("oscillating_jello", 50),
+          "tetris": _dense("tetris", 128), "mpm88": _dense("mpm88", None)}
+# the scenes that print their energy every frame, as their scripts do
+ENERGY_SCENES = ("colliding_balls_energy", "oscillating_jello")
 
 
 def main(argv=None):
     args = parse_args(argv, scene=True)
     sim, frame_update = SCENES[args.scene](args)
-    simulate(sim, args, frame_update=frame_update)
+    simulate(sim, args, frame_update=frame_update, print_energy=args.scene in ENERGY_SCENES)
     if hasattr(sim, "update_counter"):
         print("total particle updates:", sim.update_counter)
     return sim

@@ -16,6 +16,12 @@ seeded on a lattice (the cells the earlier H100 measurements name).
 for line, texture seeding and the sand source included.
 ``elastic_block_drop`` and ``sand_column_collapse`` are the JAX package's
 baseline scenes.
+
+The dense path's scenes: ``colliding_balls_energy`` and
+``oscillating_jello`` build ``scripts/benchmark``'s energy scripts line
+for line (``optimized=False``), ``tetris`` the 2-D scene of
+``demos/tetris.py`` and ``mpm88`` the 2-D snow scene of the repo's
+mls-mpm88 oracle test.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from taichi_mpm_torch.core import levelset
 from taichi_mpm_torch.core.adaptive import AsyncMPM
 from taichi_mpm_torch.core.solver import MPM
 from taichi_mpm_torch.rigid.mesh import cylinder_mesh, paddle_wheel_mesh
-from taichi_mpm_torch.sampling import texture
+from taichi_mpm_torch.sampling import poisson, texture
 
 
 def cube_lattice(cells_per_side: int, dx: float, origin, ppc_axis: int = 2,
@@ -233,3 +239,112 @@ def sand_paddles_source(s, f):
     if f < SAND_SOURCE_FRAMES:
         s.add_particles("sand", density=2000, friction_angle=35.0, density_tex=SAND_SOURCE,
                         pd_source=True, vel=(0, -0.8, 0), delta_t=s.frame_dt)
+
+
+def colliding_balls_energy(res: int = 100, device=None, solver=MPM, **solver_kw) -> MPM:
+    """``scripts/benchmark/colliding_balls_energy.py`` line for line: two
+    jelly balls (radius 0.1 at x = 0.35 and 0.65, Poisson-seeded from a
+    texture of density 8, density 400, E 5e3, nu 0.3) meeting at 0.5 m/s
+    each in zero gravity, res^3, dt 3e-4, frame_dt 0.01, on the dense path
+    (optimized=False); about 67k particles at res 100. `solver` is the
+    class (MPM, or AsyncMPM with its keywords in `solver_kw`). Runs on the
+    card unless `device` names another."""
+    sim = solver(res=(res, res, res), base_delta_t=3e-4, frame_dt=0.01, gravity=(0, 0, 0),
+                 optimized=False, device=device, **solver_kw)
+    for cx, vx in ((0.35, 0.5), (0.65, -0.5)):
+        tex = texture.sphere((cx, 0.5, 0.5), 0.1) * 8
+        sim.add_particles("jelly", density=400, density_tex=tex, vel=(vx, 0, 0), E=5e3, nu=0.3)
+    return sim
+
+
+def oscillating_jello(res: int = 50, device=None, solver=MPM, **solver_kw) -> MPM:
+    """``scripts/benchmark/oscillating_jello.py`` line for line: a jelly
+    block (0.35, 0.4, 0.4)-(0.65, 0.6, 0.6), Poisson-seeded at density 8,
+    stretched by an outward velocity 4 (x - 0.5) along x, in zero gravity,
+    res^3, dt 5e-4, frame_dt 0.01, on the dense path (optimized=False).
+    `solver` is the class (MPM, or AsyncMPM with its keywords in
+    `solver_kw`). Runs on the card unless `device` names another."""
+    sim = solver(res=(res, res, res), base_delta_t=5e-4, frame_dt=0.01, gravity=(0, 0, 0),
+                 optimized=False, device=device, **solver_kw)
+    tex = texture.box((0.35, 0.4, 0.4), (0.65, 0.6, 0.6)) * 8
+    pos = poisson.sample_from_periodic_data(tex, np.zeros(3), np.ones(3), sim.cfg.dx, 3)
+    vel = np.zeros_like(pos)
+    vel[:, 0] = (pos[:, 0] - 0.5) * 4.0
+    sim.add_particles("jelly", pos=pos, vel=vel, density=400, E=5e3, nu=0.3)
+    return sim
+
+
+TETROMINOES = {
+    "T": [(0, 0), (1, 0), (2, 0), (1, 1)],
+    "L": [(0, 0), (0, 1), (0, 2), (1, 0)],
+    "O": [(0, 0), (1, 0), (0, 1), (1, 1)],
+    "I": [(0, 0), (0, 1), (0, 2), (0, 3)],
+}
+
+
+def tetromino_particles(shape, origin, cell=0.04, ppc_axis=4) -> np.ndarray:
+    """A tetromino's particles: ppc_axis^2 per square cell on a lattice."""
+    pts = []
+    h = cell / ppc_axis
+    for cx, cy in TETROMINOES[shape]:
+        ax = (np.arange(ppc_axis) + 0.5) * h
+        g = np.stack(np.meshgrid(ax, ax, indexing="ij"), -1).reshape(-1, 2)
+        pts.append(g + np.asarray(origin) + np.asarray([cx, cy]) * cell)
+    return np.concatenate(pts).astype(np.float32)
+
+
+def tetris(res: int = 128, device=None, solver=MPM, **solver_kw) -> MPM:
+    """``demos/tetris.py``'s 2-D scene: six tetrominoes of jelly (E 2e4,
+    nu 0.3), snow (E 1.4e5, nu 0.2) and water (k 1e4) in turn, density
+    800 (water 1000), dropped under gravity -20 into a box of frictional
+    walls (0.3) at x = 0.05, 0.95 and a floor at y = 0.05; res^2, dt
+    1e-4, frame_dt 4e-3 (384 particles). Runs on the card unless `device`
+    names another."""
+    sim = solver(res=(res, res), base_delta_t=1e-4, frame_dt=4e-3, gravity=(0, -20.0),
+                 device=device, **solver_kw)
+    sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 1] - 0.05, friction=0.3))
+    sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 0] - 0.05, friction=0.3))
+    sim.add_collider(levelset.Collider(sdf=lambda x, t: 0.95 - x[..., 0], friction=0.3))
+    mats = [("jelly", dict(E=2e4, nu=0.3)), ("snow", dict(E=1.4e5, nu=0.2)),
+            ("water", dict(k=1e4))]
+    shapes = list(TETROMINOES)
+    for k in range(6):
+        mat, kw = mats[k % len(mats)]
+        pos = tetromino_particles(shapes[k % len(shapes)], origin=(0.2 + 0.1 * k, 0.5 + 0.06 * k))
+        sim.add_particles(mat, pos=pos, density=800 if mat != "water" else 1000, **kw)
+    return sim
+
+
+MPM88_WALL = 0.045  # between grid nodes, as the oracle test places it
+
+
+def mpm88_colliders():
+    """The box of the mls-mpm88 and tetris compiled references: sticky
+    walls left, right and top, a separating floor (band reaching every
+    node behind each wall)."""
+    w = MPM88_WALL
+    return [
+        levelset.Collider(sdf=lambda x, t: x[..., 0] - w, friction=-1.0, band_lo=-1e9),
+        levelset.Collider(sdf=lambda x, t: (1 - w) - x[..., 0], friction=-1.0, band_lo=-1e9),
+        levelset.Collider(sdf=lambda x, t: (1 - w) - x[..., 1], friction=-1.0, band_lo=-1e9),
+        levelset.Collider(sdf=lambda x, t: x[..., 1] - w, friction=0.0, band_lo=-1e9),
+    ]
+
+
+def mpm88(pos=None, device=None, solver=MPM, **solver_kw) -> MPM:
+    """The 2-D mls-mpm88 scene of the repo's oracle test: res 80^2, dt
+    1e-4, frame_dt 1e-3, gravity -200, snow (E 1e4, nu 0.2, hardening 10)
+    of unit mass and volume in ``mpm88_colliders``' box. `pos` defaults
+    to the test's 192 particles (uniform in a square of half-width 0.08
+    about (0.5, 0.55), from default_rng(42)). Runs on the card unless
+    `device` names another."""
+    if pos is None:
+        rng = np.random.default_rng(42)
+        pos = (rng.uniform(-1, 1, size=(192, 2)) * 0.08 + np.array([0.5, 0.55])).astype(np.float32)
+    sim = solver(res=(80, 80), base_delta_t=1e-4, frame_dt=1e-3, gravity=(0.0, -200.0),
+                 device=device, **solver_kw)
+    sim.add_particles("snow", pos=pos, mass=1.0, vol=1.0, youngs_modulus=1e4, poisson_ratio=0.2,
+                      hardening=10.0)
+    for c in mpm88_colliders():
+        sim.add_collider(c)
+    return sim

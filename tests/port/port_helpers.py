@@ -8,7 +8,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from taichi_mpm_torch import convert
+from taichi_mpm_torch import convert, scenes
 from taichi_mpm_torch.core.state import FIELDS
 from taichi_mpm_torch.materials import models as tmodels
 
@@ -229,3 +229,268 @@ def assert_close_by_id(p, q, bounds=FRAME_BOUNDS, equal=()):
         assert err <= bound, (name, err)
     for name in equal:
         assert np.array_equal(a[name], b[name]), name
+
+
+# -- the dense path: scenes of any dimension, and the compiled-reference goldens --
+
+
+def dense_arrays(n=300, dim=3, seed=0, mats=("jelly",), lo=0.3, hi=0.6, v_scale=0.5,
+                 cap_extra=5):
+    """Numpy particle fields of `n` random particles in [lo, hi]^dim (the
+    materials dealt in turn at their defaults, F = I, mass 1e-3, vol 1e-6;
+    `cap_extra` inactive slots after them) and the material ids."""
+    rng = np.random.default_rng(seed)
+    cap = n + cap_extra
+    d = dim
+    a = {
+        "x": np.zeros((cap, d), np.float32),
+        "v": np.zeros((cap, d), np.float32),
+        "F": np.broadcast_to(np.eye(d, dtype=np.float32), (cap, d, d)).copy(),
+        "C": np.zeros((cap, d, d), np.float32),
+        "aux": np.zeros(cap, np.float32),
+        "mass": np.zeros(cap, np.float32),
+        "vol": np.zeros(cap, np.float32),
+        "mat": np.zeros(cap, np.int32),
+        "params": np.zeros((cap, 8), np.float32),
+        "active": np.zeros(cap, bool),
+        "states": np.zeros(cap, np.int32),
+        "bdist": np.zeros(cap, np.float32),
+        "bnormal": np.zeros((cap, d), np.float32),
+        "near_b": np.zeros(cap, bool),
+    }
+    a["x"][:n] = rng.uniform(lo, hi, (n, d))
+    a["v"][:n] = v_scale * rng.standard_normal((n, d))
+    mids = []
+    for i, m in enumerate(mats):
+        mid, params, aux0 = tmodels.pack_params(m)
+        mids.append(mid)
+        sel = np.arange(n) % len(mats) == i
+        a["mat"][:n][sel] = mid
+        a["params"][:n][sel] = params
+        a["aux"][:n][sel] = aux0
+    a["mass"][:n] = 1e-3
+    a["vol"][:n] = 1e-6
+    a["active"][:n] = True
+    return a, tuple(sorted(set(mids)))
+
+
+def dense_configs(mids, dim=3, res=16, **kw):
+    """(JAX SimConfig, port SimConfig) of a res^dim scene with the same
+    fields (gravity -10 along y)."""
+    from taichi_mpm_tpu.config import SimConfig as JConfig
+
+    jcfg = JConfig(res=(res,) * dim, base_dt=1e-4, gravity=(0.0, -10.0, 0.0)[:dim],
+                   active_materials=tuple(mids), **kw)
+    return jcfg, convert.config_from_dict(dataclasses.asdict(jcfg))
+
+
+def jax_substeps(jp, jcfg, jcol, n, t=0.0, jit=True):
+    """n of the JAX package's dense substeps of base_dt
+    (``core.solver.substep``, the body of its ``frame_fn``): jitted once
+    and called n times, or with jit=False run op by op (quicker where
+    the substep's compile would take longer than its ops)."""
+    import jax
+    import jax.numpy as jnp
+
+    from taichi_mpm_tpu.core.solver import substep
+
+    def step(p, tt):
+        return substep(p, tt, jcfg, jcol, jcfg.base_dt)
+
+    step = jax.jit(step) if jit else step
+    t = jnp.float32(t)
+    for _ in range(n):
+        jp, t = step(jp, t)
+    return jp, t
+
+
+def load_golden(path):
+    """Frames of a compiled-reference golden file (``FRAME k n`` then n
+    rows each), by frame number (the loader of tests/test_mpm88_oracle.py
+    and tests/test_tetris_golden.py)."""
+    txt = open(path).read().splitlines()
+    frames = {}
+    i = 0
+    while i < len(txt):
+        tok = txt[i].split()
+        assert tok[0] == "FRAME"
+        k, n = int(tok[1]), int(tok[2])
+        frames[k] = np.array([[float(v) for v in line.split()] for line in txt[i + 1:i + 1 + n]],
+                             np.float32)
+        i += 1 + n
+    return frames
+
+
+# the numpy MLS-MPM oracle of tests/test_mpm88_oracle.py, copied
+MPM88_N = 80
+MPM88_DX = 1.0 / MPM88_N
+MPM88_DT = 1e-4
+MPM88_GRAVITY = -200.0
+_E, _NU, _HARDENING = 1e4, 0.2, 10.0
+_MU0 = _E / (2 * (1 + _NU))
+_LAM0 = _E * _NU / ((1 + _NU) * (1 - 2 * _NU))
+_THETA_C, _THETA_S = 2.5e-2, 7.5e-3
+
+
+def numpy_mpm88_substep(x, v, F, B, Jp, nodes):
+    """One mls-mpm88 substep, straight from the MLS-MPM equations, looped
+    in numpy (sticky walls, a separating floor)."""
+    inv_dx, dt, wall = float(MPM88_N), MPM88_DT, scenes.MPM88_WALL
+    n = x.shape[0]
+    grid = np.zeros(nodes + (3,), np.float32)
+    for p in range(n):
+        pos = x[p] * inv_dx
+        base = np.floor(pos - 0.5).astype(np.int32)
+        fx = pos - base
+        w = np.stack([0.5 * (1.5 - fx) ** 2, 0.75 - (fx - 1) ** 2, 0.5 * (fx - 0.5) ** 2]
+                     ).astype(np.float32)
+        e = np.float32(np.exp(_HARDENING * (1.0 - Jp[p])))
+        mu, lam = _MU0 * e, _LAM0 * e
+        J = np.linalg.det(F[p])
+        u, s, vt = np.linalg.svd(F[p])
+        R = (u @ vt).astype(np.float32)
+        pft = 2 * mu * (F[p] - R) @ F[p].T + lam * (J - 1) * J * np.eye(2, dtype=np.float32)
+        affine = 4.0 * B[p] - 4.0 * inv_dx * dt * (-pft)
+        for i in range(3):
+            for j in range(3):
+                node = base + np.array([i, j])
+                dpos = (pos - node).astype(np.float32)
+                weight = w[i, 0] * w[j, 1]
+                grid[node[0], node[1], :2] += weight * (v[p] + affine @ dpos)
+                grid[node[0], node[1], 2] += weight
+    gx = np.arange(nodes[0], dtype=np.float32) * MPM88_DX
+    gy = np.arange(nodes[1], dtype=np.float32) * MPM88_DX
+    for i in range(nodes[0]):
+        for j in range(nodes[1]):
+            m = grid[i, j, 2]
+            if m > 0:
+                grid[i, j, :2] /= m
+                grid[i, j, 1] += dt * MPM88_GRAVITY
+                if gx[i] <= wall or gx[i] >= 1 - wall or gy[j] >= 1 - wall:
+                    grid[i, j, :2] = 0.0
+                if gy[j] <= wall:
+                    grid[i, j, 1] = max(0.0, grid[i, j, 1])
+    for p in range(n):
+        pos = x[p] * inv_dx
+        base = np.floor(pos - 0.5).astype(np.int32)
+        fx = pos - base
+        w = np.stack([0.5 * (1.5 - fx) ** 2, 0.75 - (fx - 1) ** 2, 0.5 * (fx - 0.5) ** 2]
+                     ).astype(np.float32)
+        new_v = np.zeros(2, np.float32)
+        new_B = np.zeros((2, 2), np.float32)
+        for i in range(3):
+            for j in range(3):
+                node = base + np.array([i, j])
+                dpos = (pos - node).astype(np.float32)
+                weight = np.float32(w[i, 0] * w[j, 1])
+                gv = grid[node[0], node[1], :2]
+                new_v += weight * gv
+                new_B += np.outer(weight * gv, dpos)
+        v[p] = new_v
+        B[p] = new_B
+        cdg = np.eye(2, dtype=np.float32) - 4.0 * dt * inv_dx * new_B
+        Fn = (cdg @ F[p]).astype(np.float32)
+        u, s, vt = np.linalg.svd(Fn)
+        s_c = np.clip(s, 1 - _THETA_C, 1 + _THETA_S)
+        F[p] = (u @ np.diag(s_c) @ vt).astype(np.float32)
+        Jp[p] = np.clip(Jp[p] * s.prod() / s_c.prod(), 0.6, 20.0)
+        x[p] = x[p] + dt * v[p]
+    return x, v, F, B, Jp
+
+
+# -- measurements behind the dense path's bounds, run as a script -------------
+
+
+def dense_noise():
+    """The one-ulp noise of chip_smoke.py's dense_check frames on the CPU,
+    per material: each frame (``chip_smoke.dense_all8`` at orders 1-3, 6
+    substeps) against the same frame from ``chip_smoke.nudged`` (every F
+    of the input moved by one ulp up or down, directions from seeds
+    0-2). ``dense_check`` prints the sand lanes' noise of seed 0 on the
+    card and on the CPU in each run."""
+    import chip_smoke
+
+    for order in (1, 2, 3):
+        base = chip_smoke.dense_all8("cpu", order)
+        base.step()
+        mat = base.particles.mat.numpy()
+        noise = {}
+        for seed in range(3):
+            moved = chip_smoke.nudged(chip_smoke.dense_all8("cpu", order), seed)
+            moved.step()
+            for m, name in enumerate(chip_smoke.ALL8):
+                for f, e in chip_smoke.lane_errors(base, moved, mat == m).items():
+                    noise[name, f] = max(noise.get((name, f), 0.0), e)
+        print(f"dense all8 order {order}, frame - frame(F +-1 ulp, seeds 0-2): "
+              + ", ".join(f"{m} {f} {v:.2e}" for (m, f), v in noise.items() if v))
+
+
+def jax_dense_vs_blocked(make, jcol=(), frames=1):
+    """The JAX package's own two paths on the CPU, on the port's scene
+    `make()` (finalized, particles tagged by id) with `jcol` its colliders
+    in the JAX package: its dense substeps against
+    ``packed_frame(fused=True)`` (the Pallas kernels in interpret mode),
+    `frames` frames of the scene's substeps, particles matched by id;
+    the differences chip_smoke.py's dense_vs_blocked phase is set beside.
+    The dense substeps run op by op: jitted on the CPU, XLA fuses
+    x * inv_dx - 0.5 into one rounding for the stencil's floor but not
+    for its weights, so a particle at an exact half-cell gets the weights
+    of the stencil one node over (oscillating_jello at res 50 has one at
+    its first frame). Returns the largest difference of each field."""
+    import jax.numpy as jnp
+
+    from taichi_mpm_tpu.config import SimConfig as JConfig
+    from taichi_mpm_tpu.core import solver as jsolver
+    from taichi_mpm_tpu.ops import packed as jpacked
+
+    sim = make()
+    sim._ensure_finalized()
+    cap = sim._active_block_cap()
+    p = jax_particles(tag_ids(convert.particles_to_numpy(sim.particles)))
+    cfg = JConfig(**{f.name: getattr(sim.cfg, f.name) for f in dataclasses.fields(JConfig)})
+    n = round(sim.frame_dt / cfg.base_dt)
+    dense, blocked, t = p, p, jnp.float32(0)
+    for _ in range(frames):
+        blocked, *_ = jpacked.packed_frame(blocked, t, cfg, jcol, cfg.base_dt, n, cap,
+                                           interpret=True, fused=True)
+        for _ in range(n):
+            dense, t = jsolver.substep(dense, t, cfg, jcol, cfg.base_dt)
+    a, b = by_id(dense), by_id(blocked)
+    return {f: max_err(a[f], b[f]) for f in ("x", "v", "F", "C", "aux")}
+
+
+def jax_dense_vs_blocked_report():
+    """jax_dense_vs_blocked on chip_smoke.py's dense_vs_blocked scenes."""
+    import chip_smoke
+    from taichi_mpm_tpu.core import levelset as jls
+    from taichi_mpm_torch import scenes
+
+    def jello():
+        sim = scenes.oscillating_jello(res=50, device="cpu")
+        sim.optimized = True
+        return sim
+
+    box = (jls.box_domain((0.32,) * 3, (0.7,) * 3, friction=-1.0),)
+    cases = {"cube25": (lambda: chip_smoke.cube(25, "cpu", 3), ()),
+             "all8_order2": (lambda: chip_smoke.dense_all8("cpu", 2, optimized=True), box),
+             "jello50": (jello, ())}
+    for label, (make, jcol) in cases.items():
+        errs = jax_dense_vs_blocked(make, jcol)
+        print(f"JAX {label}, one frame, dense - blocked: "
+              + ", ".join(f"{f} {e:.3e}" for f, e in errs.items()), flush=True)
+
+
+if __name__ == "__main__":
+    # from the repo's root: PYTHONPATH=. python tests/port/port_helpers.py dense-noise
+    import argparse
+    import os
+
+    ap = argparse.ArgumentParser(description="the measurements behind the dense path's bounds")
+    ap.add_argument("what", choices=("dense-noise", "jax-dense-vs-blocked"))
+    args = ap.parse_args()
+    torch.set_num_threads(1)
+    if args.what == "dense-noise":
+        dense_noise()
+    else:
+        os.environ.setdefault("JAX_PLATFORMS", "cpu")
+        jax_dense_vs_blocked_report()

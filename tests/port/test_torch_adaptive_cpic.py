@@ -85,5 +85,5 @@ def test_async_mpm_runs_the_adaptive_cpic_frame(frames, monkeypatch):
     unfused.add_particles("water", pos=pos, density=1000)
     unfused.add_particles("rigid", mesh=paddle_wheel_mesh(n_paddles=4, outer=0.18),
                           initial_position=(0.5, 0.4, 0.5), codimensional=True)
-    with pytest.raises(NotImplementedError, match="queue 1, .the dense oracle path."):
+    with pytest.raises(NotImplementedError, match="queue 1, .dense CPIC and 2-D rigid bodies."):
         unfused.step()

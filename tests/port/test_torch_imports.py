@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,7 +27,9 @@ def test_port_import_does_not_load_jax():
         "taichi_mpm_torch.sampling, taichi_mpm_torch.sampling.poisson, "
         "taichi_mpm_torch.sampling.texture, taichi_mpm_torch.io, taichi_mpm_torch.io.bgeo, "
         "taichi_mpm_torch.io.checkpoint, taichi_mpm_torch.math.svd, "
-        "taichi_mpm_torch.materials.models, taichi_mpm_torch.runner\n"
+        "taichi_mpm_torch.materials.models, taichi_mpm_torch.runner, "
+        "taichi_mpm_torch.core.transfer, taichi_mpm_torch.core.solver, "
+        "taichi_mpm_torch.math.kernels, taichi_mpm_torch.core.state, taichi_mpm_torch.config\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'taichi_mpm_tpu'))]\n"
         "assert not bad, bad\n"
@@ -57,13 +60,25 @@ def test_mpm_without_device_needs_cuda():
             MPM(res=(16, 16, 16))
 
 
-def test_unported_paths_raise():
-    from taichi_mpm_torch import MPM
+def test_unported_paths_raise(monkeypatch):
+    """2-D scenes and kernel order 3 run on the dense path; what stays
+    unported raises: 2-D rigid bodies, the per-block scheduler and the
+    multi-device driver."""
+    from taichi_mpm_torch import MPM, runner
+    from taichi_mpm_torch.core.adaptive import AsyncMPM
 
-    with pytest.raises(NotImplementedError, match="dense oracle path"):
-        MPM(res=(16, 16), device="cpu")
-    with pytest.raises(NotImplementedError, match="dense oracle path"):
-        MPM(res=(16, 16, 16), kernel_order=3, device="cpu")
+    for sim in (MPM(res=(16, 16), device="cpu"),
+                MPM(res=(16, 16, 16), kernel_order=3, optimized=False, device="cpu")):
+        sim.add_particles("jelly", pos=np.full((4, sim.cfg.dim), 0.5, np.float32))
+        sim.step()
+        assert sim.packed_carry is None and sim.particles.count() == 4
+    with pytest.raises(NotImplementedError, match="dense CPIC and 2-D rigid bodies"):
+        MPM(res=(16, 16), device="cpu").add_particles("rigid", mesh=np.zeros((1, 2, 2)))
+    with pytest.raises(NotImplementedError, match="per-block bucketed async"):
+        AsyncMPM(res=(16, 16), per_block=True, device="cpu")
+    monkeypatch.setenv("SHARDS", "2")
+    with pytest.raises(NotImplementedError, match="multi-gpu"):
+        runner.mpm_class("cpu")
 
 
 def test_rigid_surface_rejects_misuse():

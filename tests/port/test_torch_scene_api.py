@@ -1,8 +1,8 @@
 """The port's scene API against the reference's surface.
 
 ``MPM(..., optimized=...)`` takes the reference's keyword: None and True
-choose the blocked path, the only one the port has, and False (the dense
-oracle path) raises. ``AsyncMPM`` is exported from the package and its
+choose the blocked path for a 3-D quadratic scene, and False the dense
+path. ``AsyncMPM`` is exported from the package and its
 ``step`` returns the particles, as the reference's does. The package's
 messages cite ROADMAP.md's items by name, and every name they cite is
 one of its headings, so a renumbering of the queue cannot make them
@@ -31,8 +31,12 @@ def test_mpm_takes_optimized(optimized):
 
 
 def test_mpm_unoptimized_names_the_dense_path():
-    with pytest.raises(NotImplementedError, match="the dense oracle path"):
-        MPM(res=(16, 16, 16), optimized=False, device="cpu")
+    sim = MPM(res=(16, 16, 16), optimized=False, device="cpu")
+    assert sim.optimized is False and sim._use_blocked() is False
+    sim.add_particles("water", pos=np.full((8, 3), 0.5, np.float32), density=1000.0)
+    sim.frame_dt = 2 * sim.cfg.base_dt
+    sim.step()
+    assert sim.packed_carry is None and sim.n_sorts == 0 and sim.particles.count() == 8
 
 
 def test_async_mpm_is_exported_and_step_returns_particles():
