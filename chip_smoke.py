@@ -188,6 +188,23 @@ Phases, each printed as one JSON line:
    the 8M jelly cube on the dense path, a 6-substep frame beside the
    fused route's ms per substep of ``main_path``, the memory peak and the
    stages' CUDA-event ms.
+13. The dense CPIC path (``rigid/cpic.py``: the coloured transfers over the
+   dense grid CDF, 2-D bodies; no kernel, each phase checks that).
+   ``dense_cpic_check``: tests/test_cpic.py's 2-D plate,
+   ``scripts/async/wheel.py`` and ``scripts/mls-cpic/sand_wheel_2D.py``
+   at res 128 and the 10k wheel of ``cpic_check`` with optimized=False,
+   the card against the CPU at the CPIC bounds of ``cpic_check``, equal
+   adaptive substeps, reruns equal in bits. ``dense_cpic_vs_fused``: the
+   10k wheel's 4 substeps on the dense and the fused CPIC frame on the
+   card, at tests/test_cpic.py's oracle-vs-blocked bounds, beside the JAX
+   package's own pair (``JAX_CPIC_PAIR``). ``wheel_2d_path``: both 2-D
+   scripts through ``runner.simulate`` at res 128 (ms per substep,
+   particle-steps/s, host syncs, substeps and dt range, the wheel's
+   omega). ``dense_cpic_scale``: the 100k CPIC wheel with
+   optimized=False, a 20-substep frame beside the fused CPIC frame's ms
+   per substep of ``cpic_path``, the memory peak and the stages'
+   CUDA-event ms. Then ``timing``: the seconds of these phases and of the
+   whole script.
 
 Then the ``kernels`` line: per kernel its launches on each path, its
 CUDA-event time at the 8M shapes (and at the dam's), its plain version's
@@ -1507,7 +1524,8 @@ def phase_cpic_check(material="water"):
 
 def phase_cpic_path(card):
     """The full CPIC benchmark scene: warm-up frames, timed frames,
-    checks. Returns (sim, launches)."""
+    checks. Returns (sim, launches, host syncs per substep, ms per
+    substep)."""
     import torch
 
     from taichi_mpm_torch import scenes
@@ -1564,7 +1582,7 @@ def phase_cpic_path(card):
         clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"), failures=failures,
     ))
     raise_failures(failures)
-    return sim, launches, syncs / n_timed
+    return sim, launches, syncs / n_timed, timed_s * 1e3 / n_timed
 
 
 def phase_cpic_breakdown(sim, card):
@@ -2455,6 +2473,330 @@ def phase_dense_scale(card, fused_ms):
     return launches
 
 
+# -- the dense CPIC path ----------------------------------------------------------
+
+DENSE_CPIC_SUBSTEPS = 6  # the 10k 3-D wheel's frame in dense_cpic_check
+SAND_WHEEL_CHECK_FRAMES = 10
+SAND_WHEEL_CHECK_FRAME_DT = 2e-3  # 20 substeps a frame, the source emitting each frame
+DENSE_CPIC_VS_FUSED_SUBSTEPS = 4
+WHEEL_2D_TIMED_FRAMES = 10  # sand_wheel_2D.py's 0.01 s frames, after one warm-up frame
+ASYNC_WHEEL_TIMED_FRAMES = 5
+DENSE_CPIC_SCALE_SUBSTEPS = 20
+# The JAX package's own pair on dense_cpic_vs_fused's scene: its oracle
+# cpic_substep (jitted on the CPU) against its packed CPIC frame (the
+# Pallas kernels in interpret mode), 4 substeps, particles sorted by id
+# (PYTHONPATH=. python tests/port/port_helpers.py jax-cpic-dense-vs-blocked
+# on the CPU; PERF.md, section 6).
+JAX_CPIC_PAIR = dict(x=5.960464477539063e-08, v=1.1205673217773438e-05, F=0.0,
+                     states_differ=0, body_omega=3.5762786865234375e-07, body_vel=0.0)
+
+
+def plate_2d(device):
+    """tests/test_cpic.py::test_particles_rest_on_thin_plate's scene: 32
+    jelly particles falling at 0.5 m/s onto a scripted segment, res 32^2,
+    one frame of 20 substeps."""
+    from taichi_mpm_torch import MPM
+    from taichi_mpm_torch.rigid.mesh import segment_mesh_2d
+
+    sim = MPM(res=(32, 32), base_delta_t=1e-4, frame_dt=2e-3, gravity=(0, -10.0), device=device)
+    xs, ys = np.linspace(0.4, 0.6, 8), np.linspace(0.53, 0.6, 4)
+    sim.add_particles("jelly", pos=np.stack(np.meshgrid(xs, ys), -1).reshape(-1, 2),
+                      vel=(0.0, -0.5), E=1e4, nu=0.3)
+    sim.add_particles("rigid", mesh=segment_mesh_2d((-0.3, 0.0), (0.3, 0.0)),
+                      scripted_position=lambda t: (0.5, 0.5), codimensional=True, friction=0.0)
+    return sim
+
+
+def sand_wheel_check(device):
+    from taichi_mpm_torch import scenes
+
+    sim = scenes.sand_wheel_2d(res=128, device=device)
+    sim.frame_dt = SAND_WHEEL_CHECK_FRAME_DT
+    return sim
+
+
+def run_frames(sim, frames, source=None):
+    for f in range(frames):
+        if source is not None:
+            source(sim, f)
+        sim.step()
+    return sim
+
+
+def cpic_errors(a, b, label, failures, plast_slack=0):
+    """Two CPIC scenes after the same frames: frame_errors at the CPIC
+    bounds, states and near_b equal, the bodies within BODY_BOUNDS."""
+    errs = frame_errors(a, b, label, failures, CPIC_BOUNDS, plast_slack)
+    act = a.particles.active.cpu().numpy() & b.particles.active.cpu().numpy()
+    for name in ("states", "near_b"):
+        if not np.array_equal(getattr(a.particles, name).cpu().numpy()[act],
+                              getattr(b.particles, name).cpu().numpy()[act]):
+            failures.append(f"{label}: {name} differ")
+    for name, bnd in BODY_BOUNDS:
+        errs["body_" + name] = float(np.abs(getattr(a.bodies, name).cpu().numpy().astype(
+            np.float64) - getattr(b.bodies, name).cpu().numpy()).max())
+        if not errs["body_" + name] <= bnd:
+            failures.append(f"{label}: body {name} differs by {errs['body_' + name]} > {bnd}")
+    return errs
+
+
+def phase_dense_cpic_check():
+    """The dense CPIC frame (``rigid/cpic.py``: the coloured transfers over
+    the dense grid CDF) on the card against the CPU: the 2-D plate of
+    tests/test_cpic.py (a 20-substep frame), scripts/async/wheel.py at res
+    128 (2,361 sand particles, one 0.01 s frame at adaptive dt),
+    scripts/mls-cpic/sand_wheel_2D.py at res 128 (10 frames of 2e-3 s,
+    its source emitting each frame) and the 10k water wheel of
+    ``cpic_check`` with optimized=False (6 substeps; it and the plate
+    must have particles near their bodies: the scripts' sand starts above
+    its wheel): the CPIC bounds of
+    ``cpic_check`` (x 5e-6, v 5e-4, F 5e-5, states and near_b equal,
+    bodies 1e-5 / 1e-6), plastic events equal but for sand's knife edges
+    (counted on the CPU frame), equal adaptive substep counts, a second
+    card run equal in bits (bodies too), no kernel launched."""
+    from taichi_mpm_torch import diagnostics, scenes
+
+    def wheel3d(device):
+        sim = cpic_check_scene(device)
+        sim.optimized = False
+        sim.frame_dt = DENSE_CPIC_SUBSTEPS * sim.cfg.base_dt
+        return sim
+
+    cases = {
+        "plate_2d": (plate_2d, 1, None),
+        "async_wheel_res128": (lambda dev: scenes.async_wheel(res=128, device=dev), 1, None),
+        "sand_wheel_2d_res128": (sand_wheel_check, SAND_WHEEL_CHECK_FRAMES,
+                                 scenes.sand_wheel_2d_source),
+        "wheel_3d_10k_unoptimized": (wheel3d, 1, None),
+    }
+    failures, out = [], {}
+    zero_counts()
+    for label, (make, frames, source) in cases.items():
+        t0 = time.perf_counter()
+        card = run_frames(make("cuda"), frames, source)
+        card_s = time.perf_counter() - t0
+        rerun = run_frames(make("cuda"), frames, source)
+        t0 = time.perf_counter()
+        with diagnostics.dense_sand_edges_per_substep() as edges:
+            cpu = run_frames(make("cpu"), frames, source)
+        cpu_s = time.perf_counter() - t0
+        errs = cpic_errors(card, cpu, f"{label} card vs CPU", failures, plast_slack=sum(edges))
+        same_bits(card, rerun, f"{label} rerun", failures)
+        for name in ("pos", "vel", "rot", "omega"):
+            if not np.array_equal(getattr(card.bodies, name).cpu().numpy(),
+                                  getattr(rerun.bodies, name).cpu().numpy()):
+                failures.append(f"{label} rerun: body {name} differs")
+        substeps = getattr(card, "last_substeps", None)
+        if substeps != getattr(cpu, "last_substeps", None):
+            failures.append(f"{label}: {substeps} substeps vs the CPU's {cpu.last_substeps}")
+        if card.packed_carry is not None:
+            failures.append(f"{label}: not on the dense path")
+        if label in ("plate_2d", "wheel_3d_10k_unoptimized") and not card.particles.near_b.any():
+            failures.append(f"{label}: no particle near the body: the coupling went untested")
+        out[label] = dict(particles=card.particles.count(), frames=frames,
+                          adaptive_substeps=substeps,
+                          dt_range=getattr(card, "last_dt_range", None),
+                          near_b=int(card.particles.near_b.sum()), errors=errs,
+                          plast=card.plasticity_counter, plast_cpu=cpu.plasticity_counter,
+                          sand_knife_edges=sum(edges), card_s=card_s, cpu_s=cpu_s)
+    launches = read_counts()
+    failures += no_launches(launches)
+    emit(dict(phase="dense_cpic_check", **out, launches=launches, failures=failures))
+    raise_failures(failures)
+    return launches
+
+
+def phase_dense_cpic_vs_fused():
+    """``cpic_check``'s 10k water wheel, 4 substeps on the card, on the
+    dense CPIC frame (optimized=False) and on the fused CPIC frame,
+    particles matched by id: the bounds of tests/test_cpic.py::
+    test_matches_oracle_cpic (x 5e-6, v 5e-4, F 5e-5, states equal, body
+    omega and vel 1e-5), printed beside the JAX package's own pair on the
+    same scene (JAX_CPIC_PAIR)."""
+    from taichi_mpm_torch import convert
+
+    def make(optimized):
+        sim = cpic_check_scene("cuda")
+        sim.optimized = optimized
+        sim.frame_dt = DENSE_CPIC_VS_FUSED_SUBSTEPS * sim.cfg.base_dt
+        sim._ensure_finalized()
+        tag_ids(sim)
+        sim.step()
+        return sim
+
+    failures = []
+    dense, fused = make(False), make(None)
+    if dense.packed_carry is not None or fused.packed_carry is None:
+        failures.append("the scenes did not take the dense and the fused path")
+    errs = id_errors(dense, fused, "dense vs fused CPIC frame", failures, CPIC_BOUNDS)
+
+    def states_by_id(sim):
+        a = convert.particles_to_numpy(sim.particles)
+        act = a["active"]
+        return a["states"][act][np.argsort(a["params"][act, ID_ROW_PARAM], kind="stable")]
+
+    if not np.array_equal(states_by_id(dense), states_by_id(fused)):
+        failures.append("dense vs fused CPIC frame: states differ")
+    for name in ("omega", "vel"):
+        errs["body_" + name] = float(np.abs(getattr(dense.bodies, name).cpu().numpy().astype(
+            np.float64) - getattr(fused.bodies, name).cpu().numpy()).max())
+        if not errs["body_" + name] <= 1e-5:
+            failures.append(f"dense vs fused CPIC frame: body {name} differs by "
+                            f"{errs['body_' + name]}")
+    emit(dict(phase="dense_cpic_vs_fused", particles=dense.particles.count(),
+              substeps=DENSE_CPIC_VS_FUSED_SUBSTEPS, errors=errs,
+              near_b=int(dense.particles.near_b.sum()), jax_pair=JAX_CPIC_PAIR,
+              failures=failures))
+    raise_failures(failures)
+
+
+def phase_wheel_2d_path(card):
+    """The 2-D CPIC scene scripts through ``runner.simulate`` on the card,
+    every launch count set to 0 first: scripts/mls-cpic/sand_wheel_2D.py at
+    res 128 (its source emitting 48 particles a frame), a warm-up frame and
+    10 timed frames of 0.01 s (100 substeps each), and
+    scripts/async/wheel.py at res 128 (2,361 sand particles at global
+    adaptive dt), a warm-up frame and 5 timed frames: ms per substep,
+    particle-steps/s, host syncs per substep, particles, substeps per frame
+    and dt range (adaptive), the wheel's omega (finite, and nonzero once a
+    particle has come near it), every particle finite and in the domain,
+    no kernel launched. Returns the launches."""
+    import io
+    from contextlib import redirect_stdout
+
+    from taichi_mpm_torch import runner, scenes
+
+    failures, out = [], {}
+    zero_counts()
+    for label, make, source, timed_frames in (
+            ("sand_wheel_2d", lambda: scenes.sand_wheel_2d(res=128, device="cuda"),
+             scenes.sand_wheel_2d_source, WHEEL_2D_TIMED_FRAMES),
+            ("async_wheel", lambda: scenes.async_wheel(res=128, device="cuda"), None,
+             ASYNC_WHEEL_TIMED_FRAMES)):
+        sim = make()
+        counts = []  # each frame's particles, after its emission
+
+        def update(s, f, source=source, counts=counts):
+            if source is not None:
+                source(s, f)
+            counts.append(s.particles.count() if s.particles is not None
+                          else sum(b["x"].shape[0] for b in s._pending))
+
+        timed = Timed(sim)
+        args = runner.parse_args(["--frames", str(1 + timed_frames)])
+        log = io.StringIO()
+        with redirect_stdout(log):
+            runner.simulate(timed, args, frame_update=update)
+        per_frame = [st["substeps"] or round(sim.frame_dt / sim.cfg.base_dt)
+                     for st in timed.steps]
+        n_timed = sum(per_frame[1:])
+        step_s = sum(timed.ms["step"][1:]) / 1e3
+        psteps = sum(n * k for n, k in zip(counts[1:], per_frame[1:]))
+        check_domain(sim, sim.particles.count(), failures)
+        omega = float(sim.bodies.omega[1, 0])
+        reached = int(sim.particles.near_b.sum()) > 0
+        if not np.isfinite(omega) or (reached and omega == 0.0):
+            failures.append(f"{label}: the wheel's omega is {omega} (sand near it: {reached})")
+        out[label] = dict(
+            particles=sim.particles.count(), frames=1 + timed_frames, timed_substeps=n_timed,
+            substeps_per_frame=per_frame, ms_per_substep=step_s * 1e3 / n_timed,
+            particle_steps_per_s=psteps / step_s,
+            host_syncs_per_substep=sum(st["host_syncs"] for st in timed.steps[1:]) / n_timed,
+            dt_range=getattr(sim, "last_dt_range", None), warmup_frame_ms=timed.ms["step"][0],
+            frame_ms=timed.ms["step"], wheel_omega=omega, sand_near_wheel=reached,
+            y_min=float(sim.particles.x[sim.particles.active][:, 1].min()),
+            runner_lines=log.getvalue().splitlines()[-1:])
+    launches = read_counts()
+    failures += no_launches(launches)
+    emit(dict(phase="wheel_2d_path", card=card, **out, launches=launches,
+              clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"), failures=failures))
+    raise_failures(failures)
+    return launches
+
+
+def dense_cpic_stage_ms(sim):
+    """CUDA-event ms of each stage of a dense CPIC substep on the scene's
+    state (not advanced): the rigid prologue and CDF (the host's rigid
+    solves, the rasterize, the gather), P2G (+ impulses), the grid update,
+    G2P (+ penalty) and the rigid advance."""
+    import dataclasses
+
+    from taichi_mpm_torch.core import transfer
+    from taichi_mpm_torch.rigid import body, cdf, cpic
+    from taichi_mpm_torch.rigid.cpic_blocked import _solve_bodies
+
+    p, b, cfg, scene, dt = sim.particles, sim.bodies, sim.cfg, sim.rigid_scene, sim.cfg.base_dt
+    R = b.num
+
+    def prologue():
+        bb = _solve_bodies(b, scene, dt)
+        xb, _, elem = body.boundary_particle_world(bb, scene.bp_rid, scene.bp_offset,
+                                                   scene.bp_normal, scene.bp_elem)
+        planes = cdf.rasterize_rigid_boundary(xb, elem, scene.bp_rid, R, cfg)
+        nd = cdf.stencil_node_data(p.x, cdf.DenseNodeCDF(*planes, cfg), cfg)
+        return planes, nd, cdf.gather_cdf_lookup(p.x, p.states, R, cfg, nd)
+
+    planes, nd, (st, bd, bn, nb) = prologue()
+    q = dataclasses.replace(p, states=st, bdist=bd, bnormal=bn, near_b=nb)
+    grid, _, _ = cpic.p2g_cpic(q, b, planes[1], planes[2], cfg, dt, nd)
+    grid_v, _ = transfer.grid_update(grid, cfg, scene.colliders, sim.t, dt, sim._xg)
+    return dict(
+        prologue_cdf=cuda_ms(prologue, 2),
+        p2g=cuda_ms(lambda: cpic.p2g_cpic(q, b, planes[1], planes[2], cfg, dt, nd), 2),
+        grid=cuda_ms(lambda: transfer.grid_update(grid, cfg, scene.colliders, sim.t, dt,
+                                                  sim._xg), 2),
+        g2p=cuda_ms(lambda: cpic.g2p_cpic(q, b, grid_v, planes[1], planes[2], cfg, dt, nd=nd), 2),
+        advance=cuda_ms(lambda: body.advance(b, sim.t, dt, scene.pos_funcs, scene.rot_funcs,
+                                             cfg.gravity), 2))
+
+
+def phase_dense_cpic_scale(card, fused_ms):
+    """The CPIC benchmark scene (``scenes.cpic_wheel()``: 100k water, res
+    96, the hub and the 6-paddle wheel under a rotation articulation, a
+    colliding pair) with optimized=False: a 1-substep warm-up frame, then
+    one frame of 20 substeps timed, its ms per substep beside the fused
+    CPIC frame's of phase ``cpic_path`` in this run (`fused_ms`), host
+    syncs per substep, the memory peak and the stages' CUDA-event ms
+    (``dense_cpic_stage_ms``); every particle finite and in the domain,
+    no kernel launched. Returns the launches."""
+    import torch
+
+    from taichi_mpm_torch import scenes
+    from taichi_mpm_torch.utils import HostSyncs
+
+    failures = []
+    sim = scenes.cpic_wheel(device="cuda", optimized=False)
+    sim._ensure_finalized()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    sim.step(frame_dt=sim.cfg.base_dt)
+    sim.sync()
+    syncs = HostSyncs.count
+    t0 = time.perf_counter()
+    sim.step(frame_dt=DENSE_CPIC_SCALE_SUBSTEPS * sim.cfg.base_dt)
+    sim.sync()
+    frame_s = time.perf_counter() - t0
+    syncs = HostSyncs.count - syncs
+    launches = read_counts()
+    failures += no_launches(launches)
+    check_domain(sim, 100_000, failures)
+    if sim.packed_carry is not None:
+        failures.append("the CPIC wheel did not take the dense path")
+    ms = frame_s * 1e3 / DENSE_CPIC_SCALE_SUBSTEPS
+    emit(dict(phase="dense_cpic_scale", card=card, particles=sim.particles.count(),
+              substeps=DENSE_CPIC_SCALE_SUBSTEPS, ms_per_substep=ms,
+              fused_cpic_ms_per_substep=fused_ms, dense_over_fused=ms / fused_ms,
+              particle_steps_per_s=1e5 * DENSE_CPIC_SCALE_SUBSTEPS / frame_s,
+              host_syncs_per_substep=syncs / DENSE_CPIC_SCALE_SUBSTEPS,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+              stage_ms=dense_cpic_stage_ms(sim), near_b=int(sim.particles.near_b.sum()),
+              wheel_omega_z=float(sim.bodies.omega[2, 2]), launches=launches,
+              failures=failures))
+    raise_failures(failures)
+    return launches
+
+
 def main():
     import torch
 
@@ -2465,6 +2807,7 @@ def main():
     if sys.argv[1:2] == ["--kernel-tree"]:
         kernel_tree(*sys.argv[2:3])
         return 0
+    t_start = time.perf_counter()
     # the port itself: fails here when the script stands outside a checkout
     from taichi_mpm_torch.ops import cuda_build
 
@@ -2506,7 +2849,7 @@ def main():
     phase_cpic_check()
     phase_cpic_check("sand")
     phase_sand_column_check()
-    sim, launches["cpic_wheel"], fixed_syncs = phase_cpic_path(card)
+    sim, launches["cpic_wheel"], fixed_syncs, cpic_ms = phase_cpic_path(card)
     phase_cpic_breakdown(sim, card)
     phase_profile(sim, card, phase="cpic_profile")
     del sim
@@ -2516,6 +2859,13 @@ def main():
     launches["dense_balls"] = phase_dense_path(card)
     phase_dense_adaptive()
     launches["dense_jelly_8m"] = phase_dense_scale(card, fused_ms)
+    t_dense_cpic = time.perf_counter()
+    launches["dense_cpic_check"] = phase_dense_cpic_check()
+    phase_dense_cpic_vs_fused()
+    launches["wheel_2d"] = phase_wheel_2d_path(card)
+    launches["dense_cpic_wheel_100k"] = phase_dense_cpic_scale(card, cpic_ms)
+    emit(dict(phase="timing", dense_cpic_phases_s=time.perf_counter() - t_dense_cpic,
+              script_s=time.perf_counter() - t_start))
     emit({"kernels": kernels_line(measured, launches, dam_ms, by_material)})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

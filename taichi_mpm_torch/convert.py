@@ -67,7 +67,8 @@ def packed_from_numpy(st, device="cpu") -> torch.Tensor:
 
 def bodies_from_numpy(arrays: dict, device="cpu"):
     """The port's RigidBodies from a dict of numpy arrays keyed by field
-    name (float32)."""
+    name (float32), of either dimension: a 2-D body's rot, omega and
+    inertia_inv are (R, 1)."""
     from taichi_mpm_torch.rigid.body import BODY_FIELDS, RigidBodies
 
     return RigidBodies(**{

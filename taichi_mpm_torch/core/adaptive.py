@@ -14,6 +14,10 @@ is the reference's.
 On the dense path (2-D scenes, kernel orders 1 and 3,
 ``optimized=False``) the frame is ``adaptive_frame_fn``: the dense
 substeps of ``core.solver`` at that dt, the limit read once per substep.
+A scene with rigid bodies runs ``adaptive_cpic_frame_fn`` there, the
+coupled substeps of ``rigid.cpic`` at that dt; so does a CPIC scene of
+the blocked path with ``TMT_FUSED=0``, as in the JAX package (the packed
+adaptive CPIC frame runs on the fused route only).
 
 ``AsyncMPM(per_block=True)``, the per-block bucketed scheduler, is not
 ported (ROADMAP.md queue 1, "per-block bucketed async").
@@ -32,7 +36,7 @@ from taichi_mpm_torch.core.state import Particles
 from taichi_mpm_torch.materials import models as materials
 from taichi_mpm_torch.ops import packed
 from taichi_mpm_torch.ops.rows import RACT
-from taichi_mpm_torch.rigid import cpic_packed
+from taichi_mpm_torch.rigid import cpic, cpic_packed
 from taichi_mpm_torch.utils import host_read
 
 # The constants XLA compiles jnp.log2 and jnp.exp2 with: log2(x) is
@@ -106,16 +110,41 @@ def adaptive_frame_fn(p: Particles, t, cfg: SimConfig, colliders, frame_dt, unit
     return p, t, n, count
 
 
+def adaptive_cpic_frame_fn(p: Particles, bodies, t, cfg: SimConfig, scene, frame_dt, unit_dt,
+                           max_dt, strength_dt_mul: float = 1.0, cfl_dt_mul: float = 1.0,
+                           max_substeps: int = 100000, xg=None, dts=None):
+    """A dense CPIC frame at global adaptive dt: ``rigid.cpic.cpic_substep``
+    until t reaches t + frame_dt, each of dt = min(snap_pot(dt_limit), t_end
+    - t), the schedule of ``adaptive_frame_fn``. One host read per substep
+    (the dt limit), besides the host's rigid solves where the scene has
+    articulations. Returns (p, bodies, t, n_substeps, the plasticity count
+    as a 0-d tensor)."""
+    sched = packed.AdaptiveDt(t, cfg, frame_dt, unit_dt, max_dt, strength_dt_mul, cfl_dt_mul,
+                              max_substeps)
+    count = torch.zeros((), dtype=torch.int64, device=p.device)
+    n = 0
+    while sched.more(t, n):
+        lim = np.float32(host_read(dt_limit(p, cfg, strength_dt_mul, cfl_dt_mul)))
+        p, bodies, t, c = cpic.cpic_substep(p, bodies, t, cfg, scene, sched.next_dt(t, lim), xg)
+        count = count + c
+        n += 1
+    if dts is not None:
+        dts.extend(sched.dts)
+    return p, bodies, t, n, count
+
+
 class AsyncMPM(MPM):
     """Solver with global adaptive dt (the reference's ``async_mpm``
     simulation type on the JAX package's global path). base_delta_t is
     the largest dt, unit_delta_t the power-of-two unit. Plain scenes run
-    on either route (``TMT_FUSED``); CPIC scenes on the fused route.
+    on either route (``TMT_FUSED``); CPIC scenes on the fused route, or,
+    with TMT_FUSED=0 and on the dense path, ``adaptive_cpic_frame_fn``.
 
     ``update_counter`` sums substeps x active particles over the frames
     (the reference's work counter); ``last_substeps`` is the newest
     frame's substep count and ``last_dt_range`` its smallest and largest
-    dt. The dense path runs ``adaptive_frame_fn``."""
+    dt. The dense path runs ``adaptive_frame_fn``, with rigid bodies
+    ``adaptive_cpic_frame_fn``."""
 
     def __init__(self, *args, unit_delta_t: float = 1e-6, strength_dt_mul: float = 1.0,
                  cfl_dt_mul: float = 1.0, per_block: bool = False, **kw):
@@ -133,13 +162,10 @@ class AsyncMPM(MPM):
         self.last_substeps = 0
         self.last_dt_range = None
 
-    def _check_route(self):
-        if self.bodies is not None and (not self.fused or not self._blocked):
-            raise NotImplementedError(
-                "adaptive CPIC on the dense path or with TMT_FUSED=0 runs the dense "
-                "CPIC frame (core/adaptive.adaptive_cpic_frame_fn), not ported yet "
-                "(ROADMAP.md queue 1, 'dense CPIC and 2-D rigid bodies'); use the "
-                "blocked path and unset TMT_FUSED")
+    def _use_blocked(self) -> bool:
+        """MPM's gate, but a CPIC scene takes the blocked path on the fused
+        route only: with TMT_FUSED=0 it runs the dense CPIC frame."""
+        return super()._use_blocked() and (self.bodies is None or self.fused)
 
     def step(self, frame_dt: Optional[float] = None):
         """Advance one frame of frame_dt (default self.frame_dt) at
@@ -151,6 +177,13 @@ class AsyncMPM(MPM):
         args = (fdt, self.unit_delta_t, self.cfg.base_dt, self.strength_dt_mul,
                 self.cfl_dt_mul)
         dts = []
+        if not self._blocked and self.bodies is not None:
+            p, self.bodies, t, n, plast = self._live_frame(lambda q: adaptive_cpic_frame_fn(
+                q, self.bodies, self.t, self.cfg, self.rigid_scene, *args, xg=self._xg,
+                dts=dts))
+            self._end_dense_frame(p, t, plast)
+            self._record(n, dts, int(p.active.sum()))
+            return p
         if not self._blocked:
             p, t, n, plast = adaptive_frame_fn(self._particles, self.t, self.cfg,
                                                tuple(self.colliders), *args, xg=self._xg,

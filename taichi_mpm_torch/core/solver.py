@@ -14,6 +14,13 @@ keeps ``Particles`` as they are and runs ``frame_fn``: a Python loop of
 ``substep`` (``core.transfer``'s whole-grid P2G, grid update and G2P,
 then the per-particle collision and the boundary clean-up where the
 configuration asks for them), with no host read in a fixed-dt frame.
+With rigid bodies it runs ``rigid.cpic.cpic_frame_fn``: the coupled
+substeps of the coloured transfers over the dense grid CDF, with the
+articulations (and, in 3-D, the rigid-rigid collisions) on the host.
+That frame runs on the lanes up to the last one ever made active
+(``_live_lanes``): the lanes above have never held a particle, and a
+substep leaves such a lane as it is, so the scripts' capacities (100,000
+lanes for a few thousand grains) cost nothing per substep.
 
 On the blocked path, without rigid bodies every frame runs
 ``ops.packed.packed_frame_carry``: the fused P2G and G2P kernels on the
@@ -24,7 +31,8 @@ and the finish in torch. A kernel that fails to build or launch raises;
 nothing falls back to the other route. With rigid bodies it runs
 ``rigid.cpic_packed.cpic_packed_frame_carry``: two-way coupled CPIC
 substeps (the fused P2G kernel and the gather-only G2P kernel, with the
-sparse corrections between); the unfused CPIC route raises. The packed
+sparse corrections between); the unfused CPIC route (``TMT_FUSED=0``)
+raises at fixed dt. The packed
 carry (sorted state, page map, drift) persists across frames;
 ``particles`` is unpacked from it only when read.
 
@@ -33,10 +41,6 @@ Read-out and I/O: ``positions``, ``velocities``, ``energy``
 rigid bodies' meshes as OBJ), ``visualize_cdf``,
 ``visualize_particle_cdf``, ``save`` and ``load`` (snapshots in the JAX
 package's format) and ``general_action``.
-
-Rigid bodies need the blocked path: the dense CPIC frame and 2-D rigid
-bodies are not ported (ROADMAP.md queue 1, "dense CPIC and 2-D rigid
-bodies") and raise.
 """
 
 from __future__ import annotations
@@ -51,10 +55,10 @@ import torch
 
 from taichi_mpm_torch.config import SimConfig
 from taichi_mpm_torch.core import transfer
-from taichi_mpm_torch.core.state import Particles, empty_particles
+from taichi_mpm_torch.core.state import FIELDS, Particles, empty_particles
 from taichi_mpm_torch.materials import models as materials
 from taichi_mpm_torch.ops import blocked, packed
-from taichi_mpm_torch.rigid import cpic_packed
+from taichi_mpm_torch.rigid import cpic, cpic_packed
 from taichi_mpm_torch.utils import const
 
 
@@ -160,6 +164,7 @@ class MPM:
         self._pcarry = None  # persistent packed carry (st, keys, pm, drift)
         self._blocked = None  # the path, chosen at the first frame (_use_blocked)
         self._xg = None  # the dense path's node positions
+        self._live = None  # lanes up to the last one ever active (_live_lanes)
         self.t = np.float32(0.0)
         # work counters (reference plasticity counter; sorts per run); the
         # dense path's count stays on the device until it is read
@@ -356,6 +361,8 @@ class MPM:
         p.bnormal[idx] = 0.0
         p.near_b[idx] = False
         p.active[idx] = True
+        if self._live is not None and n:
+            self._live = max(self._live, int(idx[-1]) + 1)
         self._pcarry = None  # particle set mutated outside the frame
         mats = set(self.cfg.active_materials) | set(np.unique(batch["mat"]).tolist())
         self.cfg = self.cfg.with_materials(mats)
@@ -404,6 +411,7 @@ class MPM:
             p.active[:n] = True
             self.cfg = self.cfg.with_materials(int(m) for m in np.unique(cat["mat"]))
         self._set_particles(p)
+        self._live = n
         self._pending = []
         if self._rigid_builder is not None:
             self.bodies, self.rigid_scene = self._rigid_builder.build(
@@ -423,6 +431,28 @@ class MPM:
         the next frame sorts afresh."""
         self._particles = p
         self._pcarry = None
+        self._live = None
+
+    def _live_lanes(self) -> int:
+        """1 + the index of the last lane ever made active (at least 1):
+        known from the finalize and the emissions, or read once from the
+        active mask after the particles were replaced."""
+        if self._live is None:
+            idx = torch.nonzero(self._particles.active).flatten()
+            self._live = int(idx[-1]) + 1 if idx.numel() else 0
+        return max(1, self._live)
+
+    def _live_frame(self, frame):
+        """frame(p) -> (p, *rest) run on the live lanes' particles
+        (``_live_lanes``); the other lanes keep their values. Returns the
+        whole particle set and rest."""
+        p = self._particles
+        n = self._live_lanes()
+        if n >= p.capacity:
+            return frame(p)
+        q, *rest = frame(Particles(**{f: getattr(p, f)[:n] for f in FIELDS}))
+        return (Particles(**{f: torch.cat([getattr(q, f), getattr(p, f)[n:]])
+                             for f in FIELDS}), *rest)
 
     def _active_block_cap(self) -> int:
         """Initial page-map capacity K: 1.5x the dilated occupancy
@@ -494,13 +524,7 @@ class MPM:
         return bool(use_blocked and cfg.dim == 3)
 
     def _check_route(self):
-        if self.bodies is not None and not self._blocked:
-            raise NotImplementedError(
-                "rigid bodies on the dense path (a 3-D CPIC scene with "
-                "optimized=False or kernel_order != 2) need the dense CPIC frame "
-                "(rigid/cpic.cpic_substep), not ported yet (ROADMAP.md queue 1, "
-                "'dense CPIC and 2-D rigid bodies'); use the blocked path")
-        if self.bodies is not None and not self.fused:
+        if self.bodies is not None and self._blocked and not self.fused:
             raise NotImplementedError(
                 "CPIC with TMT_FUSED=0 runs the pytree CPIC frame "
                 "(rigid/cpic_blocked.cpic_frame_carry), not ported yet "
@@ -540,14 +564,21 @@ class MPM:
         self._plast = self._plast + plast  # a device tensor: read when asked
 
     def step(self, frame_dt: Optional[float] = None):
-        """Advance one frame: ``frame_fn`` on the dense path; on the
-        blocked path the packed frame, or the CPIC frame when the scene
-        has rigid bodies. The page map grows at the sort when its
+        """Advance one frame: ``frame_fn`` on the dense path, or
+        ``rigid.cpic.cpic_frame_fn`` when the scene has rigid bodies; on
+        the blocked path the packed frame, or the packed CPIC frame when
+        the scene has rigid bodies. The page map grows at the sort when its
         capacity overflows (ops.packed.sort_and_map); the CPIC capacities
         grow where they are used (rigid.cpic_packed)."""
         self._prepare_frame()
         fdt = frame_dt or self.frame_dt
         n_sub = max(1, int(round(fdt / self.cfg.base_dt)))
+        if not self._blocked and self.bodies is not None:
+            p, self.bodies, t, plast = self._live_frame(lambda q: cpic.cpic_frame_fn(
+                q, self.bodies, self.t, self.cfg, self.rigid_scene, self.cfg.base_dt, n_sub,
+                self._xg))
+            self._end_dense_frame(p, t, plast)
+            return
         if not self._blocked:
             self._end_dense_frame(*frame_fn(self._particles, self.t, self.cfg,
                                             tuple(self.colliders), self.cfg.base_dt, n_sub,
@@ -638,23 +669,25 @@ class MPM:
 
     def write_rigid_meshes(self, prefix: str):
         """Each rigid body's current world-space mesh as
-        ``<prefix>_<id>.obj`` (a triangle soup)."""
+        ``<prefix>_<id>.obj`` (a triangle soup in 3-D, a polyline at z = 0
+        in 2-D)."""
         from taichi_mpm_torch.rigid.body import rotate
 
         if self.bodies is None:
             raise ValueError("no rigid bodies in the scene")
+        d = self.cfg.dim
         pos = self.bodies.pos.cpu().numpy()
         rot = self.bodies.rot.cpu()
         for rid in range(1, self._rigid_builder.num):
-            elem = self._rigid_builder.meshes[rid]  # (E, 3, 3) body frame
-            world = rotate(rot[rid][None], torch.as_tensor(elem.reshape(-1, 3))).numpy() + pos[rid]
+            elem = self._rigid_builder.meshes[rid]  # (E, d, d) body frame
+            world = rotate(rot[rid][None], torch.as_tensor(elem.reshape(-1, d))).numpy() + pos[rid]
             with open(f"{prefix}_{rid}.obj", "w") as f:
                 f.write(f"# taichi_mpm_torch rigid body {rid}\n")
                 for v in world:
-                    f.write(f"v {v[0]} {v[1]} {v[2]}\n")
+                    f.write(f"v {v[0]} {v[1]} {v[2] if d == 3 else 0}\n")
                 for e in range(elem.shape[0]):
-                    i0 = 3 * e + 1
-                    f.write(f"f {i0} {i0 + 1} {i0 + 2}\n")
+                    i0 = d * e + 1
+                    f.write(f"f {i0} {i0 + 1} {i0 + 2}\n" if d == 3 else f"l {i0} {i0 + 1}\n")
 
     def visualize_cdf(self, path: str):
         """The current grid CDF as a point cloud of the tagged nodes, with

@@ -248,9 +248,13 @@ def dense_sand_knife_edges(p, grid_v, cfg: SimConfig, dt, tol: float = SAND_EDGE
     on node velocities `grid_v`) whose return map decides within `tol` of
     an edge (``models.sand_edges``), as ``sand_knife_edges`` counts them
     on the blocked path."""
+    _, b = transfer.gather(p, grid_v, cfg)
+    return _sand_edges_of(p, b, cfg, dt, tol)
+
+
+def _sand_edges_of(p, b, cfg: SimConfig, dt, tol: float = SAND_EDGE_TOL) -> int:
     if models.SAND not in cfg.active_materials:
         return 0
-    _, b = transfer.gather(p, grid_v, cfg)
     tr, dg = models.sand_edges(p.F, transfer.cdg_of(b, cfg, dt), p.aux, p.params)
     near = (tr.abs() <= tol) | (dg.abs() <= tol)
     return int((p.active & (p.mat == models.SAND) & near).sum())
@@ -259,20 +263,22 @@ def dense_sand_knife_edges(p, grid_v, cfg: SimConfig, dt, tol: float = SAND_EDGE
 @contextlib.contextmanager
 def dense_sand_edges_per_substep():
     """``sand_edges_per_substep`` on the dense path: within the block,
-    each dense G2P step first appends its ``dense_sand_knife_edges``
-    count to the yielded list (it wraps ``core.transfer.g2p``)."""
+    each dense G2P step (plain or CPIC) first appends its count of
+    ``dense_sand_knife_edges`` to the yielded list (it wraps
+    ``core.transfer.g2p_finish``, where both end, and counts from the
+    gathered B it is given)."""
     counts = []
-    g2p_dense = transfer.g2p
+    finish = transfer.g2p_finish
 
-    def counted(p, grid_v, cfg, dt, return_count=False):
-        counts.append(dense_sand_knife_edges(p, grid_v, cfg, dt))
-        return g2p_dense(p, grid_v, cfg, dt, return_count=return_count)
+    def counted(p, v_new, b_new, cfg, dt, *args, **kw):
+        counts.append(_sand_edges_of(p, b_new, cfg, dt))
+        return finish(p, v_new, b_new, cfg, dt, *args, **kw)
 
-    transfer.g2p = counted
+    transfer.g2p_finish = counted
     try:
         yield counts
     finally:
-        transfer.g2p = g2p_dense
+        transfer.g2p_finish = finish
 
 
 # -- hand-made inputs at the edges of the P2G kernels -------------------------

@@ -1,8 +1,9 @@
-"""Quaternion utilities for the rigid-body module (torch counterpart of
-``taichi_mpm_tpu.math.quat``, 3-D only).
+"""Rotation utilities for the rigid-body module (torch counterpart of
+``taichi_mpm_tpu.math.quat``).
 
-Batched, pure functions on (..., 4) wxyz quaternions, with the same
-formulas and operation order as the JAX package.
+Batched, pure functions on (..., 4) wxyz quaternions (3-D) and on
+angles (2-D, ``rot2d``), with the same formulas and operation order as
+the JAX package.
 """
 
 from __future__ import annotations
@@ -74,3 +75,22 @@ def quat_integrate(q, omega, dt):
     zero = torch.zeros_like(omega[..., :1])
     oq = torch.cat([zero, omega], -1)
     return quat_normalize(q + 0.5 * dt * quat_mul(oq, q))
+
+
+def cos_sin(a):
+    """cos and sin of float32 angles, evaluated in float64 and rounded to
+    float32. XLA's float32 cos and sin on the CPU are not torch's: over
+    200,000 angles in [-10, 10] they differ in about 5% of the values,
+    by one ulp, while the rounded float64 values differ from XLA's in
+    about 1.3% (``tests/port/port_helpers.py cos-sin`` measures it,
+    ``tests/port/test_torch_rigid_2d.py`` bounds it). The rounded
+    float64 values are also the same on the card and on the CPU."""
+    a64 = a.to(torch.float64)
+    return torch.cos(a64).to(torch.float32), torch.sin(a64).to(torch.float32)
+
+
+def rot2d(angle, v):
+    """Rotate 2-D vectors v (..., 2) by angles (..., 1) or (...,)."""
+    a = angle[..., 0] if angle.dim() == v.dim() else angle
+    c, s = cos_sin(a)
+    return torch.stack([c * v[..., 0] - s * v[..., 1], s * v[..., 0] + c * v[..., 1]], -1)

@@ -1,5 +1,5 @@
 """Articulation constraints between rigid bodies (counterpart of
-``taichi_mpm_tpu.rigid.articulation``, 3-D only).
+``taichi_mpm_tpu.rigid.articulation``, 2-D and 3-D).
 
 Velocity-level constraint projection run as apply -> N x project ->
 penalize (the reference's MPM::articulate, default 100 iterations), for
@@ -8,12 +8,16 @@ motor, stepper. The projections run on a host copy of the bodies
 (``rigid/host.py``), in numpy float32 with the JAX package's formulas and
 operation order: a scene has a handful of bodies, and each projection is
 a few 3-vector operations. Parameters are converted to body frames at
-scene-build time (host-side, numpy).
+scene-build time (host-side, numpy). In 2-D the torques and angular
+velocities are scalars, the axial kinds hold one anchor pair and no
+axis, and "frozen" zeroes only the angular velocity (the JAX package's
+writes to the missing components are dropped).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import numpy as np
@@ -35,7 +39,7 @@ class Articulation:
     offset0: Tuple[float, ...] = ()
     offset1: Tuple[float, ...] = ()
     anchors0: Tuple = ()  # ((o0a, o1a), (o0b, o1b)) body-frame offsets
-    axis_body: Tuple[float, ...] = ()  # in obj1's body frame
+    axis_body: Tuple[float, ...] = ()  # in obj1's body frame (3-D)
     target_distance: float = 0.0
     penalty: float = 1e3
     power: float = 0.0
@@ -48,11 +52,6 @@ def _anchor(hb: HostBodies, i: int, offset_body):
 
 def _norm(v):
     return np.sqrt(dot(v, v))
-
-
-def _apply_torque(hb: HostBodies, i: int, L):
-    """omega_i += I_world^-1 L."""
-    hb.omega[i] = hb.omega[i] + matvec(hb.Iw[i], L)
 
 
 def _anchor_pair(hb: HostBodies, i0, i1, off0, off1):
@@ -89,22 +88,30 @@ def _project_one(hb: HostBodies, a: Articulation):
     if a.kind == "rotation":
         hb.project_rotation(i0, i1)
     elif a.kind == "frozen":
-        # zero x/y angular velocity and z linear velocity of obj0
+        # zero x/y angular velocity and z linear velocity of obj0 (in 2-D
+        # the angular velocity only)
         hb.omega[i0, :2] = 0.0
-        hb.vel[i0, 2] = 0.0
+        if hb.dim == 3:
+            hb.vel[i0, 2] = 0.0
     elif a.kind == "distance":
         _distance_project(hb, i0, i1, a.offset0, a.offset1)
     elif a.kind in ("axial_rotation", "motor", "stepper"):
         for (o0, o1) in a.anchors0:
             _distance_project(hb, i0, i1, o0, o1)
-        if a.kind == "stepper":
+        if a.kind == "stepper" and hb.dim == 2:
+            cur = hb.omega[i0, 0] - hb.omega[i1, 0]
+            isum = hb.Iw[i0, 0] + hb.Iw[i1, 0]
+            L = (np.float32(a.angular_velocity) - cur) / max(isum, _TINY)
+            hb.apply_torque(i0, L)
+            hb.apply_torque(i1, -L)
+        elif a.kind == "stepper":
             # drive the relative angular velocity along the axis to target
             axis = rotate(hb.rot[i1], np.asarray(a.axis_body, np.float32))
             axis = axis / np.maximum(_norm(axis), _TINY)
             corr = np.float32(a.angular_velocity) - dot(hb.omega[i0] - hb.omega[i1], axis)
             L = matvec(explicit_inv(hb.Iw[i0] + hb.Iw[i1] + _EYE12), axis * corr)
-            _apply_torque(hb, i0, L)
-            _apply_torque(hb, i1, -L)
+            hb.apply_torque(i0, L)
+            hb.apply_torque(i1, -L)
     else:
         raise ValueError(f"unknown articulation kind {a.kind}")
 
@@ -112,10 +119,11 @@ def _project_one(hb: HostBodies, a: Articulation):
 def _apply_one(hb: HostBodies, a: Articulation, dt):
     if a.kind == "motor":
         # torque impulse along the axis
-        L = rotate(hb.rot[a.obj[1]], np.asarray(a.axis_body, np.float32)) \
-            * np.float32(a.power * dt)
-        _apply_torque(hb, a.obj[0], L)
-        _apply_torque(hb, a.obj[1], -L)
+        L = np.float32(a.power * dt)
+        if hb.dim == 3:
+            L = rotate(hb.rot[a.obj[1]], np.asarray(a.axis_body, np.float32)) * L
+        hb.apply_torque(a.obj[0], L)
+        hb.apply_torque(a.obj[1], -L)
 
 
 def _penalize_one(hb: HostBodies, a: Articulation, dt):
@@ -164,8 +172,12 @@ def _quat_rot_np(q, v):
 
 
 def _to_body_np(rot_np, v):
-    """World direction -> body frame (host, numpy, float64)."""
+    """World direction -> body frame (host, numpy, float64); rot_np is a
+    quaternion, or an angle (1,) in 2-D."""
     v = np.asarray(v, np.float64)
+    if len(v) == 2:
+        c, s = math.cos(-float(rot_np[0])), math.sin(-float(rot_np[0]))
+        return (c * v[0] - s * v[1], s * v[0] + c * v[1])
     w, x, y, z = [float(q) for q in rot_np]
     return tuple(_quat_rot_np(np.array([w, -x, -y, -z]), v))
 
@@ -173,17 +185,14 @@ def _to_body_np(rot_np, v):
 def build_articulation(kind: str, obj0: int, obj1: int, bodies_np: dict, dim: int,
                        **kw) -> Articulation:
     """An Articulation with body-frame parameters; bodies_np holds numpy
-    'pos' (R, 3) and 'rot' (R, 4) at build time."""
-    if dim != 3:
-        raise NotImplementedError("2-D articulations are not ported yet "
-                                  "(ROADMAP.md queue 1, 'dense CPIC and 2-D rigid bodies')")
+    'pos' (R, d) and 'rot' (R, 4) or, in 2-D, (R, 1) at build time."""
     pos, rot = bodies_np["pos"], bodies_np["rot"]
     if kind in ("rotation", "frozen"):
         return Articulation(kind=kind, obj=(obj0, obj1))
     penalty = float(kw.get("penalty", 1e3))
     if kind == "distance":
-        off0_w = np.asarray(kw.get("offset0", np.zeros(3)), np.float64)
-        off1_w = np.asarray(kw.get("offset1", np.zeros(3)), np.float64)
+        off0_w = np.asarray(kw.get("offset0", np.zeros(dim)), np.float64)
+        off1_w = np.asarray(kw.get("offset1", np.zeros(dim)), np.float64)
         p0 = pos[obj0] + off0_w
         p1 = pos[obj1] + off1_w
         target = float(kw.get("target_distance", np.linalg.norm(p0 - p1)))
@@ -192,19 +201,24 @@ def build_articulation(kind: str, obj0: int, obj1: int, bodies_np: dict, dim: in
                             offset1=_to_body_np(rot[obj1], off1_w),
                             target_distance=target, penalty=penalty)
     if kind in ("axial_rotation", "motor", "stepper"):
-        off0_w = np.asarray(kw.get("offset0", np.zeros(3)), np.float64)
+        off0_w = np.asarray(kw.get("offset0", np.zeros(dim)), np.float64)
         # obj1's anchor offset, so both world anchors coincide at build
         off1_w = pos[obj0] + off0_w - pos[obj1]
-        axis_w = np.asarray(kw["axis"], np.float64)
-        axis_w = axis_w / np.linalg.norm(axis_w)
-        alen = float(kw.get("axis_length", 0.1))
-        anchors = []
-        for sgn in (1.0, -1.0):
-            ao = axis_w * alen * sgn
-            anchors.append((_to_body_np(rot[obj0], off0_w + ao),
-                            _to_body_np(rot[obj1], off1_w + ao)))
+        if dim == 2:  # one anchor pair, no axis
+            anchors = [(_to_body_np(rot[obj0], off0_w), _to_body_np(rot[obj1], off1_w))]
+            axis_body = ()
+        else:
+            axis_w = np.asarray(kw["axis"], np.float64)
+            axis_w = axis_w / np.linalg.norm(axis_w)
+            alen = float(kw.get("axis_length", 0.1))
+            anchors = []
+            for sgn in (1.0, -1.0):
+                ao = axis_w * alen * sgn
+                anchors.append((_to_body_np(rot[obj0], off0_w + ao),
+                                _to_body_np(rot[obj1], off1_w + ao)))
+            axis_body = _to_body_np(rot[obj1], axis_w)
         return Articulation(kind=kind, obj=(obj0, obj1), anchors0=tuple(anchors),
-                            axis_body=_to_body_np(rot[obj1], axis_w), penalty=penalty,
+                            axis_body=axis_body, penalty=penalty,
                             power=float(kw.get("power", 0.0)),
                             angular_velocity=float(kw.get("angular_velocity", 0.0)))
     raise ValueError(f"unknown articulation kind {kind}")

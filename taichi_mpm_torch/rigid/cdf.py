@@ -1,16 +1,18 @@
 """Compatible-Particle-In-Cell (CPIC) grid CDF: rasterize + gather (torch
-counterpart of ``taichi_mpm_tpu.rigid.cdf``, 3-D only).
+counterpart of ``taichi_mpm_tpu.rigid.cdf``).
 
 * ``rasterize_rigid_boundary`` / ``rasterize_rigid_boundary_records``:
   rigid surface particles scatter signed distance + colour tags to grid
-  nodes, densely over the whole grid or over the records of a rigid page
-  map. The (min distance, rigid id) pair is a scatter-min of one packed
-  int32 key (quantized distance << 8 | rid + 1), and the 2-bit colour
-  tags are per-rigid scatter-max planes. Both reductions are integer, so
-  their result does not depend on the order of the writes (on the card
-  they are atomics).
-* ``gather_cdf_lookup``: particles acquire affinity bits and reconstruct
-  signed distance + normal by weighted least squares over
+  nodes, densely over the whole grid (2-D or 3-D) or over the records of
+  a rigid page map (3-D). The (min distance, rigid id) pair is a
+  scatter-min of one packed int32 key (quantized distance << 8 | rid +
+  1), and the 2-bit colour tags are per-rigid scatter-max planes. Both
+  reductions are integer, so their result does not depend on the order
+  of the writes (on the card they are atomics). In 2-D the ``cdf_expand``
+  knob then dilates the tags (``_expand_states_2d``).
+* ``gather_cdf`` (dense grid arrays, 2-D or 3-D) and
+  ``gather_cdf_lookup`` (any node view): particles acquire affinity bits
+  and reconstruct signed distance + normal by weighted least squares over
   colour-compatible nodes.
 
 Bit layout: rigid r owns bits [2r, 2r+1]: bit 2r+1 = "touched", bit 2r =
@@ -33,8 +35,8 @@ from taichi_mpm_torch.utils import const, cross
 _DIST_SCALE = float(1 << 20)
 _KEY_INF = int(np.iinfo(np.int32).max)
 
-# MLS reconstruction determinant guard (3-D).
-_GUARD = 1e-4
+# MLS reconstruction determinant guards, by dimension.
+_GUARD = {2: 3e-3, 3: 1e-4}
 
 
 def state_mask(num_rigids: int) -> int:
@@ -46,9 +48,15 @@ def state_mask(num_rigids: int) -> int:
 
 
 def explicit_inv(M):
-    """Batched adjugate inverse of (..., 3, 3), with the unsigned
-    determinant clamp |det| < 1e-30 -> 1e-30 of the JAX package (a tiny
-    negative determinant becomes +1e-30)."""
+    """Batched adjugate inverse of (..., d, d), d = 2 or 3, with the
+    unsigned determinant clamp |det| < 1e-30 -> 1e-30 of the JAX package
+    (a tiny negative determinant becomes +1e-30)."""
+    if M.shape[-1] == 2:
+        a, b, c, dd = M[..., 0, 0], M[..., 0, 1], M[..., 1, 0], M[..., 1, 1]
+        det = a * dd - b * c
+        inv_det = 1.0 / torch.where(torch.abs(det) < 1e-30, 1e-30, det)
+        return torch.stack([torch.stack([dd * inv_det, -b * inv_det], -1),
+                            torch.stack([-c * inv_det, a * inv_det], -1)], -2)
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     dm, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
     g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
@@ -72,9 +80,15 @@ def explicit_inv(M):
 
 def _element_frame_inverse(elem):
     """Per-element frame inverse (v0, Minv) with coords(xg) =
-    Minv (xg - v0): columns e1, e2 and the unit normal."""
+    Minv (xg - v0): columns e1, e2 and the unit normal (in 2-D e1 and
+    its unit normal)."""
     v0 = elem[..., 0, :]
     e1 = elem[..., 1, :] - v0
+    if elem.shape[-1] == 2:
+        n = torch.stack([e1[..., 1], -e1[..., 0]], -1)
+        norm = torch.sqrt(n[..., 0] * n[..., 0] + n[..., 1] * n[..., 1])
+        n = n / torch.clamp(norm, min=1e-30)[..., None]
+        return v0, explicit_inv(torch.stack([e1, n], -1))
     e2 = elem[..., 2, :] - v0
     n = cross(e1, e2)
     n = n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True), min=1e-30)
@@ -84,8 +98,10 @@ def _element_frame_inverse(elem):
 
 def _frame_coords(v0, Minv, xg):
     y = xg - v0
-    return (Minv[..., 0] * y[..., 0:1] + Minv[..., 1] * y[..., 1:2]
-            + Minv[..., 2] * y[..., 2:3])
+    out = Minv[..., 0] * y[..., 0:1]
+    for k in range(1, y.shape[-1]):
+        out = out + Minv[..., k] * y[..., k:k + 1]
+    return out
 
 
 def _ravel(idx, nodes):
@@ -96,10 +112,10 @@ def _ravel(idx, nodes):
 
 
 def _stencil_nodes(xb, cfg: SimConfig):
-    """(27, B, 3) int64 node indices of each boundary particle's
-    quadratic stencil and their in-grid mask (27, B)."""
+    """(3^d, B, d) int64 node indices of each boundary particle's
+    quadratic stencil and their in-grid mask (3^d, B)."""
     base, _, _ = bspline_weights(2, xb * cfg.inv_dx)
-    offs = const(stencil_offsets(3, 2), torch.int64, xb.device)
+    offs = const(stencil_offsets(cfg.dim, 2), torch.int64, xb.device)
     idx = base.long()[None] + offs[:, None, :]
     nodes = const(cfg.grid_nodes, torch.int64, xb.device)
     return idx, torch.all((idx >= 0) & (idx < nodes), -1)
@@ -107,13 +123,17 @@ def _stencil_nodes(xb, cfg: SimConfig):
 
 def _raster_values(xb, elem_world, bp_rid, cfg: SimConfig):
     """Per (stencil offset, boundary particle): node index, in-range
-    mask, packed key and colour tag, stacked over the 27 offsets."""
+    mask, packed key and colour tag, stacked over the 3^d offsets."""
     idx, inb = _stencil_nodes(xb, cfg)
     v0, Minv = _element_frame_inverse(elem_world)
     xg = idx.to(torch.float32) * cfg.dx
     coord = _frame_coords(v0[None], Minv[None], xg)
-    h = coord[..., 2]
-    in_range = (coord[..., 0] >= 0) & (coord[..., 1] >= 0) & (coord[..., 0] + coord[..., 1] <= 1.0)
+    h = coord[..., cfg.dim - 1]
+    if cfg.dim == 2:
+        in_range = (coord[..., 0] >= -0.02) & (coord[..., 0] <= 1.02)
+    else:
+        in_range = ((coord[..., 0] >= 0) & (coord[..., 1] >= 0)
+                    & (coord[..., 0] + coord[..., 1] <= 1.0))
     dist_gu = torch.abs(h) * cfg.inv_dx
     q = torch.clamp(dist_gu * _DIST_SCALE, max=_DIST_SCALE * 4 - 1).to(torch.int32)
     key = (q << 8) | (bp_rid[None] + 1)
@@ -146,19 +166,52 @@ def _decode_key(key, cfg: SimConfig):
 
 def rasterize_rigid_boundary(xb, elem_world, bp_rid, num_rigids: int, cfg: SimConfig,
                              return_key: bool = False):
-    """Rigid boundary particles (B, 3) with their world elements (B, 3, 3)
+    """Rigid boundary particles (B, d) with their world elements (B, d, d)
     -> dense grid CDF: (grid_dist (N,) world-unit unsigned distance,
     grid_rid (N,) nearest rigid (-1 none), grid_states (N,) colour tags
-    [, the scatter-min key plane])."""
+    [, the scatter-min key plane]). In 2-D, cfg.cdf_expand passes of
+    ``_expand_states_2d`` dilate the tags."""
     nodes = cfg.grid_nodes
-    N = nodes[0] * nodes[1] * nodes[2]
+    N = int(np.prod(nodes))
     idx, valid, key, tag = _raster_values(xb, elem_world, bp_rid, cfg)
     lin = torch.where(valid, _ravel(idx, nodes), 0)
     key_plane, states = _reduce_planes(N, lin, valid, key, tag, bp_rid, num_rigids, xb.device)
     dist, rid = _decode_key(key_plane, cfg)
+    if cfg.dim == 2 and cfg.cdf_expand:
+        states = _expand_states_2d(states, num_rigids, cfg, int(cfg.cdf_expand))
     if return_key:
         return dist, rid, states, key_plane
     return dist, rid, states
+
+
+def _expand_states_2d(grid_states, num_rigids: int, cfg: SimConfig, passes: int):
+    """The 2-D tag dilation of the ``cdf_expand`` knob: per pass and axis,
+    interior nodes adopt the tag and sign bits of their two neighbours
+    for the rigids that do not touch them yet. Neighbours are read from
+    the grid before the axis's update (a roll with the wrapped border row
+    zeroed), the two neighbour updates composed in sequence, the two axes
+    one after the other; the first and the last two rows of the axis keep
+    their states. Integer work: the JAX package's bits."""
+    nodes = cfg.grid_nodes
+    touched = state_mask(num_rigids)
+    s = grid_states.reshape(nodes)
+
+    def upd(state, nei):
+        add = (nei & ~state) & touched
+        return state | (nei & (add | (add >> 1)))
+
+    for _ in range(passes):
+        for k in range(2):
+            nei_p = torch.roll(s, -1, dims=k)
+            nei_m = torch.roll(s, 1, dims=k)
+            nei_p.narrow(k, nodes[k] - 1, 1).zero_()
+            nei_m.narrow(k, 0, 1).zero_()
+            s2 = upd(upd(s, nei_p), nei_m)
+            interior = torch.ones(nodes, dtype=torch.bool, device=s.device)
+            interior.narrow(k, 0, 1).fill_(False)
+            interior.narrow(k, nodes[k] - 2, 2).fill_(False)
+            s = torch.where(interior, s2, s)
+    return s.reshape(-1)
 
 
 # -- record-sparse CDF over a rigid page map ------------------------------------
@@ -389,52 +442,61 @@ class RecordNodeCDF:
 # -- gather ------------------------------------------------------------------------
 
 
-def stencil_node_data(p_x, ncdf, cfg: SimConfig):
-    """Per-offset node lookups + weights of each particle's quadratic
-    stencil, computed once and shared by the CDF gather and both
-    correction passes, stacked over the 27 offsets (leading axis):
-    dict(nidx (27,B,3) int64, inb, s, nrid, dist_world, wo (27,B),
-    gradw (27,B,3), dpos (27,B,3))."""
+def stencil_node_data(p_x, ncdf, cfg: SimConfig, order: int = 2):
+    """Per-offset node lookups + weights of each particle's B-spline
+    stencil (quadratic, the CDF gather's, unless `order` names another),
+    computed once and shared by the CDF gather and both transfers or
+    correction passes, stacked over the K offsets (leading axis):
+    dict(nidx (K,B,d) int64, inb, s, nrid, dist_world, wo (K,B),
+    gradw (K,B,d), dpos (K,B,d))."""
+    d = cfg.dim
     pos = p_x * cfg.inv_dx
-    base, w, dw = bspline_weights(2, pos)
-    offs = stencil_offsets(3, 2)
-    o = const(offs, torch.int64, p_x.device)
+    base, w, dw = bspline_weights(order, pos)
+    o = const(stencil_offsets(d, order), torch.int64, p_x.device)
     nidx = base.long()[None] + o[:, None, :]
     nodes = const(cfg.grid_nodes, torch.int64, p_x.device)
     inb = torch.all((nidx >= 0) & (nidx < nodes), -1)
     s, nrid, dist = ncdf.lookup(nidx, inb)
-    # per-axis weights and gradients at each offset: (27, B) each
-    wa = [w[:, k, o[:, k]].t() for k in range(3)]
-    da = [dw[:, k, o[:, k]].t() for k in range(3)]
-    wo = wa[0] * wa[1] * wa[2]
-    gradw = torch.stack([da[0] * wa[1] * wa[2] * cfg.inv_dx,
-                         da[1] * wa[0] * wa[2] * cfg.inv_dx,
-                         da[2] * wa[0] * wa[1] * cfg.inv_dx], -1)
+    # per-axis weights and gradients at each offset: (K, B) each
+    wa = [w[:, k, o[:, k]].t() for k in range(d)]
+    da = [dw[:, k, o[:, k]].t() for k in range(d)]
+    wo = wa[0]
+    for k in range(1, d):
+        wo = wo * wa[k]
+    grads = []
+    for k in range(d):  # d_k w_k times the other axes' weights, in axis order
+        g = da[k]
+        for j in range(d):
+            if j != k:
+                g = g * wa[j]
+        grads.append(g * cfg.inv_dx)
     dpos = pos[None] - nidx.to(pos.dtype)
-    return dict(nidx=nidx, inb=inb, s=s, nrid=nrid, dist=dist, wo=wo, gradw=gradw, dpos=dpos)
+    return dict(nidx=nidx, inb=inb, s=s, nrid=nrid, dist=dist, wo=wo,
+                gradw=torch.stack(grads, -1), dpos=dpos)
 
 
-def _det4(M):
-    """Determinants of the 4x4 matrices M (..., 4, 4, P) by cofactor
-    expansion along the first row, written out in the JAX package's
-    order (det_ll: each minor expanded along its first row, the odd terms
-    negated and added)."""
-    m = [[M[..., i, j, :] for j in range(4)] for i in range(4)]
-
-    def det2(r0, r1, c0, c1):
-        return m[r0][c0] * m[r1][c1] - m[r0][c1] * m[r1][c0]
-
-    def det3(cols):  # rows 1-3, the given columns
-        c0, c1, c2 = cols
-        return (m[1][c0] * det2(2, 3, c1, c2) - m[1][c1] * det2(2, 3, c0, c2)
-                + m[1][c2] * det2(2, 3, c0, c1))
-
-    minors = [det3([c for c in range(4) if c != j]) for j in range(4)]
-    return (m[0][0] * minors[0] - m[0][1] * minors[1] + m[0][2] * minors[2]
-            - m[0][3] * minors[3])
+def _det(M):
+    """Determinants of the m x m matrices M (a nested list of tensors) by
+    cofactor expansion along the first row, as the JAX package's det_ll
+    writes it: each minor expanded the same way, the odd terms negated and
+    added (the same bits as subtracting them)."""
+    if len(M) == 1:
+        return M[0][0]
+    acc = None
+    for j in range(len(M)):
+        term = M[0][j] * _det([[row[c] for c in range(len(M)) if c != j] for row in M[1:]])
+        acc = term if acc is None else (acc - term if j % 2 else acc + term)
+    return acc
 
 
-_UPPER = [(i, j) for i in range(4) for j in range(i, 4)]
+def gather_cdf(p_x, p_states, grid_dist, grid_rid, grid_states, num_rigids: int,
+               cfg: SimConfig):
+    """The CDF gather over dense (N_nodes,) grid arrays (2-D or 3-D): the
+    dense path's ``gather_cdf_lookup``. Returns (states, bdist, bnormal,
+    near_b)."""
+    ncdf = DenseNodeCDF(grid_dist, grid_rid, grid_states, cfg)
+    return gather_cdf_lookup(p_x, p_states, num_rigids, cfg,
+                             stencil_node_data(p_x, ncdf, cfg))
 
 
 def gather_cdf_lookup(p_x, p_states, num_rigids: int, cfg: SimConfig, node_data):
@@ -442,24 +504,26 @@ def gather_cdf_lookup(p_x, p_states, num_rigids: int, cfg: SimConfig, node_data)
     shared stencil data of ``stencil_node_data``. Returns (states, bdist,
     bnormal, near_b): updated affinity, signed boundary distance (world
     units), unit normal, near-boundary flag. The per-offset terms are
-    computed for all 27 offsets at once and summed offset by offset, in
+    computed for all 3^d offsets at once and summed offset by offset, in
     the JAX package's order."""
     P = p_x.shape[0]
     R = num_rigids
+    d = cfg.dim
+    m = d + 1
     smask = state_mask(R)
     dev = p_x.device
-    S = node_data["s"]  # (27, P)
+    S = node_data["s"]  # (3^d, P)
     n_off = S.shape[0]
     dist_g = node_data["dist"] * cfg.inv_dx  # grid units
     wo = node_data["wo"]
 
     # pass 1: affinity update
     rr = torch.arange(R, dtype=torch.int32, device=dev)
-    touch = ((S[..., None] >> (2 * rr + 1)) & 1).to(torch.float32)  # (27, P, R)
+    touch = ((S[..., None] >> (2 * rr + 1)) & 1).to(torch.float32)  # (3^d, P, R)
     neg = ((S[..., None] >> (2 * rr)) & 1).to(torch.float32)
     all_b = torch.sum(touch.amax(0).to(torch.int32) << (2 * rr + 1), -1, dtype=torch.int32)
     wd = (wo * dist_g)[..., None] * touch
-    terms = torch.stack([wd * (1.0 - neg), wd * neg], 1)  # (27, 2, P, R)
+    terms = torch.stack([wd * (1.0 - neg), wd * neg], 1)  # (3^d, 2, P, R)
     wd_pn = terms[0]
     for o in range(1, n_off):
         wd_pn = wd_pn + terms[o]
@@ -475,8 +539,9 @@ def gather_cdf_lookup(p_x, p_states, num_rigids: int, cfg: SimConfig, node_data)
     new_tags = torch.where(add, 2 + neg_bit, 0)
     states = states | torch.sum(new_tags << (2 * rr), 1, dtype=torch.int32)
 
-    # pass 2: weighted MLS reconstruction with the final states; the 4x4
-    # normal equations accumulated and solved componentwise (Cramer)
+    # pass 2: weighted MLS reconstruction with the final states; the
+    # (d+1)^2 normal equations accumulated and solved componentwise
+    # (Cramer)
     mask = (S & states & smask) >> 1
     same = (S & mask) == (states & mask)
     diff = (S ^ states) & mask
@@ -484,34 +549,37 @@ def gather_cdf_lookup(p_x, p_states, num_rigids: int, cfg: SimConfig, node_data)
     use = (S != 0) & (same | single_neg)
     sign = torch.where(same, 1.0, -1.0)
     wgt = torch.where(use, wo, 0.0)
-    dpos = node_data["dpos"]  # (27, P, 3)
-    xp = torch.stack([-dpos[..., 0], -dpos[..., 1], -dpos[..., 2],
-                      torch.ones_like(dpos[..., 0])], 1)  # (27, 4, P)
+    dpos = node_data["dpos"]  # (3^d, P, d)
+    xp = torch.stack([-dpos[..., k] for k in range(d)] + [torch.ones_like(dpos[..., 0])],
+                     1)  # (3^d, m, P)
     wx = wgt[:, None] * xp
-    iu = const([i for i, _ in _UPPER], torch.int64, dev)
-    ju = const([j for _, j in _UPPER], torch.int64, dev)
+    upper = [(i, j) for i in range(m) for j in range(i, m)]
+    iu = const([i for i, _ in upper], torch.int64, dev)
+    ju = const([j for _, j in upper], torch.int64, dev)
     terms = torch.cat([wx[:, iu] * xp[:, ju], (wgt * sign * dist_g)[:, None] * xp], 1)
-    acc = terms[0]  # (14, P): XtX upper triangle (10), XtY (4)
+    acc = terms[0]  # XtX upper triangle, then XtY
     for o in range(1, n_off):
         acc = acc + terms[o]
-    XtX = torch.empty((4, 4, P), dtype=torch.float32, device=dev)
-    XtX[iu, ju] = acc[:10]
-    XtX[ju, iu] = acc[:10]
-    XtY = acc[10:]
-    # the matrix and its four Cramer replacements (column j <- XtY)
-    mats = XtX[None].repeat(5, 1, 1, 1)
-    for j in range(4):
-        mats[j + 1, :, j] = XtY
-    dets = _det4(mats)
+    nu = len(upper)
+    XtX = [[None] * m for _ in range(m)]
+    for k, (i, j) in enumerate(upper):
+        XtX[i][j] = XtX[j][i] = acc[k]
+    XtY = [acc[nu + i] for i in range(m)]
+    # the matrix and its m Cramer replacements (column j <- XtY), stacked
+    mats = [[torch.stack([XtX[r][c]] + [XtY[r] if c == j else XtX[r][c] for j in range(m)])
+             for c in range(m)] for r in range(m)]
+    dets = _det(mats)
     det = dets[0]
-    ok = (torch.abs(det) > _GUARD) & (states != 0)
+    ok = (torch.abs(det) > _GUARD[d]) & (states != 0)
     inv_det = 1.0 / torch.where(ok, det, 1.0)
-    r = [dets[j + 1] * inv_det for j in range(4)]
+    r = [dets[j + 1] * inv_det for j in range(m)]
 
     near_b = ok
-    bdist = torch.where(ok, r[3] * cfg.dx, 0.0)
-    glen2 = r[0] * r[0] + r[1] * r[1] + r[2] * r[2]
+    bdist = torch.where(ok, r[d] * cfg.dx, 0.0)
+    glen2 = r[0] * r[0]
+    for k in range(1, d):
+        glen2 = glen2 + r[k] * r[k]
     gok = ok & (glen2 > 1e-4)
     gscale = 1.0 / torch.clamp(torch.sqrt(glen2), min=1e-30)
-    bnormal = torch.stack([torch.where(gok, r[k] * gscale, 0.0) for k in range(3)], -1)
+    bnormal = torch.stack([torch.where(gok, r[k] * gscale, 0.0) for k in range(d)], -1)
     return states, bdist, bnormal, near_b

@@ -92,17 +92,34 @@ def detect(bodies: RigidBodies, verts_body, pairs, dirs, host=None):
     band = 1e-5 + 0.1 * np.maximum(depth, np.float32(0.0))[:, None]
     wa = (pa >= pa.max(-1, keepdims=True) - band).astype(np.float32)
     wb = (pb <= pb.min(-1, keepdims=True) + band).astype(np.float32)
-    # the witness means summed by torch's CPU reduction, which groups the
-    # terms as XLA's does (numpy adds pairwise): a symmetric contact lies
-    # on the body's axis only if it rounds as in the reference, and an
-    # impulse there has an arm of exactly zero
-    a_star = _sum1(wa[..., None] * va) / np.sum(wa, 1)[:, None]
-    b_star = _sum1(wb[..., None] * vb) / np.sum(wb, 1)[:, None]
+    # the witness means summed in XLA's order (xla_sum): a symmetric
+    # contact lies on the body's axis only if it rounds as in the
+    # reference, and an impulse there has an arm of exactly zero
+    a_star = xla_sum(wa[..., None] * va, 1) / np.sum(wa, 1)[:, None]
+    b_star = xla_sum(wb[..., None] * vb, 1) / np.sum(wb, 1)[:, None]
     return depth > 0.0, depth, normal, 0.5 * (a_star + b_star)
 
 
-def _sum1(a):
-    return torch.sum(torch.from_numpy(np.ascontiguousarray(a)), 1).numpy()
+_XLA_WINDOW = 32
+
+
+def xla_sum(a, axis):
+    """A float32 sum over `axis` in the order XLA's CPU backend adds it
+    (its tree-reduction rewrite): up to 32 terms one after the other from
+    0; more are zero-padded evenly at both ends to a multiple of 32, each
+    window of 32 summed in order, and the window sums summed the same
+    way."""
+    a = np.moveaxis(np.asarray(a, np.float32), axis, 0)
+    n = a.shape[0]
+    if n > _XLA_WINDOW:
+        pad = -(-n // _XLA_WINDOW) * _XLA_WINDOW - n
+        widths = [(pad // 2, pad - pad // 2)] + [(0, 0)] * (a.ndim - 1)
+        a = np.pad(a, widths).reshape((-1, _XLA_WINDOW) + a.shape[1:])
+        return xla_sum(xla_sum(a, 1), 0)
+    acc = np.zeros(a.shape[1:], np.float32)
+    for term in a:
+        acc = acc + term
+    return acc
 
 
 _ZERO = np.float32(0.0)

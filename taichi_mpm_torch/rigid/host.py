@@ -8,7 +8,9 @@ in numpy float32 on a host copy of the bodies (one read from the card,
 one upload back per substep), with the JAX package's formulas and
 operation order: float32 elementwise arithmetic rounds alike in numpy,
 torch and XLA, and the matrix-vector products are formed as XLA's CPU
-dot forms them, as chains of fused multiply-adds.
+dot forms them, as chains of fused multiply-adds. In 2-D a body's
+rotation, angular velocity and inverse inertia are scalars (the angle
+form of ``rigid.body``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,23 @@ def cross(a, b):
                      a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
 
 
+def cross_omega(w, r):
+    """omega x r with the 2-D omega's scalar z-component w (..., 1)."""
+    return np.stack([-w[..., 0] * r[..., 1], w[..., 0] * r[..., 0]], -1)
+
+
+def torque(r, J):
+    """The 2-D torque r x J as a (..., 1) array."""
+    return (r[..., 0] * J[..., 1] - r[..., 1] * J[..., 0])[..., None]
+
+
 def rotate(q, v):
+    """v rotated by the quaternion q, or in 2-D by the angle q (1,), its
+    cos and sin rounded from float64 as ``math.quat.cos_sin``'s."""
+    if v.shape[-1] == 2:
+        a = np.float64(q[..., 0])
+        c, s = np.cos(a).astype(np.float32), np.sin(a).astype(np.float32)
+        return np.stack([c * v[..., 0] - s * v[..., 1], s * v[..., 0] + c * v[..., 1]], -1)
     qv, w = q[..., 1:], q[..., :1]
     t = 2.0 * cross(qv, v)
     return v + w * t + cross(qv, t)
@@ -44,7 +62,10 @@ def quat_to_mat(q):
 
 
 def dot(a, b):
-    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+    out = a[..., 0] * b[..., 0]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., k] * b[..., k]
+    return out
 
 
 def _fma(a, b, c):
@@ -87,7 +108,8 @@ def explicit_inv(M):
 class HostBodies:
     """float32 numpy copies of the bodies' fields, read from their device
     at once; Iw is the world inverse inertia (fixed while only velocities
-    change). ``apply_to`` uploads the new velocities."""
+    change; the scalar (R, 1) in 2-D). ``apply_to`` uploads the new
+    velocities."""
 
     FIELDS = ("pos", "vel", "rot", "omega", "mass_inv", "inertia_inv", "friction",
               "restitution")
@@ -99,23 +121,42 @@ class HostBodies:
             n = getattr(b, f).numel()
             setattr(self, f, flat[k:k + n].reshape(tuple(getattr(b, f).shape)).copy())
             k += n
-        Rm = quat_to_mat(self.rot)
-        self.Iw = matmul(matmul(Rm, self.inertia_inv), np.swapaxes(Rm, -1, -2))
+        self.dim = self.pos.shape[-1]
+        if self.dim == 2:
+            self.Iw = self.inertia_inv.copy()
+        else:
+            Rm = quat_to_mat(self.rot)
+            self.Iw = matmul(matmul(Rm, self.inertia_inv), np.swapaxes(Rm, -1, -2))
 
     def apply_to(self, b: RigidBodies) -> RigidBodies:
         dev = b.pos.device
         return b.replace(vel=upload(self.vel, dev), omega=upload(self.omega, dev))
 
     def velocity_at(self, i, x):
+        if self.dim == 2:
+            return self.vel[i] + cross_omega(self.omega[i], x - self.pos[i])
         return self.vel[i] + cross(self.omega[i], x - self.pos[i])
 
     def impulse_contribution(self, i, r, n):
+        if self.dim == 2:
+            rxd = r[..., 0] * n[..., 1] - r[..., 1] * n[..., 0]
+            return self.mass_inv[i] + self.Iw[i, 0] * rxd * rxd
         return self.mass_inv[i] + dot(cross(matvec(self.Iw[i], cross(r, n)), r), n)
+
+    def apply_torque(self, i, L):
+        """omega_i += I_world^-1 L (L a scalar in 2-D)."""
+        if self.dim == 2:
+            self.omega[i] = self.omega[i] + self.Iw[i] * L
+        else:
+            self.omega[i] = self.omega[i] + matvec(self.Iw[i], L)
 
     def impulse(self, i, J, at):
         """The impulse J at the world point `at` to body i."""
         self.vel[i] = self.vel[i] + J * self.mass_inv[i]
-        self.omega[i] = self.omega[i] + matvec(self.Iw[i], cross(at - self.pos[i], J))
+        if self.dim == 2:
+            self.omega[i] = self.omega[i] + self.Iw[i] * torque(at - self.pos[i], J)
+        else:
+            self.omega[i] = self.omega[i] + matvec(self.Iw[i], cross(at - self.pos[i], J))
 
     def pair_impulse(self, i, j, p, n, J):
         """-J*n at p to body i, +J*n at p to body j."""
@@ -126,6 +167,13 @@ class HostBodies:
     def project_rotation(self, i0, i1):
         """The rotation articulation's projection: both bodies take the
         angular velocity of their total angular momentum."""
+        if self.dim == 2:
+            I0 = np.float32(1.0) / max(self.Iw[i0, 0], np.float32(1e-12))
+            I1 = np.float32(1.0) / max(self.Iw[i1, 0], np.float32(1e-12))
+            w = (I0 * self.omega[i0, 0] + I1 * self.omega[i1, 0]) / (I0 + I1)
+            self.omega[i0] = w
+            self.omega[i1] = w
+            return
         eye = np.float32(1e-12) * np.eye(3, dtype=np.float32)
         I0 = explicit_inv(self.Iw[i0] + eye)
         I1 = explicit_inv(self.Iw[i1] + eye)

@@ -1,9 +1,12 @@
 """CPIC scene construction: rigid bodies + boundary particles + statics
-(torch counterpart of ``taichi_mpm_tpu.rigid.scene``, 3-D only).
+(torch counterpart of ``taichi_mpm_tpu.rigid.scene``, 2-D and 3-D).
 
 Mesh -> mass/inertia -> recentre -> boundary-particle sampling, all on
 the host in numpy (``rigid.mesh``), producing one ``RigidBodies`` and one
-``CPICScene`` of tensors on the scene's device.
+``CPICScene`` of tensors on the scene's device. A 2-D body's rotation is
+an angle (the scripted and initial rotations in degrees) and its inertia
+a scalar; a 2-D scene has no rigid-rigid collision (the reference's 2-D
+rigid solver does not detect contacts).
 """
 
 from __future__ import annotations
@@ -25,11 +28,11 @@ MAX_RIGIDS = 12  # int32 tag bits, 2 per rigid
 class CPICScene:
     """Static CPIC data: boundary particles (body frame) + scene meta."""
 
-    bp_offset: torch.Tensor  # (B, 3) offsets from the body centroid
-    bp_normal: torch.Tensor  # (B, 3) body-frame normals
-    bp_elem: torch.Tensor  # (B, 3, 3) body-frame element vertices
+    bp_offset: torch.Tensor  # (B, d) offsets from the body centroid
+    bp_normal: torch.Tensor  # (B, d) body-frame normals
+    bp_elem: torch.Tensor  # (B, d, d) body-frame element vertices
     bp_rid: torch.Tensor  # (B,) int32
-    hull_verts: torch.Tensor  # (R, V, 3) body-frame hull vertices per rigid
+    hull_verts: torch.Tensor  # (R, V, d) body-frame hull vertices per rigid
     pos_funcs: Tuple[Optional[Callable], ...] = ()
     rot_funcs: Tuple[Optional[Callable], ...] = ()
     articulations: Tuple = ()
@@ -63,10 +66,6 @@ class RigidSceneBuilder:
 
     def __init__(self, dim: int, dx: float, rigid_collision: bool = True,
                  rigid_penalty: float = 1e3):
-        if dim != 3:
-            raise NotImplementedError(
-                "2-D rigid scenes need the dense CPIC frame and the 2-D CDF, not "
-                "ported yet (ROADMAP.md queue 1, 'dense CPIC and 2-D rigid bodies')")
         self.dim = dim
         self.dx = dx
         self.rigid_collision = rigid_collision
@@ -77,15 +76,26 @@ class RigidSceneBuilder:
         self.rot_funcs = [None]
         self.meshes = [None]  # body-frame element soup per rigid (frame output)
         self.articulations = []
-        q = np.zeros(4, np.float32)
-        q[0] = 1.0
         self.bodies.append(dict(
-            pos=np.zeros(3, np.float32), vel=np.zeros(3, np.float32), rot=q,
-            omega=np.zeros(3, np.float32), mass_inv=0.0,
-            inertia_inv=np.zeros((3, 3), np.float32), friction=(0.0, 0.0),
+            pos=np.zeros(dim, np.float32), vel=np.zeros(dim, np.float32),
+            rot=self._rot_identity(), omega=self._omega_zero(), mass_inv=0.0,
+            inertia_inv=self._inertia_zero(), friction=(0.0, 0.0),
             restitution=0.0, rotation_axis=np.zeros(3, np.float32),
             linear_damping=0.0, angular_damping=0.0,
         ))
+
+    def _rot_identity(self):
+        if self.dim == 2:
+            return np.zeros(1, np.float32)
+        q = np.zeros(4, np.float32)
+        q[0] = 1.0
+        return q
+
+    def _omega_zero(self):
+        return np.zeros(1 if self.dim == 2 else 3, np.float32)
+
+    def _inertia_zero(self):
+        return np.zeros(1 if self.dim == 2 else (3, 3), np.float32)
 
     def add_rigid(
         self,
@@ -111,7 +121,9 @@ class RigidSceneBuilder:
     ) -> int:
         """Returns the rigid id (>= 1). Codimensional default density 40,
         solid 400; scripted bodies get infinite mass/inertia; the mesh is
-        recentred to its centre of mass."""
+        recentred to its centre of mass. Rotations are Euler angles in
+        degrees (one angle in 2-D)."""
+        d = self.dim
         rid = len(self.bodies)
         if rid >= MAX_RIGIDS:
             raise ValueError(f"at most {MAX_RIGIDS - 1} rigid bodies")
@@ -132,24 +144,31 @@ class RigidSceneBuilder:
             pos = np.asarray(scripted_position(t0), np.float32)
         else:
             pos = np.asarray(
-                initial_position if initial_position is not None else np.zeros(3), np.float32)
-        euler = (np.asarray(scripted_rotation(t0), np.float32)
-                 if scripted_rotation is not None
-                 else np.asarray(initial_rotation if initial_rotation is not None
-                                 else np.zeros(3), np.float32))
-        rot = _euler_quat(euler)
+                initial_position if initial_position is not None else np.zeros(d), np.float32)
+        if d == 2:
+            ang = (float(scripted_rotation(t0)) if scripted_rotation is not None
+                   else float(initial_rotation or 0.0))
+            rot = np.asarray([np.deg2rad(ang)], np.float32)
+        else:
+            euler = (np.asarray(scripted_rotation(t0), np.float32)
+                     if scripted_rotation is not None
+                     else np.asarray(initial_rotation if initial_rotation is not None
+                                     else np.zeros(3), np.float32))
+            rot = _euler_quat(euler)
 
         mass_inv = 0.0 if scripted_position is not None else 1.0 / max(mass, 1e-30)
         if scripted_rotation is not None:
-            inertia_inv = np.zeros((3, 3), np.float32)
+            inertia_inv = self._inertia_zero()
+        elif d == 2:
+            inertia_inv = np.asarray([1.0 / max(inertia, 1e-30)], np.float32)
         else:
             inertia_inv = np.linalg.inv(inertia + 1e-12 * np.eye(3)).astype(np.float32)
         if friction is not None:
             friction0 = friction1 = friction
-        vel = np.asarray(initial_velocity if initial_velocity is not None else np.zeros(3),
+        vel = np.asarray(initial_velocity if initial_velocity is not None else np.zeros(d),
                          np.float32)
         omega = (np.atleast_1d(np.asarray(initial_angular_velocity, np.float32))
-                 if initial_angular_velocity is not None else np.zeros(3, np.float32))
+                 if initial_angular_velocity is not None else self._omega_zero())
 
         self.bodies.append(dict(
             pos=pos, vel=vel, rot=rot, omega=omega, mass_inv=mass_inv,
@@ -202,23 +221,24 @@ class RigidSceneBuilder:
         if not self.bp:
             raise ValueError("no rigid bodies with boundary particles")
 
-        # rigid-rigid collision pairs: every pair of non-background bodies
-        # unless both are fully scripted (position and rotation)
+        # rigid-rigid collision pairs (3-D only): every pair of
+        # non-background bodies unless both are fully scripted (position
+        # and rotation)
         scripted = tuple(self.pos_funcs[i] is not None and self.rot_funcs[i] is not None
                          for i in range(self.num))
         pairs = []
-        if self.rigid_collision:
+        if self.dim == 3 and self.rigid_collision:
             pairs = [(i, j) for i in range(1, self.num) for j in range(i + 1, self.num)
                      if not (scripted[i] and scripted[j])]
         collision = (CollisionConfig(pairs=tuple(pairs), penalty=self.rigid_penalty)
                      if pairs else None)
-        elems = [np.zeros((1, 3, 3), np.float32)] + [b["elem"] for b in self.bp]
+        elems = [np.zeros((1, self.dim, self.dim), np.float32)] + [b["elem"] for b in self.bp]
         scene = CPICScene(
             bp_offset=t(np.concatenate([b["offset"] for b in self.bp])),
             bp_normal=t(np.concatenate([b["normal"] for b in self.bp])),
             bp_elem=t(np.concatenate([b["elem"] for b in self.bp])),
             bp_rid=t(np.concatenate([b["rid"] for b in self.bp]), np.int32),
-            hull_verts=t(hull_vertices(elems, 3)),
+            hull_verts=t(hull_vertices(elems, self.dim)),
             pos_funcs=tuple(self.pos_funcs),
             rot_funcs=tuple(self.rot_funcs),
             articulations=tuple(self.articulations),

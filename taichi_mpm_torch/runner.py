@@ -15,6 +15,7 @@ and the module runs the scripts' counterparts in ``scenes`` itself:
     python -m taichi_mpm_torch.runner sand_paddles --frame-dt 1e-3 --out out/
     python -m taichi_mpm_torch.runner colliding_balls_energy --res 32 --frames 2 --cpu
     python -m taichi_mpm_torch.runner tetris --frames 5 --cpu --out out/
+    python -m taichi_mpm_torch.runner sand_wheel_2d --res 128 --frames 3 --cpu
 
 Frames go to ``<out>/<frame>.bgeo`` (five digits), snapshots to
 ``<out>/snapshot_<frame>.npz`` every ``--snapshot-interval`` frames, and
@@ -139,6 +140,20 @@ def _sand_paddles(args):
     return sim, scenes.sand_paddles_source
 
 
+def _sand_wheel_2d(args):
+    from taichi_mpm_torch import scenes
+
+    sim = scenes.sand_wheel_2d(res=args.res or 128, device=args.device,
+                               solver=mpm_class(args.device))
+    return sim, scenes.sand_wheel_2d_source
+
+
+def _async_wheel(args):
+    from taichi_mpm_torch import scenes
+
+    return scenes.async_wheel(res=args.res or 128, device=args.device), None
+
+
 def _dense(name, res):
     def make(args):
         from taichi_mpm_torch import scenes
@@ -154,7 +169,8 @@ def _dense(name, res):
 SCENES = {"water": _water, "sand_paddles": _sand_paddles,
           "colliding_balls_energy": _dense("colliding_balls_energy", 100),
           "oscillating_jello": _dense("oscillating_jello", 50),
-          "tetris": _dense("tetris", 128), "mpm88": _dense("mpm88", None)}
+          "tetris": _dense("tetris", 128), "mpm88": _dense("mpm88", None),
+          "sand_wheel_2d": _sand_wheel_2d, "async_wheel": _async_wheel}
 # the scenes that print their energy every frame, as their scripts do
 ENERGY_SCENES = ("colliding_balls_energy", "oscillating_jello")
 

@@ -21,7 +21,9 @@ The dense path's scenes: ``colliding_balls_energy`` and
 ``oscillating_jello`` build ``scripts/benchmark``'s energy scripts line
 for line (``optimized=False``), ``tetris`` the 2-D scene of
 ``demos/tetris.py`` and ``mpm88`` the 2-D snow scene of the repo's
-mls-mpm88 oracle test.
+mls-mpm88 oracle test. Its 2-D CPIC scenes: ``sand_wheel_2d``
+(``scripts/mls-cpic/sand_wheel_2D.py``, with its source
+``sand_wheel_2d_source``) and ``async_wheel`` (``scripts/async/wheel.py``).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import numpy as np
 from taichi_mpm_torch.core import levelset
 from taichi_mpm_torch.core.adaptive import AsyncMPM
 from taichi_mpm_torch.core.solver import MPM
-from taichi_mpm_torch.rigid.mesh import cylinder_mesh, paddle_wheel_mesh
+from taichi_mpm_torch.rigid.mesh import cylinder_mesh, paddle_wheel_mesh, wheel_mesh_2d
 from taichi_mpm_torch.sampling import poisson, texture
 
 
@@ -347,4 +349,55 @@ def mpm88(pos=None, device=None, solver=MPM, **solver_kw) -> MPM:
                       hardening=10.0)
     for c in mpm88_colliders():
         sim.add_collider(c)
+    return sim
+
+
+def _wheel_2d(sim):
+    """The free-spinning wheel of the 2-D CPIC scripts over their floor."""
+    sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 1] - 0.05, friction=0.4))
+    sim.add_particles("rigid", mesh=wheel_mesh_2d(radius=0.12, n_spokes=6, spoke_width=0.03),
+                      codimensional=True, friction=0.3, density=5.0,
+                      scripted_position=lambda t: (0.5, 0.45))
+    return sim
+
+
+def sand_wheel_2d(res: int = 128, device=None, solver=MPM) -> MPM:
+    """``scripts/mls-cpic/sand_wheel_2D.py`` line for line: res^2, dt 1e-4,
+    frame_dt 0.01, penalty 1e3, capacity 100,000; a floor at y = 0.05 with
+    friction 0.4; a 6-spoke wheel (radius 0.12, spokes 0.03 wide),
+    codimensional, density 5, friction 0.3, its position scripted at
+    (0.5, 0.45) and its rotation free. It holds no particles at first: its
+    sand comes from ``sand_wheel_2d_source``, the script's
+    ``frame_update``. `solver` is the class (the runner's ``mpm_class``).
+    Runs on the card unless `device` names another."""
+    return _wheel_2d(solver(res=(res, res), base_delta_t=1e-4, frame_dt=0.01, penalty=1e3,
+                            gravity=(0, -10.0), capacity=100_000, device=device))
+
+
+WHEEL_2D_SOURCE = texture.box((0.46, 0.8), (0.54, 0.88)) * 6
+WHEEL_2D_SOURCE_FRAMES = 150
+
+
+def sand_wheel_2d_source(s, f):
+    """The sand source of ``scripts/mls-cpic/sand_wheel_2D.py`` (its
+    ``frame_update``): for the first 150 frames, sand (density 2000,
+    friction angle 35) emitted from the box texture [0.46, 0.54] x [0.8,
+    0.88] of density 6, falling at 0.6 m/s."""
+    if f < WHEEL_2D_SOURCE_FRAMES:
+        s.add_particles("sand", density=2000, friction_angle=35.0, density_tex=WHEEL_2D_SOURCE,
+                        pd_source=True, vel=(0.0, -0.6), delta_t=s.frame_dt)
+
+
+def async_wheel(res: int = 128, device=None) -> AsyncMPM:
+    """``scripts/async/wheel.py`` line for line: AsyncMPM(res^2,
+    base_delta_t=2e-4, frame_dt=0.01, unit_delta_t=1e-6), penalty 1e3,
+    capacity 100,000, the wheel of ``sand_wheel_2d`` over its floor, and a
+    sand column (density 2000, friction angle 35) seeded by Poisson disks
+    from the texture box((0.44, 0.62), (0.56, 0.82)) * 6 (2,361 particles
+    at res 128). Runs on the card unless `device` names another."""
+    sim = _wheel_2d(AsyncMPM(res=(res, res), base_delta_t=2e-4, frame_dt=0.01,
+                             unit_delta_t=1e-6, penalty=1e3, gravity=(0, -10.0),
+                             capacity=100_000, device=device))
+    sim.add_particles("sand", density=2000, friction_angle=35.0,
+                      density_tex=texture.box((0.44, 0.62), (0.56, 0.82)) * 6)
     return sim

@@ -64,7 +64,7 @@ def _frozen(values):
 
 @functools.lru_cache(maxsize=None)
 def _const(values, dtype, device):
-    return torch.tensor(values, dtype=dtype, device=device)
+    return torch.tensor(values, dtype=dtype, device=torch.device(device))
 
 
 def const(values, dtype=torch.float32, device="cpu"):
@@ -72,7 +72,10 @@ def const(values, dtype=torch.float32, device="cpu"):
     reused: a copy from pageable host memory to the card waits for the
     card's queue to drain, so a constant rebuilt in every call of a loop
     stalls the host on every call. Callers must not modify it."""
-    return _const(_frozen(values), dtype, torch.device(device))
+    try:  # a tuple of numbers (the common call) is its own key
+        return _const(values, dtype, device)
+    except TypeError:  # lists, arrays, or a tuple holding them
+        return _const(_frozen(values), dtype, device)
 
 
 def upload(values, device, dtype=np.float32):

@@ -4,6 +4,7 @@ handed to both packages (the JAX reference and the torch port)."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -172,6 +173,24 @@ def assert_cpic_close(jp, jb, tp, tb):
         assert err <= bound, (name, err)
 
 
+# the dense CDF gather (tests/port/test_torch_cdf_2d.py): the boundary
+# distance is a float32 least-squares solve by Cramer's rule, which XLA
+# jitted rounds otherwise than op by op (the port rounds as the latter):
+# 1.9e-6 dx on the 3-D oracle plate, a solve near a singular, planar
+# stencil; the unit normal 3.8e-6 there
+GATHER_BDIST_DX, GATHER_BNORMAL = 5e-6, 1e-5
+
+
+def assert_gather_close(jout, tout, dx):
+    """Two CDF gathers' (states, bdist, bnormal, near_b): the integers
+    equal, the distance and the normal within the bounds above."""
+    js, jd, jn, jnear = (np_of(a) for a in jout)
+    ts, td, tn, tnear = (np_of(a) for a in tout)
+    assert np.array_equal(js, ts) and np.array_equal(jnear, tnear)
+    assert max_err(jd, td) <= GATHER_BDIST_DX * dx
+    assert max_err(jn, tn) <= GATHER_BNORMAL
+
+
 # -- frames of plain materials ------------------------------------------------
 
 FRAME_BOUNDS = dict(x=5e-6, v=5e-5, F=5e-6, C=5e-4, aux=5e-6)  # tests/test_fused.py
@@ -284,20 +303,29 @@ def dense_configs(mids, dim=3, res=16, **kw):
     return jcfg, convert.config_from_dict(dataclasses.asdict(jcfg))
 
 
-def jax_substeps(jp, jcfg, jcol, n, t=0.0, jit=True):
-    """n of the JAX package's dense substeps of base_dt
-    (``core.solver.substep``, the body of its ``frame_fn``): jitted once
-    and called n times, or with jit=False run op by op (quicker where
-    the substep's compile would take longer than its ops)."""
+@functools.lru_cache(maxsize=None)
+def _jax_substep(jcfg, jcol, jit):
+    """The JAX package's dense substep of (config, colliders), jitted once
+    per pair (a test that steps the same scene frame after frame compiles
+    it once)."""
     import jax
-    import jax.numpy as jnp
 
     from taichi_mpm_tpu.core.solver import substep
 
     def step(p, tt):
         return substep(p, tt, jcfg, jcol, jcfg.base_dt)
 
-    step = jax.jit(step) if jit else step
+    return jax.jit(step) if jit else step
+
+
+def jax_substeps(jp, jcfg, jcol, n, t=0.0, jit=True):
+    """n of the JAX package's dense substeps of base_dt
+    (``core.solver.substep``, the body of its ``frame_fn``): jitted once
+    and called n times, or with jit=False run op by op (quicker where
+    the substep's compile would take longer than its ops)."""
+    import jax.numpy as jnp
+
+    step = _jax_substep(jcfg, jcol, jit)
     t = jnp.float32(t)
     for _ in range(n):
         jp, t = step(jp, t)
@@ -480,17 +508,163 @@ def jax_dense_vs_blocked_report():
               + ", ".join(f"{f} {e:.3e}" for f, e in errs.items()), flush=True)
 
 
+def jax_cpic_dense_vs_blocked(substeps=4):
+    """The JAX package's own two CPIC paths on the CPU, on chip_smoke.py's
+    dense_cpic_vs_fused scene (``chip_smoke.cpic_check_scene``: the 10k
+    water wheel, res 96): its oracle ``cpic_substep`` (jitted, dt the
+    scene's base_dt, the body of its MPM's dense CPIC frame) against its
+    packed CPIC frame ``cpic_packed_frame`` (the Pallas kernels in
+    interpret mode, the MPM's own capacities), `substeps` substeps,
+    particles matched by id. Returns the largest difference of x, v, F,
+    states (count of differing lanes) and the bodies' omega and vel."""
+    import jax
+    import jax.numpy as jnp
+
+    import chip_smoke
+    from taichi_mpm_tpu.core.solver import MPM as JMPM
+    from taichi_mpm_tpu.rigid import mesh as jmesh
+    from taichi_mpm_tpu.rigid.cpic import cpic_substep
+    from taichi_mpm_tpu.rigid.cpic_packed import cpic_packed_frame
+
+    port = chip_smoke.cpic_check_scene("cpu")
+    port._ensure_finalized()
+    a = tag_ids(convert.particles_to_numpy(port.particles))
+    sim = JMPM(res=port.cfg.res, base_delta_t=port.cfg.base_dt, gravity=port.cfg.gravity,
+               penalty=port.cfg.penalty)
+    sim.add_particles("water", pos=a["x"], vel=a["v"][0], density=1000.0)
+    body = dict(density=1.0, friction=0.2, codimensional=True, angular_damping=3.0,
+                scripted_position=lambda t: scenes.WHEEL_CENTER, rotation_axis=(0, 0, 1))
+    hub = sim.add_particles("rigid", mesh=jmesh.cylinder_mesh(radius=0.04, half_height=0.06,
+                                                              n=16, axis=2), **body)
+    wheel = sim.add_particles("rigid", mesh=jmesh.paddle_wheel_mesh(), **body)
+    sim.add_articulation("rotation", hub, wheel)
+    sim._finalize()
+    p0 = jax_particles(a)
+    cfg, scene, dt = sim.cfg, sim.rigid_scene, sim.cfg.base_dt
+    step = jax.jit(lambda p, b, t: cpic_substep(p, b, t, cfg, scene, dt))
+    po, bo, t = p0, sim.bodies, jnp.float32(0.0)
+    for _ in range(substeps):
+        po, bo, t = step(po, bo, t)
+    sim.particles = p0
+    near, b1, Kr = sim._near_budget_cap()
+    out = cpic_packed_frame(p0, sim.bodies, jnp.float32(0.0), cfg, scene, dt, substeps,
+                            sim._active_block_cap(), near, b1, Kr, interpret=True, two_d=True)
+    pb, bb = out[0], out[1]
+    x, y = by_id(po), by_id(pb)
+    errs = {f: max_err(x[f], y[f]) for f in ("x", "v", "F")}
+    errs["states_differ"] = int((x["states"] != y["states"]).sum())
+    errs.update({f"body_{f}": max_err(getattr(bo, f), getattr(bb, f)) for f in ("omega", "vel")})
+    return errs
+
+
+def cos_sin_against_xla(n=200_000, seed=0):
+    """How often float32 cos and sin differ from XLA's on the CPU, on n
+    angles uniform in [-10, 10] from default_rng(seed): torch's float32
+    ones, and ``math.quat.cos_sin`` (float64 rounded); with the largest
+    difference in ulps."""
+    import jax.numpy as jnp
+
+    from taichi_mpm_torch.math.quat import cos_sin
+
+    a = np.random.default_rng(seed).uniform(-10, 10, n).astype(np.float32)
+    t = torch.as_tensor(a)
+    ref = (np.asarray(jnp.cos(a)), np.asarray(jnp.sin(a)))
+    for label, got in (("torch float32", (torch.cos(t), torch.sin(t))),
+                       ("float64 rounded", cos_sin(t))):
+        for name, g, r in zip(("cos", "sin"), got, ref):
+            g = g.numpy()
+            ulps = np.abs(g.astype(np.float64) - r) / np.spacing(np.abs(r))
+            print(f"{label} {name}: {np.mean(g != r):.4f} of the angles differ, "
+                  f"at most {ulps.max():.0f} ulp", flush=True)
+
+
+def hub_wheel_witness(substeps=2):
+    """The hub and wheel of the CPIC benchmark (``jax_hub_wheel_scene``, a
+    colliding pair with a degenerate contact) after `substeps` of the JAX
+    package's dense CPIC substep: both packages' rigid-rigid detect and
+    rigidify from that state. The contact's effective inverse mass is 0,
+    so an impulse of ~1e28 meets the witness point's arm: XLA's sum of the
+    witness vertices rounds the point off the bodies' axis by one ulp,
+    the port's on it. Prints both witness points and the angular
+    velocities after rigidify and after the rotation articulation."""
+    import jax
+    import jax.numpy as jnp
+
+    from taichi_mpm_tpu.rigid import articulation as jart
+    from taichi_mpm_tpu.rigid import collision as jcoll
+    from taichi_mpm_tpu.rigid.cpic import cpic_substep
+    from taichi_mpm_torch.rigid import collision as tcoll
+    from taichi_mpm_torch.rigid.cpic_blocked import _solve_bodies
+
+    sim = jax_hub_wheel_scene()
+    cfg, sc, dt = sim.cfg, sim.rigid_scene, sim.cfg.base_dt
+    step = jax.jit(lambda p, b, t: cpic_substep(p, b, t, cfg, sc, dt))
+    p, b, t = sim.particles, sim.bodies, jnp.float32(0.0)
+    for _ in range(substeps):
+        p, b, t = step(p, b, t)
+    dirs = jcoll.icosphere_directions()
+    ts = convert.scene_from_jax(sc)
+    tb = convert.bodies_from_jax(b)
+    jr = jcoll.rigidify(b, sc.hull_verts, sc.collision, jnp.asarray(dirs), dt)
+    print("witness point: JAX", np.asarray(jcoll.detect(b, sc.hull_verts, sc.collision.pairs,
+                                                          jnp.asarray(dirs))[3])[0],
+          "port", tcoll.detect(tb, ts.hull_verts_host(), ts.collision.pairs, dirs)[3][0])
+    print("omega after rigidify: JAX", np.asarray(jr.omega)[1:].tolist(), "port",
+          tcoll.rigidify(tb, ts.hull_verts_host(), ts.collision, dirs, dt).omega.numpy()[1:].tolist())
+    print("omega after the prologue: JAX",
+          np.asarray(jart.articulate(jr, sc.articulations, dt).omega)[1:].tolist(), "port",
+          _solve_bodies(tb, ts, dt).omega.numpy()[1:].tolist(), flush=True)
+
+
+def dense_cpic_profile():
+    """On the card: ``scenes.cpic_wheel()`` (100k water, res 96) with
+    optimized=False, a 1-substep warm-up frame and a timed 2-substep
+    frame, then one substep under ``torch.profiler``: the ms per substep
+    and the operators by device time and by host time."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    sim = scenes.cpic_wheel(device="cuda", optimized=False)
+    sim.step(frame_dt=sim.cfg.base_dt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.step(frame_dt=2 * sim.cfg.base_dt)
+    torch.cuda.synchronize()
+    print("ms/substep", (time.perf_counter() - t0) * 500, flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sim.step(frame_dt=sim.cfg.base_dt)
+        torch.cuda.synchronize()
+    table = prof.key_averages()
+    print(table.table(sort_by="cuda_time_total", row_limit=30, max_name_column_width=60))
+    print(table.table(sort_by="self_cpu_time_total", row_limit=15, max_name_column_width=60))
+
+
 if __name__ == "__main__":
     # from the repo's root: PYTHONPATH=. python tests/port/port_helpers.py dense-noise
     import argparse
     import os
 
     ap = argparse.ArgumentParser(description="the measurements behind the dense path's bounds")
-    ap.add_argument("what", choices=("dense-noise", "jax-dense-vs-blocked"))
+    ap.add_argument("what", choices=("dense-noise", "jax-dense-vs-blocked",
+                                     "jax-cpic-dense-vs-blocked", "dense-cpic-profile",
+                                     "hub-wheel-witness", "cos-sin"))
     args = ap.parse_args()
     torch.set_num_threads(1)
-    if args.what == "dense-noise":
+    if args.what == "dense-cpic-profile":  # on the card
+        dense_cpic_profile()
+    elif args.what == "dense-noise":
         dense_noise()
-    else:
+    elif args.what == "jax-dense-vs-blocked":
         os.environ.setdefault("JAX_PLATFORMS", "cpu")
         jax_dense_vs_blocked_report()
+    elif args.what == "cos-sin":
+        os.environ.setdefault("JAX_PLATFORMS", "cpu")
+        cos_sin_against_xla()
+    elif args.what == "hub-wheel-witness":
+        os.environ.setdefault("JAX_PLATFORMS", "cpu")
+        hub_wheel_witness()
+    else:
+        os.environ.setdefault("JAX_PLATFORMS", "cpu")
+        print("JAX, cpic_check's 10k wheel, 4 substeps, oracle - packed:",
+              jax_cpic_dense_vs_blocked(), flush=True)

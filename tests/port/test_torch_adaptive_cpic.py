@@ -10,7 +10,8 @@ mode, from the same numpy state, at the bounds ``tests/test_cpic_packed.py``
 holds the JAX paths to: x 5e-6, v 5e-4, F 5e-5, states and near_b
 exactly, body vel and omega 1e-5, pos 1e-6; the substep count and the
 frame's counts equal. Then ``AsyncMPM`` built through the port's scene
-API: its frame is that frame, and its unfused CPIC route raises."""
+API: its frame is that frame, and with TMT_FUSED=0 it runs the dense
+CPIC frame."""
 
 import numpy as np
 import pytest
@@ -85,5 +86,5 @@ def test_async_mpm_runs_the_adaptive_cpic_frame(frames, monkeypatch):
     unfused.add_particles("water", pos=pos, density=1000)
     unfused.add_particles("rigid", mesh=paddle_wheel_mesh(n_paddles=4, outer=0.18),
                           initial_position=(0.5, 0.4, 0.5), codimensional=True)
-    with pytest.raises(NotImplementedError, match="queue 1, .dense CPIC and 2-D rigid bodies."):
-        unfused.step()
+    unfused.step()  # the dense CPIC frame (tests/port/test_torch_cpic_dense.py holds it)
+    assert unfused.packed_carry is None and unfused.last_substeps > 0

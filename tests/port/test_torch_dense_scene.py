@@ -78,18 +78,31 @@ def test_2d_takes_the_dense_path(optimized):
     assert sim.packed_carry is None and sim.particles.x.shape == (192, 2)
 
 
-def test_rigid_bodies_on_the_dense_path_raise():
+def test_rigid_bodies_on_the_dense_path_raise(monkeypatch):
+    """Rigid bodies on the dense path run the dense CPIC frame (2-D, 3-D
+    with optimized=False, AsyncMPM at order 3 with the order's warning);
+    what still raises is fixed-dt CPIC on the blocked path with
+    TMT_FUSED=0 (the pytree CPIC frame, ROADMAP.md queue 1, 'the rest of
+    CPIC')."""
     sim = MPM(res=(16, 16), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, .dense CPIC and 2-D rigid bodies."):
-        sim.add_particles("rigid", mesh=np.zeros((1, 2, 2), np.float32))
+    sim.add_particles("jelly", pos=[[0.5, 0.6]])
+    sim.add_particles("rigid", mesh=np.asarray([[[-0.2, 0.0], [0.2, 0.0]]], np.float32),
+                      scripted_position=lambda t: (0.5, 0.5))
+    sim.step()
     sim = _scene3d(optimized=False)
     sim.add_particles("rigid", mesh=plate_mesh(0.1, 0.1), scripted_position=lambda t: (0.5, 0.3, 0.5))
-    with pytest.raises(NotImplementedError, match="queue 1, .dense CPIC and 2-D rigid bodies."):
-        sim.step()
+    sim.step()
+    assert sim.packed_carry is None and sim.particles.count() == 64
     sim = AsyncMPM(res=(16, 16, 16), kernel_order=3, device="cpu")
     sim.add_particles("water", pos=[[0.5, 0.5, 0.5]])
     sim.add_particles("rigid", mesh=plate_mesh(0.1, 0.1), scripted_position=lambda t: (0.5, 0.3, 0.5))
-    with pytest.warns(UserWarning), pytest.raises(NotImplementedError, match="dense CPIC"):
+    with pytest.warns(UserWarning):
+        sim.step()
+    assert sim.packed_carry is None and sim.last_substeps > 0
+    monkeypatch.setenv("TMT_FUSED", "0")
+    sim = _scene3d()
+    sim.add_particles("rigid", mesh=plate_mesh(0.1, 0.1), scripted_position=lambda t: (0.5, 0.3, 0.5))
+    with pytest.raises(NotImplementedError, match="queue 1, .the rest of CPIC."):
         sim.step()
 
 

@@ -23,6 +23,8 @@ def test_port_import_does_not_load_jax():
         "taichi_mpm_torch.rigid.cpic_packed, taichi_mpm_torch.rigid.articulation, "
         "taichi_mpm_torch.rigid.collision, taichi_mpm_torch.rigid.scene, "
         "taichi_mpm_torch.rigid.mesh, taichi_mpm_torch.math.quat, "
+        "taichi_mpm_torch.rigid.cpic, taichi_mpm_torch.rigid.cdf, taichi_mpm_torch.rigid.body, "
+        "taichi_mpm_torch.rigid.host, "
         "taichi_mpm_torch.core.adaptive, taichi_mpm_torch.diagnostics, "
         "taichi_mpm_torch.sampling, taichi_mpm_torch.sampling.poisson, "
         "taichi_mpm_torch.sampling.texture, taichi_mpm_torch.io, taichi_mpm_torch.io.bgeo, "
@@ -61,8 +63,8 @@ def test_mpm_without_device_needs_cuda():
 
 
 def test_unported_paths_raise(monkeypatch):
-    """2-D scenes and kernel order 3 run on the dense path; what stays
-    unported raises: 2-D rigid bodies, the per-block scheduler and the
+    """2-D scenes, kernel order 3 and 2-D rigid bodies run on the dense
+    path; what stays unported raises: the per-block scheduler and the
     multi-device driver."""
     from taichi_mpm_torch import MPM, runner
     from taichi_mpm_torch.core.adaptive import AsyncMPM
@@ -72,8 +74,12 @@ def test_unported_paths_raise(monkeypatch):
         sim.add_particles("jelly", pos=np.full((4, sim.cfg.dim), 0.5, np.float32))
         sim.step()
         assert sim.packed_carry is None and sim.particles.count() == 4
-    with pytest.raises(NotImplementedError, match="dense CPIC and 2-D rigid bodies"):
-        MPM(res=(16, 16), device="cpu").add_particles("rigid", mesh=np.zeros((1, 2, 2)))
+    sim = MPM(res=(16, 16), device="cpu")
+    sim.add_particles("jelly", pos=np.full((4, 2), 0.5, np.float32))
+    sim.add_particles("rigid", mesh=np.asarray([[[-0.2, 0.0], [0.2, 0.0]]], np.float32),
+                      scripted_position=lambda t: (0.5, 0.3))
+    sim.step()
+    assert sim.packed_carry is None and sim.bodies.rot.shape == (2, 1)
     with pytest.raises(NotImplementedError, match="per-block bucketed async"):
         AsyncMPM(res=(16, 16), per_block=True, device="cpu")
     monkeypatch.setenv("SHARDS", "2")

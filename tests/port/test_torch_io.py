@@ -18,11 +18,13 @@ CPIC scene (the rigid meshes as OBJ, the grid and particle CDF dumps, the
 verbose BGEO) equals JAX's on the same state."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from taichi_mpm_tpu.core import levelset as jls
@@ -110,12 +112,18 @@ def _port_scene(a, **kw):
     return _scene(TMPM, a, device="cpu", **kw)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_frame_fn(cfg):
+    """JAX's blocked fused frame (interpret mode) of `cfg`, jitted once:
+    both resumes below run it (op by op it costs each of them ~10 s)."""
+    return jax.jit(lambda p, t: jpacked.packed_frame(p, t, cfg, JCOL, BASE_DT, N_SUB, K,
+                                                     interpret=True, fused=True))
+
+
 def _jax_frame(jsim):
     """JAX's resume: its blocked fused frame (interpret mode) from the
     loaded scene's particles and time."""
-    jp, jt, _, _, _ = jpacked.packed_frame(jsim.particles, jnp.asarray(jsim.t, jnp.float32),
-                                           jsim.cfg, JCOL, BASE_DT, N_SUB, K,
-                                           interpret=True, fused=True)
+    jp, jt, _, _, _ = _jax_frame_fn(jsim.cfg)(jsim.particles, jnp.asarray(jsim.t, jnp.float32))
     return jp, np.float32(jt)
 
 

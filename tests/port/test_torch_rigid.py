@@ -256,6 +256,40 @@ def test_hub_wheel_rigidify_and_rotation():
         tcoll.rigid_levelset_collision(tb, tx, tscene.bp_rid, tfloor, 0.0, 2e-4))
 
 
+@pytest.mark.parametrize("n", [1, 7, 32, 33, 34, 100, 512, 600])
+def test_xla_sum_order(n):
+    """collision.xla_sum adds in XLA's CPU order: equal bits to a jitted
+    jnp.sum over the middle axis."""
+    import jax
+
+    a = (np.random.default_rng(n).standard_normal((2, n, 3)) + 0.4).astype(np.float32)
+    want = np.asarray(jax.jit(lambda x: jnp.sum(x, 1))(jnp.asarray(a)))
+    assert np.array_equal(tcoll.xla_sum(a, 1), want)
+
+
+def test_detect_witness_of_turned_hub_wheel():
+    """The CPIC benchmark's hub and wheel (a degenerate contact: its
+    effective inverse mass is 0) turned about their axis as after two
+    dense CPIC substeps: the witness point is JAX's to the bit (one ulp
+    off the axis), so rigidify's ~1e28 impulse gives JAX's angular
+    velocities."""
+    from port_helpers import jax_hub_wheel_scene
+
+    sim = jax_hub_wheel_scene()
+    q = np.array([[1, 0, 0, 0], [0.99999958, 0, 0, 9.3863427e-04],
+                  [1.0, 0, 0, -1.2365292e-04]], np.float32)
+    omega = np.array([[0, 0, 0], [0, 0, 2.9856822], [0, 0, -0.6311019]], np.float32)
+    jb = dataclasses.replace(sim.bodies, rot=jnp.asarray(q), omega=jnp.asarray(omega))
+    tb = convert.bodies_from_jax(jb)
+    sc, ts = sim.rigid_scene, convert.scene_from_jax(sim.rigid_scene)
+    dirs = tcoll.icosphere_directions()
+    jd = jcoll.detect(jb, sc.hull_verts, sc.collision.pairs, jnp.asarray(dirs))
+    td = tcoll.detect(tb, ts.hull_verts_host(), ts.collision.pairs, dirs)
+    assert np.array_equal(np.asarray(jd[3]), td[3]) and float(td[3][0, 1]) != 0.4
+    _assert_bodies_close(jcoll.rigidify(jb, sc.hull_verts, sc.collision, jnp.asarray(dirs), 2e-4),
+                         tcoll.rigidify(tb, ts.hull_verts_host(), ts.collision, dirs, 2e-4))
+
+
 def test_convert_round_trip():
     jb_, _ = _scene_parts()
     jbodies, jscene = jb_.build()
