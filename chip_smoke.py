@@ -1893,6 +1893,7 @@ def phase_script_dam(card, lattice):
     runner.simulate(timed, args, frame_update=snapshot_after_frame_1, print_energy=True)
     launches = read_counts()
     substeps = [st["substeps"] for st in timed.steps]
+    kept["substeps"] = substeps
     failures += route_failures(launches, True, sum(substeps))
     check_domain(sim, n, failures)
     if sim.update_counter != sum(substeps) * n:
@@ -2797,6 +2798,332 @@ def phase_dense_cpic_scale(card, fused_ms):
     return launches
 
 
+# -- per-block bucketed async and the pytree CPIC frame ---------------------------
+
+BUCKET_DRIFT = 3.0  # m/s along x added to the 125k cube: re-sorts inside the frame
+BUCKET_LEVEL = 0  # the single-level check's level: 64 advances of the cube's dt
+BUCKETED_TIMED_FRAMES = 2  # after one warm-up frame
+UNFUSED_CPIC_KERNELS = ("p2g_blocked", "g2p_blocked")
+UNFUSED_CPIC_TIMED_FRAMES = 3  # after one warm-up frame, from cpic_path's state
+# The JAX package's own pytree-vs-packed CPIC pair on cpic_check's 10k
+# wheel, 6 substeps, on the CPU (``PYTHONPATH=. python
+# tests/port/port_helpers.py jax-cpic-unfused-vs-fused``).
+JAX_CPIC_UNFUSED_PAIR = dict(x=2.9802322387695312e-08, v=4.76837158203125e-07, F=0.0,
+                             states_differ=0, body_omega=0.0, body_vel=0.0)
+
+
+def by_id_bits(a, b):
+    """The fields of two particle sets' active particles, matched by id
+    tag, whose bits differ (and the ids themselves, where they differ)."""
+    from taichi_mpm_torch import convert
+
+    def by_id(p):
+        arr = convert.particles_to_numpy(p)
+        act = arr["active"]
+        order = np.argsort(arr["params"][act, ID_ROW_PARAM], kind="stable")
+        return {k: v[act][order] for k, v in arr.items()}
+
+    pa, pb = by_id(a), by_id(b)
+    if pa["x"].shape != pb["x"].shape:
+        return ["active"]
+    return [name for name in pa if pa[name].tobytes() != pb[name].tobytes()]
+
+
+def first_parting(sa, sb):
+    """The first (tick, level) advance where two bucketed frames' schedules
+    part, or None."""
+    for x, y in zip(sa.schedule, sb.schedule):
+        if x != y:
+            return [x, y]
+    if len(sa.schedule) != len(sb.schedule):
+        return ["lengths", len(sa.schedule), len(sb.schedule)]
+    return None
+
+
+def phase_bucketed_check():
+    """Per-block bucketed async against its definitions, on the card.
+    Single level: the 125k jelly cube moving at BUCKET_DRIFT m/s, every
+    slot at level BUCKET_LEVEL (``lev_fn``), unit = the cube's dt / 2^L: the
+    bucketed frame equals the port's packed frame at dt in bits on both
+    routes (particles matched by id), with re-sorts inside the frame,
+    updates = active x steps, each advance launching its route's two
+    kernels once. Natural levels: scripts/async/balls.py's scene at its
+    own res 64, one per-block frame on the card and on the CPU, at the
+    frame bounds of phase 2, the level histogram at the first sort, the
+    update counter and the re-sorts equal (the first advance where the
+    schedules part is printed); a second card run equal in bits."""
+    import torch
+
+    from taichi_mpm_torch import scenes
+    from taichi_mpm_torch.ops import async_bucketed as ab
+    from taichi_mpm_torch.ops import packed
+
+    failures = []
+    sim = cube(25, "cuda", 6)
+    sim._ensure_finalized()
+    tag_ids(sim)
+    p = sim.particles
+    p.v[:, 0] += BUCKET_DRIFT
+    cfg, L = sim.cfg, BUCKET_LEVEL
+    unit = cfg.base_dt / (1 << L)
+    K = sim._active_block_cap()
+    n_steps = (1 << ab.MAXLEV) >> L
+    n_act = p.count()
+    single = {}
+    for fused in (True, False):
+        route = "fused" if fused else "unfused"
+        zero_counts()
+        pb, tb, n_up, stats = ab.bucketed_frame(
+            p, np.float32(0.0), cfg, (), unit * (1 << ab.MAXLEV), unit, K,
+            lev_fn=lambda pm: torch.full_like(pm["ids"], L), fused=fused)
+        failures += [f"single level, {route}: {f}"
+                     for f in route_failures(read_counts(), fused, n_steps)]
+        pr, tr, _, n_sorts, _ = packed.packed_frame(p, np.float32(0.0), cfg, (), cfg.base_dt,
+                                                    n_steps, K, fused=fused)
+        diff = by_id_bits(pb, pr)
+        if diff or tb != tr:
+            failures.append(f"single level, {route}: the bucketed frame differs from the packed "
+                            f"frame in {diff} (t {tb} vs {tr})")
+        if n_up != n_act * n_steps:
+            failures.append(f"single level, {route}: {n_up} updates, not {n_act} x {n_steps}")
+        if stats.n_resorts < 1:
+            failures.append(f"single level, {route}: no re-sort inside the frame")
+        single[route] = dict(advances=stats.advances, n_resorts=stats.n_resorts,
+                             packed_sorts=n_sorts, updates=n_up, differing_fields=diff)
+    del sim, p, pb, pr
+
+    def balls(device):
+        s = scenes.async_balls(res=64, device=device, per_block=True)
+        s._ensure_finalized()
+        tag_ids(s)
+        s.step()
+        return s
+
+    g, c, r = balls("cuda"), balls("cpu"), balls("cuda")
+    gs, cs = g.last_frame_stats, c.last_frame_stats
+    errs = id_errors(g, c, "balls, card vs CPU", failures)
+    parting = first_parting(gs, cs)
+    if parting or g.update_counter != c.update_counter or gs.n_resorts != cs.n_resorts:
+        failures.append(f"balls, card vs CPU: updates {g.update_counter} vs {c.update_counter}, "
+                        f"re-sorts {gs.n_resorts} vs {cs.n_resorts}, first parting {parting}")
+    if gs.level_hist[0] != cs.level_hist[0]:
+        failures.append(f"balls: level histograms {gs.level_hist[0]} vs {cs.level_hist[0]}")
+    rerun_diff = by_id_bits(g.particles, r.particles)
+    if rerun_diff or g.t != r.t:
+        failures.append(f"balls: a second card frame differs in {rerun_diff}")
+    emit(dict(phase="bucketed_check", cube_particles=n_act, level=L, unit=unit,
+              single_level=single, balls_particles=g.particles.count(),
+              balls_frame_vs_cpu=errs, balls_level_hist=gs.level_hist,
+              balls_advances=gs.advances, balls_updates=g.update_counter,
+              balls_resorts=gs.n_resorts, balls_rerun_equal=not rerun_diff,
+              failures=failures))
+    raise_failures(failures)
+
+
+def bucketed_frames(sim, n_frames):
+    """Warm-up frame, then n_frames timed frames (host clock, fenced):
+    (seconds, FrameStats of each timed frame, host syncs, updates)."""
+    import torch
+
+    from taichi_mpm_torch.utils import HostSyncs
+
+    sim.step()
+    sim.sync()
+    zero_counts()
+    HostSyncs.count = 0
+    n0 = sim.update_counter
+    stats = []
+    t0 = time.perf_counter()
+    for _ in range(n_frames):
+        sim.step()
+        stats.append(sim.last_frame_stats)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, stats, HostSyncs.count, sim.update_counter - n0
+
+
+def phase_bucketed_path(card, script_dam_substeps):
+    """AsyncMPM(per_block=True) at full size on the card: the 1,056,758
+    water particles of scripts/async/water.py (``scenes.water_script(res=
+    128, per_block=True)``) and scripts/async/balls.py at res 128, a
+    warm-up frame and BUCKETED_TIMED_FRAMES timed frames of the scripts'
+    frame_dt each: ms per frame and per advance, advances per level, the
+    update counter beside the same scene's global-adaptive updates
+    (the dam's from phase script_dam's substeps of this run, the balls'
+    from their own global frames here), host syncs per advance, the
+    memory peak. Gates: every particle active, finite and in the domain;
+    p2g_fused and g2p_fused launched once per advance with a context.
+    Returns the launches."""
+    import torch
+
+    from taichi_mpm_torch import scenes
+
+    failures = []
+    out = dict(phase="bucketed_path", card=card)
+    launches = {}
+    for name in ("dam", "balls"):
+        t0 = time.perf_counter()
+        if name == "dam":
+            sim = scenes.water_script(res=128, device="cuda", per_block=True)
+        else:
+            sim = scenes.async_balls(res=128, device="cuda", per_block=True)
+        sim._ensure_finalized()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        n = sim.particles.count()
+        torch.cuda.reset_peak_memory_stats()
+        secs, stats, syncs, updates = bucketed_frames(sim, BUCKETED_TIMED_FRAMES)
+        launches[name] = read_counts()
+        kernel_advances = sum(st.n_substeps - st.empty_advances for st in stats)
+        failures += [f"{name}: {f}"
+                     for f in route_failures(launches[name], True, kernel_advances)]
+        check_domain(sim, n, failures)
+        if name == "dam":
+            global_updates = [k * n for k in script_dam_substeps[1:1 + BUCKETED_TIMED_FRAMES]]
+        else:
+            ref = scenes.async_balls(res=128, device="cuda")
+            ref.step()
+            u0 = ref.update_counter
+            for _ in range(BUCKETED_TIMED_FRAMES):
+                ref.step()
+            global_updates = [(ref.update_counter - u0) // BUCKETED_TIMED_FRAMES] * \
+                BUCKETED_TIMED_FRAMES
+            del ref
+        n_adv = sum(st.n_substeps for st in stats)
+        out[name] = dict(
+            particles=n, frame_dt=sim.frame_dt, unit=sim.bucket_unit(), setup_s=setup_s,
+            ms_per_frame=secs * 1e3 / BUCKETED_TIMED_FRAMES,
+            ms_per_advance=secs * 1e3 / max(1, kernel_advances),
+            advances_per_level=[st.advances for st in stats],
+            empty_advances=sum(st.empty_advances for st in stats),
+            level_hist_first_sort=stats[0].level_hist[0], resorts=[st.n_resorts for st in stats],
+            update_counter=updates, global_adaptive_updates=sum(global_updates),
+            updates_ratio=updates / max(1, sum(global_updates)),
+            host_syncs_per_advance=syncs / max(1, n_adv),
+            sort_reads_per_advance=sum(st.sort_reads for st in stats) / max(1, n_adv),
+            max_mini_lanes=max(st.max_lanes for st in stats),
+            max_mini_slots=max(st.max_slots for st in stats),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches[name])
+        del sim
+    out.update(clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"), failures=failures)
+    emit(out)
+    raise_failures(failures)
+    return launches
+
+
+def phase_cpic_unfused_check():
+    """The pytree CPIC frame (TMT_FUSED=0) on cpic_check's 10k wheel: 6
+    substeps on the card against the CPU at the CPIC bounds of
+    ``cpic_check`` (states and near_b equal, the frame's counts equal, the
+    plastic events but for the water particles at the count's knife edge,
+    ``diagnostics.water_knife_edges``, summed over the CPU's substeps),
+    p2g_blocked and g2p_blocked once per substep and no other kernel, a
+    second card run equal in bits; then against the fused CPIC frame on
+    the card, particles matched by id, beside the JAX package's own pair
+    (JAX_CPIC_UNFUSED_PAIR)."""
+    def make(device, fused):
+        sim = on_route(fused, lambda: cpic_check_scene(device))
+        sim._ensure_finalized()
+        tag_ids(sim)
+        return sim
+
+    from taichi_mpm_torch import diagnostics
+
+    gs, cs, rerun, fused = make("cuda", False), make("cpu", False), make("cuda", False), \
+        make("cuda", True)
+    zero_counts()
+    gs.step()
+    failures = route_failures(read_counts(), False, 6, UNFUSED_CPIC_KERNELS)
+    for sim in (rerun, fused):
+        sim.step()
+    # the CPU's frame as 6 frames of one substep (the carry and its drift
+    # go on across frames, so it is the same frame): after each, the water
+    # particles at the knife edge of the plastic-event count
+    cs.frame_dt = cs.cfg.base_dt
+    edges = 0
+    stats = dict(n_act=0, n_near=0, n_coarse=0, n_r=0)
+    for _ in range(6):
+        cs.step()
+        edges += diagnostics.water_knife_edges(cs.particles, cs.cfg)
+        stats = {k: max(v, cs.cpic_stats[k]) for k, v in stats.items()}
+    errs = cpic_errors(gs, cs, "unfused CPIC card vs CPU", failures, plast_slack=edges)
+    if gs.cpic_stats != stats:
+        failures.append(f"unfused CPIC card vs CPU counts: {gs.cpic_stats} vs {stats}")
+    if gs.cpic_stats["n_near"] == 0:
+        failures.append("no particle was near the wheel: the coupling went untested")
+    deterministic = True
+    if not same_bits(gs, rerun, "the card's unfused CPIC frame on a rerun", failures):
+        deterministic = False
+    for name in ("pos", "vel", "rot", "omega"):
+        if not np.array_equal(getattr(gs.bodies, name).cpu().numpy(),
+                              getattr(rerun.bodies, name).cpu().numpy()):
+            deterministic = False
+            failures.append(f"the card's unfused CPIC frame is not deterministic: body {name}")
+    pair = id_errors(gs, fused, "unfused vs fused CPIC frame", failures, CPIC_BOUNDS)
+    for name, bnd in BODY_BOUNDS:
+        pair["body_" + name] = float(np.abs(getattr(gs.bodies, name).cpu().numpy().astype(
+            np.float64) - getattr(fused.bodies, name).cpu().numpy()).max())
+        if not pair["body_" + name] <= bnd:
+            failures.append(f"unfused vs fused CPIC frame: body {name} differs by "
+                            f"{pair['body_' + name]} > {bnd}")
+    emit(dict(phase="cpic_unfused_check", particles=gs.particles.count(), frame_vs_cpu=errs,
+              plast=[gs.plasticity_counter, cs.plasticity_counter], water_knife_edges=edges,
+              deterministic=deterministic, stats=gs.cpic_stats, fused_stats=fused.cpic_stats,
+              unfused_vs_fused=pair, jax_pair=JAX_CPIC_UNFUSED_PAIR, failures=failures))
+    raise_failures(failures)
+
+
+def phase_cpic_unfused_path(card, fused_sim, fused_ms):
+    """``scenes.cpic_wheel()`` (100k) on the pytree CPIC frame (TMT_FUSED=0)
+    from phase cpic_path's state (its snapshot loaded, the water on the
+    wheel): a warm-up frame and UNFUSED_CPIC_TIMED_FRAMES timed frames of
+    20 substeps, ms per substep beside cpic_path's fused figure, host
+    syncs, the near sets; p2g_blocked and g2p_blocked once per substep and
+    no other kernel; every particle active, finite and in the domain.
+    Returns the launches."""
+    import tempfile
+
+    import torch
+
+    from taichi_mpm_torch import scenes
+    from taichi_mpm_torch.utils import HostSyncs
+
+    failures = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cpic_unfused_") as d:
+        path = os.path.join(d, "wheel.npz")
+        fused_sim.save(path)
+        sim = on_route(False, lambda: scenes.cpic_wheel(device="cuda"))
+        sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
+        sim.load(path)
+    sim.step()
+    sim.sync()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    HostSyncs.count = 0
+    peak = dict(n_near=0, n_coarse=0, n_r=0)
+    t0 = time.perf_counter()
+    for _ in range(UNFUSED_CPIC_TIMED_FRAMES):
+        sim.step()
+        peak = {k: max(v, sim.cpic_stats[k]) for k, v in peak.items()}
+    sim.sync()
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    n_sub = UNFUSED_CPIC_TIMED_FRAMES * SUBSTEPS_PER_FRAME
+    failures += route_failures(launches, False, n_sub, UNFUSED_CPIC_KERNELS)
+    x = check_domain(sim, 100_000, failures)
+    if sim.packed_carry is None or sim.fused:
+        failures.append("the wheel did not run the pytree CPIC frame")
+    emit(dict(phase="cpic_unfused_path", card=card, particles=int(x.shape[0]),
+              substeps=n_sub, ms_per_substep=secs * 1e3 / n_sub, fused_ms_per_substep=fused_ms,
+              particle_steps_per_s=x.shape[0] * n_sub / secs,
+              host_syncs_per_substep=HostSyncs.count / n_sub, max_n_near=peak["n_near"],
+              max_n_coarse=peak["n_coarse"], max_n_r=peak["n_r"], n_sorts=sim.n_sorts,
+              wheel_omega_z=float(sim.bodies.omega[2, 2]),
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+              clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"), failures=failures))
+    raise_failures(failures)
+    return launches
+
+
 def main():
     import torch
 
@@ -2844,14 +3171,25 @@ def main():
     launches["dam_unfused"], _, _ = phase_dam(card, fused=False)
     launches["script_dam"], kept = phase_script_dam(card, lattice)
     phase_script_resume(kept)
+    t_new = time.perf_counter()
+    phase_bucketed_check()
+    for name, counts in phase_bucketed_path(card, kept["substeps"]).items():
+        launches[f"bucketed_{name}"] = counts
+    new_phases_s = time.perf_counter() - t_new
     phase_energy_check()
     phase_emission_check()
     phase_cpic_check()
     phase_cpic_check("sand")
+    t_new = time.perf_counter()
+    phase_cpic_unfused_check()
+    new_phases_s += time.perf_counter() - t_new
     phase_sand_column_check()
     sim, launches["cpic_wheel"], fixed_syncs, cpic_ms = phase_cpic_path(card)
     phase_cpic_breakdown(sim, card)
     phase_profile(sim, card, phase="cpic_profile")
+    t_new = time.perf_counter()
+    launches["cpic_wheel_unfused"] = phase_cpic_unfused_path(card, sim, cpic_ms)
+    new_phases_s += time.perf_counter() - t_new
     del sim
     launches["cpic_wheel_adaptive"] = phase_cpic_adaptive(card, fixed_syncs)
     launches["dense_check"] = phase_dense_check()
@@ -2865,6 +3203,7 @@ def main():
     launches["wheel_2d"] = phase_wheel_2d_path(card)
     launches["dense_cpic_wheel_100k"] = phase_dense_cpic_scale(card, cpic_ms)
     emit(dict(phase="timing", dense_cpic_phases_s=time.perf_counter() - t_dense_cpic,
+              bucketed_and_unfused_cpic_phases_s=new_phases_s,
               script_s=time.perf_counter() - t_start))
     emit({"kernels": kernels_line(measured, launches, dam_ms, by_material)})
     print(card, flush=True)

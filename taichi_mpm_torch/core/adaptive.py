@@ -19,8 +19,13 @@ coupled substeps of ``rigid.cpic`` at that dt; so does a CPIC scene of
 the blocked path with ``TMT_FUSED=0``, as in the JAX package (the packed
 adaptive CPIC frame runs on the fused route only).
 
-``AsyncMPM(per_block=True)``, the per-block bucketed scheduler, is not
-ported (ROADMAP.md queue 1, "per-block bucketed async").
+``AsyncMPM(per_block=True)`` runs the per-block bucketed scheduler
+instead (``ops.async_bucketed``): a power-of-two dt level per grid block,
+the largest level advanced first at each tick, slower neighbours read
+from their backups. As in the JAX package it takes every 3-D scene of
+particles to the packed path (whatever ``optimized``), on the route
+``TMT_FUSED`` selects, and refuses 2-D scenes and rigid bodies. The unit
+is snapped so that frame_dt = m * unit * 2^MAXLEV.
 """
 
 from __future__ import annotations
@@ -34,15 +39,12 @@ from taichi_mpm_torch.config import SimConfig
 from taichi_mpm_torch.core.solver import MPM, substep
 from taichi_mpm_torch.core.state import Particles
 from taichi_mpm_torch.materials import models as materials
-from taichi_mpm_torch.ops import packed
-from taichi_mpm_torch.ops.rows import RACT
+from taichi_mpm_torch.ops import async_bucketed, packed
+from taichi_mpm_torch.ops.async_bucketed import LN_2, LOG2_E, MAXLEV
+from taichi_mpm_torch.ops.rows import RACT, RX
 from taichi_mpm_torch.rigid import cpic, cpic_packed
 from taichi_mpm_torch.utils import host_read
 
-# The constants XLA compiles jnp.log2 and jnp.exp2 with: log2(x) is
-# log(x) * 1.44269502 and exp2(k) is exp(k * 0.693147182), in float32.
-_LOG2_E = np.float32(1.44269502)
-_LN_2 = np.float32(0.693147182)
 
 
 def dt_limit(p: Particles, cfg: SimConfig, strength_dt_mul: float = 1.0,
@@ -80,9 +82,9 @@ def snap_pot(dt, unit_dt: float, max_dt: float):
     not exact at powers of two (floor(log2(2^13)) is 12 there), so this
     repeats those steps, and gives JAX's bits for every dt."""
     unit = np.float32(unit_dt)
-    ratio = np.maximum(np.float32(dt) * np.float32(1.0 / np.float64(unit)), np.float32(1.0))
-    k = np.floor(_log_f32(ratio) * _LOG2_E)
-    snapped = unit * _exp_f32(k * _LN_2)
+    ratio = np.maximum(np.float32(dt) * async_bucketed.reciprocal_f32(unit_dt), np.float32(1.0))
+    k = np.floor(_log_f32(ratio) * LOG2_E)
+    snapped = unit * _exp_f32(k * LN_2)
     return np.minimum(np.maximum(snapped, unit), np.float32(max_dt))
 
 
@@ -134,38 +136,55 @@ def adaptive_cpic_frame_fn(p: Particles, bodies, t, cfg: SimConfig, scene, frame
 
 
 class AsyncMPM(MPM):
-    """Solver with global adaptive dt (the reference's ``async_mpm``
-    simulation type on the JAX package's global path). base_delta_t is
-    the largest dt, unit_delta_t the power-of-two unit. Plain scenes run
-    on either route (``TMT_FUSED``); CPIC scenes on the fused route, or,
+    """Solver with adaptive dt (the reference's ``async_mpm`` simulation
+    type). base_delta_t is the largest dt, unit_delta_t the power-of-two
+    unit. At global adaptive dt (per_block=False) plain scenes run on
+    either route (``TMT_FUSED``); CPIC scenes on the fused route, or,
     with TMT_FUSED=0 and on the dense path, ``adaptive_cpic_frame_fn``.
+    per_block=True runs the per-block bucketed scheduler
+    (``ops.async_bucketed``) on 3-D scenes without rigid bodies.
 
-    ``update_counter`` sums substeps x active particles over the frames
-    (the reference's work counter); ``last_substeps`` is the newest
-    frame's substep count and ``last_dt_range`` its smallest and largest
-    dt. The dense path runs ``adaptive_frame_fn``, with rigid bodies
+    ``update_counter`` sums the particle updates over the frames (the
+    reference's work counter: substeps x active particles at global dt,
+    committed bucket advances per block); ``last_substeps`` is the newest
+    frame's substep count (per block: its bucket advances) and
+    ``last_dt_range`` its smallest and largest dt; ``last_frame_stats``
+    the newest bucketed frame's ``async_bucketed.FrameStats``. The dense
+    path runs ``adaptive_frame_fn``, with rigid bodies
     ``adaptive_cpic_frame_fn``."""
 
     def __init__(self, *args, unit_delta_t: float = 1e-6, strength_dt_mul: float = 1.0,
                  cfl_dt_mul: float = 1.0, per_block: bool = False, **kw):
-        if per_block:
-            raise NotImplementedError(
-                "AsyncMPM(per_block=True), the per-block bucketed scheduler "
-                "(ops/async_bucketed.py), is not ported yet "
-                "(ROADMAP.md queue 1, 'per-block bucketed async'); "
-                "use per_block=False for global adaptive dt")
         super().__init__(*args, **kw)
         self.unit_delta_t = unit_delta_t
         self.strength_dt_mul = strength_dt_mul
         self.cfl_dt_mul = cfl_dt_mul
+        self.per_block = per_block
         self.update_counter = 0
         self.last_substeps = 0
         self.last_dt_range = None
+        self.last_frame_stats = None
 
     def _use_blocked(self) -> bool:
         """MPM's gate, but a CPIC scene takes the blocked path on the fused
-        route only: with TMT_FUSED=0 it runs the dense CPIC frame."""
+        route only: with TMT_FUSED=0 it runs the dense CPIC frame. The
+        per-block scheduler takes the packed path, on the JAX package's
+        conditions: 3-D scenes without rigid bodies."""
+        if self.per_block:
+            if self.bodies is not None:
+                raise ValueError("per-block bucketed dt + CPIC not supported; use "
+                                 "AsyncMPM(per_block=False) for global adaptive dt")
+            if self.cfg.dim != 3:
+                raise ValueError("per-block buckets are 3D-only")
+            return True
         return super()._use_blocked() and (self.bodies is None or self.fused)
+
+    def bucket_unit(self, frame_dt: Optional[float] = None) -> float:
+        """The per-block scheduler's unit: unit_delta_t snapped so that
+        frame_dt = m * unit * 2^MAXLEV (m >= 1)."""
+        fdt = frame_dt or self.frame_dt
+        m = max(1, round(fdt / (self.unit_delta_t * (1 << MAXLEV))))
+        return fdt / (m * (1 << MAXLEV))
 
     def step(self, frame_dt: Optional[float] = None):
         """Advance one frame of frame_dt (default self.frame_dt) at
@@ -174,6 +193,8 @@ class AsyncMPM(MPM):
         fresh = self._pcarry is None
         self._prepare_frame()
         fdt = frame_dt or self.frame_dt
+        if self.per_block:
+            return self._step_bucketed(fdt)
         args = (fdt, self.unit_delta_t, self.cfg.base_dt, self.strength_dt_mul,
                 self.cfl_dt_mul)
         dts = []
@@ -211,6 +232,61 @@ class AsyncMPM(MPM):
         self._end_frame(carry, t, nsorts, plast)
         self._record(n, dts, int((carry[0][RACT] > 0.5).sum()))
         return self.particles
+
+    def _step_bucketed(self, fdt):
+        """One per-block bucketed frame over the packed carry
+        (``async_bucketed.bucketed_frame_carry``, which sorts first, as
+        the JAX package's frame packs and sorts its particles)."""
+        unit = self.bucket_unit(fdt)
+        carry, t, n_up, stats = async_bucketed.bucketed_frame_carry(
+            self._pcarry[0], self.t, self.cfg, tuple(self.colliders), fdt, unit,
+            self.block_capacity, self.strength_dt_mul, self.cfl_dt_mul, fused=self.fused)
+        self._end_frame(carry, t, stats.sorts, 0)
+        self.update_counter += n_up
+        self.last_substeps = stats.n_substeps
+        used = [L for L, n in enumerate(stats.advances) if n]
+        self.last_dt_range = ((unit * (1 << used[0]), unit * (1 << used[-1])) if used
+                              else None)
+        self.last_frame_stats = stats
+        return self.particles
+
+    def visualize_scheduler(self, path: str, writer: str = "native"):
+        """The scheduler's state per active particle as BGEO (the
+        reference's async debug output): the material strength dt limit,
+        the advection CFL limit and the combined limit; per block, the
+        particle's block dt level and dt (``dt_level``, ``dt_block``) of
+        the current particles sorted afresh, in sorted order."""
+        from taichi_mpm_torch.io.bgeo import write_bgeo
+
+        self._ensure_finalized()
+        p, cfg = self.particles, self.cfg
+        if self.per_block:
+            unit = self.bucket_unit()
+            st, keys = packed.sort_packed(packed.pack_particles(p), cfg)
+            pm = packed.build_page_map_packed(keys, cfg, self._active_block_cap())
+            lev = async_bucketed.slot_levels(st, pm, cfg, unit, self.strength_dt_mul,
+                                             self.cfl_dt_mul)
+            K = lev.shape[0]
+            sk = pm["slot_keys"]
+            lane_lev = torch.where(sk < K, lev[torch.clamp(sk, max=K - 1).long()], -1)
+            act = (st[RACT] > 0.5).cpu().numpy()
+            lane_lev = lane_lev.cpu().numpy()[act]
+            write_bgeo(path, st[RX:RX + 3].t().cpu().numpy()[act],
+                       {"dt_level": lane_lev.astype(np.float32),
+                        "dt_block": (unit * np.exp2(lane_lev)).astype(np.float32)},
+                       writer=writer)
+            return
+        speed = torch.sqrt(materials.sum_last(p.v * p.v))
+        a_dt = materials.dispatch_allowed_dt(cfg.active_materials, p.mat, p.F, p.aux, p.params,
+                                             p.vol, p.mass, speed, cfg.dx)
+        cfl = torch.full_like(speed, self.cfl_dt_mul * cfg.dx) / torch.clamp(speed, min=1e-30)
+        strength = a_dt * self.strength_dt_mul
+        limit = torch.minimum(strength, cfl)
+        act = p.active
+        write_bgeo(path, p.x[act].cpu().numpy(),
+                   {"limit_strength": strength[act].cpu().numpy(),
+                    "limit_cfl": cfl[act].cpu().numpy(), "limit": limit[act].cpu().numpy()},
+                   writer=writer)
 
     def _record(self, n: int, dts, n_active: int):
         self.last_substeps = n

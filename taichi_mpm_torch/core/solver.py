@@ -31,10 +31,13 @@ and the finish in torch. A kernel that fails to build or launch raises;
 nothing falls back to the other route. With rigid bodies it runs
 ``rigid.cpic_packed.cpic_packed_frame_carry``: two-way coupled CPIC
 substeps (the fused P2G kernel and the gather-only G2P kernel, with the
-sparse corrections between); the unfused CPIC route (``TMT_FUSED=0``)
-raises at fixed dt. The packed
-carry (sorted state, page map, drift) persists across frames;
-``particles`` is unpacked from it only when read.
+sparse corrections between); with ``TMT_FUSED=0`` the pytree CPIC frame
+``rigid.cpic_blocked.cpic_frame_carry`` (``p2g_blocked`` on the operand
+of ``ops.substep.prep_p2g``, the same gather kernel and corrections, the
+dense finish), as in the JAX package. The carry (sorted state, page map,
+drift) persists across frames: the packed state, whose ``particles`` is
+unpacked only when read, or, on the pytree CPIC frame, the sorted
+Particles set itself.
 
 Read-out and I/O: ``positions``, ``velocities``, ``energy``
 (``mechanical_energy``), ``visualize`` (a BGEO file per frame, with the
@@ -58,7 +61,7 @@ from taichi_mpm_torch.core import transfer
 from taichi_mpm_torch.core.state import FIELDS, Particles, empty_particles
 from taichi_mpm_torch.materials import models as materials
 from taichi_mpm_torch.ops import blocked, packed
-from taichi_mpm_torch.rigid import cpic, cpic_packed
+from taichi_mpm_torch.rigid import cpic, cpic_blocked, cpic_packed
 from taichi_mpm_torch.utils import const
 
 
@@ -182,9 +185,12 @@ class MPM:
     @property
     def particles(self) -> Optional[Particles]:
         """The Particles SoA. After a frame it is unpacked from the
-        persistent packed carry on first read (in sorted lane order)."""
+        persistent packed carry on first read (in sorted lane order); the
+        pytree CPIC frame's carry holds it as it is."""
         if self._particles is None and self._pcarry is not None:
-            self._particles = packed.unpack_particles(self._pcarry[0], self._cap_p)
+            head = self._pcarry[0]
+            self._particles = (head if isinstance(head, Particles)
+                               else packed.unpack_particles(head, self._cap_p))
         return self._particles
 
     @property
@@ -523,22 +529,18 @@ class MPM:
             return False
         return bool(use_blocked and cfg.dim == 3)
 
-    def _check_route(self):
-        if self.bodies is not None and self._blocked and not self.fused:
-            raise NotImplementedError(
-                "CPIC with TMT_FUSED=0 runs the pytree CPIC frame "
-                "(rigid/cpic_blocked.cpic_frame_carry), not ported yet "
-                "(ROADMAP.md queue 1, 'the rest of CPIC'); unset TMT_FUSED")
+    def _pytree_cpic(self) -> bool:
+        """Whether the frames run the pytree CPIC frame (rigid bodies on the
+        blocked path with TMT_FUSED=0), whose carry holds a Particles set."""
+        return self.bodies is not None and bool(self._blocked) and not self.fused
 
     def _prepare_frame(self):
-        """Finalize the scene, choose its path at the first frame, check
-        its route and, on the blocked path, pack the carry when there is
-        none."""
+        """Finalize the scene, choose its path at the first frame and, on
+        the blocked path, pack the carry when there is none."""
         if (self._particles is None and self._pcarry is None) or self._pending:
             self._finalize()
         if self._blocked is None:
             self._blocked = self._use_blocked()
-        self._check_route()
         if not self._blocked:
             if self._xg is None and self.colliders:
                 self._xg = transfer.node_positions(self.cfg, self.device)
@@ -548,7 +550,8 @@ class MPM:
             self._cap_p = p.capacity
             if self.bodies is not None and self.cpic_caps is None:
                 self.cpic_caps = cpic_packed.Capacities(self._rigid_map_cap())
-            self._pcarry = packed.pack_carry(p, self.cfg, self._active_block_cap())
+            pack = cpic_blocked.cpic_pack_carry if self._pytree_cpic() else packed.pack_carry
+            self._pcarry = pack(p, self.cfg, self._active_block_cap())
             self.n_sorts += 1
 
     def _end_frame(self, carry, t, nsorts, plast):
@@ -585,10 +588,11 @@ class MPM:
                                             self._xg))
             return
         if self.bodies is not None:
-            carry, self.bodies, t, nmax, nnear, ncoarse, nr, nsorts, plast = (
-                cpic_packed.cpic_packed_frame_carry(
-                    self._pcarry, self.bodies, self.t, self.cfg, self.rigid_scene,
-                    self.cfg.base_dt, n_sub, self.cpic_caps))
+            frame = (cpic_blocked.cpic_frame_carry if self._pytree_cpic()
+                     else cpic_packed.cpic_packed_frame_carry)
+            carry, self.bodies, t, nmax, nnear, ncoarse, nr, nsorts, plast = frame(
+                self._pcarry, self.bodies, self.t, self.cfg, self.rigid_scene, self.cfg.base_dt,
+                n_sub, self.cpic_caps)
             self.cpic_stats = dict(n_act=nmax, n_near=nnear, n_coarse=ncoarse, n_r=nr)
         else:
             carry, t, _, nsorts, plast = packed.packed_frame_carry(

@@ -51,6 +51,12 @@ class Particles:
     def count(self) -> int:
         return int(self.active.sum())
 
+    def take(self, idx) -> "Particles":
+        """The particles at lanes `idx` (an index tensor or a slice), as a
+        new set."""
+        return Particles(**{f.name: getattr(self, f.name)[idx]
+                            for f in dataclasses.fields(self)})
+
 
 FIELDS = tuple(f.name for f in dataclasses.fields(Particles))
 

@@ -222,6 +222,21 @@ def sand_knife_edges(keys, st, win, dt, cfg: SimConfig, tol: float = SAND_EDGE_T
     return int((sand & near).sum())
 
 
+WATER_EDGE_TOL = 1e-6
+
+
+def water_knife_edges(p, cfg: SimConfig, tol: float = WATER_EDGE_TOL) -> int:
+    """The active water particles whose J (aux) lies within `tol` of 1:
+    water's return map counts a plastic event where J > 1, and J is
+    aux * (trace(cdg) - 2) of a gathered B exact to ~1e-7, so two
+    roundings of one substep (a kernel and its twin, the card and the
+    CPU) may count such a particle or not; ``tol`` is 10 times that."""
+    if cforms.WATER not in cfg.active_materials:
+        return 0
+    water = p.active & (p.mat == cforms.WATER)
+    return int((water & ((p.aux - 1.0).abs() <= tol)).sum())
+
+
 @contextlib.contextmanager
 def sand_edges_per_substep():
     """Within the block, each fused G2P step first appends its

@@ -1,7 +1,8 @@
 """Blocked particle/grid layout: page map, neighbour table, halo merge and
 window assembly (torch counterpart of ``taichi_mpm_tpu.ops.blocked``).
 
-Particles are sorted by 4^3-cell grid block. Each occupied block, dilated
+Particles are sorted by 4^3-cell grid block (``sort_particles`` for a
+Particles set, ``ops.packed.sort_packed`` for the packed state). Each occupied block, dilated
 by its 27-neighbourhood, owns one active slot of a page map of capacity K
 (slot K is the sentinel: "no block"). Per slot:
 
@@ -53,6 +54,33 @@ def num_blocks_padded(cfg: SimConfig):
 def total_blocks_padded(cfg: SimConfig) -> int:
     nbx, nby, nbz = num_blocks_padded(cfg)
     return nbx * nby * nbz
+
+
+def block_id_of(x, cfg: SimConfig):
+    """Padded block id (int32) of world positions x (..., 3); the caller
+    handles inactive particles."""
+    nbp = num_blocks_padded(cfg)
+    pos = x * cfg.inv_dx
+    bid = torch.zeros(x.shape[:-1], dtype=torch.int32, device=x.device)
+    for k, n in enumerate(nbp):
+        cell = torch.clamp(torch.floor(pos[..., k]).to(torch.int32), 0, cfg.res[k] - 1)
+        bid = bid * n + cell // BLOCK
+    return bid
+
+
+def sort_particles(p, cfg: SimConfig):
+    """Sort a Particles set by block id, inactive particles (key = total)
+    last, stably. Returns (sorted particles, sorted keys, permutation):
+    the same order as the packed state's sort (``ops.packed.sort_packed``)."""
+    keys = torch.where(p.active, block_id_of(p.x, cfg), total_blocks_padded(cfg))
+    return sort_particles_by_keys(p, keys)
+
+
+def sort_particles_by_keys(p, keys):
+    """Sort a Particles set by precomputed keys, stably. Returns (sorted
+    particles, sorted keys, permutation)."""
+    keys_sorted, order = torch.sort(keys, stable=True)
+    return p.take(order), keys_sorted, order
 
 
 def _decode_ids(ids, cfg: SimConfig):
@@ -134,6 +162,26 @@ def neighbor_slots(ids, slot_map, cfg: SimConfig):
                 nid = torch.where(inb, (X * nby + Y) * nbz + Z, nbt)
                 rows.append(slot_map[nid.long()])
     return torch.stack(rows, 0)
+
+
+def nbr_at(nbr, ox: int, oy: int, oz: int):
+    """Neighbour slot row of offset index (ox, oy, oz), each in 0..2 for
+    block offsets -1, 0, +1."""
+    return nbr[(ox * 3 + oy) * 3 + oz]
+
+
+def range_lanes(s_arr, e_arr, n=None):
+    """(slot, lane) of every lane inside the slot ranges [s_arr, e_arr),
+    slot by slot in slot order; `n`, where given, is their total count
+    (else it is read on the host)."""
+    counts = (e_arr - s_arr).clamp(min=0).long()
+    K = s_arr.shape[0]
+    slot = torch.repeat_interleave(torch.arange(K, device=s_arr.device), counts,
+                                   output_size=n)
+    n = slot.shape[0]
+    first = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n, device=s_arr.device) - first[slot]
+    return slot, s_arr.long()[slot] + rank
 
 
 # -- static assembly tables --------------------------------------------------

@@ -40,7 +40,7 @@ from taichi_mpm_torch.config import SimConfig
 from taichi_mpm_torch.materials import cforms
 from taichi_mpm_torch.materials.models import MATERIAL_IDS
 from taichi_mpm_torch.math.kernels import inv_D, quadratic_weight
-from taichi_mpm_torch.ops import cuda_build
+from taichi_mpm_torch.ops import blocked, cuda_build
 from taichi_mpm_torch.ops.blocked import TILE, TILE_NODES
 from taichi_mpm_torch.ops.rows import (
     NCH, RACT, RAUX, RC, RF, RMASS, RMAT, RORG, RPAR, RV, RVOL, RX,
@@ -92,12 +92,7 @@ def prep_packed(st, cfg: SimConfig, dt):
 
 def _slot_lanes(s_arr, e_arr):
     """(slot, lane) of every particle inside a slot's range [s, e)."""
-    counts = (e_arr - s_arr).clamp(min=0).long()
-    K = s_arr.shape[0]
-    slot = torch.repeat_interleave(torch.arange(K, device=s_arr.device), counts)
-    first = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(slot.shape[0], device=s_arr.device) - first[slot]
-    return slot, s_arr.long()[slot] + rank
+    return blocked.range_lanes(s_arr, e_arr)
 
 
 def _scatter_plain(slot, pd, K: int):

@@ -126,7 +126,7 @@ def sort_packed(st, cfg: SimConfig):
     return st[:, order], keys_sorted
 
 
-def _origin_rows(keys, cfg: SimConfig):
+def origin_rows(keys, cfg: SimConfig):
     """Padded block id -> block origin (grid units) per lane, (3, Pw)."""
     nbx, nby, nbz = blocked.num_blocks_padded(cfg)
     safe = torch.clamp(keys, max=nbx * nby * nbz - 1)
@@ -138,7 +138,7 @@ def _origin_rows(keys, cfg: SimConfig):
 
 def annotate_origins(st, keys, cfg: SimConfig):
     """Write rows 43-45 = each lane's sort-time block origin, in place."""
-    st[RORG : RORG + 3] = _origin_rows(keys, cfg)
+    st[RORG : RORG + 3] = origin_rows(keys, cfg)
     return st
 
 

@@ -1,13 +1,55 @@
-"""Grid update on node records (torch counterpart of
-``taichi_mpm_tpu.ops.substep.grid_update_flat``)."""
+"""The blocked substep's pieces on a Particles set, and the grid update
+on node records (torch counterpart of the parts of
+``taichi_mpm_tpu.ops.substep`` that the pytree CPIC frame runs):
+``build_page_map_full`` (the page map with each particle's block
+origin), ``prep_p2g`` (the P2G operand of ``ops/p2g.p2g_blocked``) and
+``grid_update_flat``."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from taichi_mpm_torch.config import SimConfig
 from taichi_mpm_torch.core.levelset import DirichletRegion
+from taichi_mpm_torch.materials import models as materials
+from taichi_mpm_torch.math.kernels import inv_D
 from taichi_mpm_torch.ops import blocked
+from taichi_mpm_torch.utils import const
+
+
+def build_page_map_full(keys, cfg: SimConfig, K: int):
+    """The page map of sorted keys (``ops.packed.build_page_map_packed``)
+    with each lane's block origin in grid units, ``origin`` (P, 3)."""
+    from taichi_mpm_torch.ops import packed
+
+    pm = packed.build_page_map_packed(keys, cfg, K)
+    pm["origin"] = packed.origin_rows(keys, cfg).t()
+    return pm
+
+
+def prep_p2g(p, keys, cfg: SimConfig, dt, origin=None):
+    """The P2G operand (16, P) of a sorted Particles set: m v (3), m, the
+    affine A (9, row-major) and the block-local position (3), with the
+    matrix-form material force (the JAX package's ``prep_p2g``, whose
+    folded dt factors this keeps: invD * inv_dx * dt in float64, gravity
+    times float32 dt). Inactive particles get m = A = 0."""
+    if origin is None:
+        from taichi_mpm_torch.ops import packed
+
+        origin = packed.origin_rows(keys, cfg).t()
+    invD = inv_D(cfg.kernel_order)
+    pos_local = p.x * cfg.inv_dx - origin
+    vel = p.v
+    if cfg.particle_gravity:
+        vel = vel + const(cfg.gravity, device=p.device) * float(np.float32(dt))
+    force = materials.dispatch_force(cfg.active_materials, p.mat, p.F, p.aux, p.params, p.vol)
+    act = p.active
+    affine = invD * p.mass[:, None, None] * p.C - (invD * cfg.inv_dx * dt) * force
+    affine = torch.where(act[:, None, None], affine, 0.0)
+    mass = torch.where(act, p.mass, 0.0)
+    mv = mass[:, None] * vel
+    return torch.cat([mv.t(), mass[None], affine.reshape(-1, 9).t(), pos_local.t()])
 
 
 def grid_update_flat(rec, ids, cfg: SimConfig, colliders, t, dt):

@@ -210,9 +210,11 @@ def advance(
         rot = quat_integrate(b.rot, omega, float(dt32))
 
     # the scripts' values at t and t + dt (a 2-D rotation script gives one
-    # angle), uploaded together
-    t0 = float(np.float32(t))
-    t1 = float(np.float32(t) + dt32)
+    # angle), uploaded together. The scripts get float32 scalars, as the
+    # JAX package's get traced float32 values: a script's arithmetic with
+    # Python numbers (0.4 + t) then rounds in float32 there and here.
+    t0 = np.float32(t)
+    t1 = np.float32(t0 + dt32)
     scripted = [(i, f) for i, f in enumerate(pos_funcs) if f is not None]
     scripted += [(len(pos_funcs) + i, g) for i, g in enumerate(rot_funcs) if g is not None]
     if scripted:

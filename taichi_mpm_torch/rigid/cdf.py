@@ -226,14 +226,8 @@ def rigid_page_map(xb, cfg: SimConfig, Kr: int, dilate: int = 1):
 
 
 def block_id_of(x, cfg: SimConfig):
-    """Padded block id of world positions x (..., 3)."""
-    nbp = blocked.num_blocks_padded(cfg)
-    pos = x * cfg.inv_dx
-    bid = torch.zeros(x.shape[:-1], dtype=torch.int64, device=x.device)
-    for k, n in enumerate(nbp):
-        cell = torch.clamp(torch.floor(pos[..., k]).to(torch.int64), 0, cfg.res[k] - 1)
-        bid = bid * n + cell // blocked.BLOCK
-    return bid
+    """Padded block id of world positions x (..., 3), int64."""
+    return blocked.block_id_of(x, cfg).long()
 
 
 def rigid_page_map_checked(xb, cfg: SimConfig, Kr: int, dilate: int = 2,

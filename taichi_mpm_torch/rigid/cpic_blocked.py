@@ -1,5 +1,5 @@
-"""CPIC compute-then-correct helpers (torch counterpart of the helpers of
-``taichi_mpm_tpu.rigid.cpic_blocked`` that the packed CPIC frame uses).
+"""CPIC on the blocked path, compute-then-correct (torch counterpart of
+``taichi_mpm_tpu.rigid.cpic_blocked``).
 
 All particles run the plain blocked P2G/G2P; the particles near rigid
 surfaces, compacted into a small set, then get a sparse correction:
@@ -9,36 +9,61 @@ surfaces, compacted into a small set, then get a sparse correction:
 * ``g2p_correction`` replaces what they gathered from incompatible nodes
   by the CPIC ghost velocity;
 
-with the same weights and fused-force values as the plain path, so the
+with the same weights and force values as the plain path, so the
 combination is the reference's coloured transfers. ``rigid_prologue`` is
 the per-substep rigid prologue {rigidify, articulate, rasterize CDF}.
+The near set is given to the corrections as ``mini``: the (48, B) packed
+rows of its lanes (row map in ``ops/rows.py``) and ``nd``, its shared
+stencil data (``cdf.stencil_node_data``, 27 offsets stacked on a leading
+axis). The packed CPIC frame (``rigid.cpic_packed``, the fused route)
+and the pytree frame here share them.
 
-The near set is given as ``mini``: the (48, B) packed rows of its lanes
-(row map in ``ops/rows.py``) and ``nd``, its shared stencil data
-(``cdf.stencil_node_data``, 27 offsets stacked on a leading axis). The
-pytree frame of the JAX module (its ``TMT_FUSED=0`` route) is not ported
-(ROADMAP.md queue 1, "the rest of CPIC").
+The pytree frame (``cpic_frame_carry``) is the JAX package's CPIC route
+with ``TMT_FUSED=0``. Its carry is (Particles, keys, page map, drift), a
+Particles set, as in the JAX package (whose MPM unpacks nothing there).
+A substep: the rigid prologue with the rigid page map rebuilt (dilate 1),
+the near set (``compact_near_rigid_ranges``, the exact stencil test),
+the CDF gather on it, the operand prep (``ops.substep.prep_p2g``, the
+matrix-form force) and the P2G kernel ``p2g_blocked``, the merge, the P2G
+correction and its impulses, the level-set collision of the bodies, the
+grid update and the windows, the gather kernel ``g2p_blocked``, the G2P
+correction, ``core.transfer.g2p_finish`` (C zeroed near the boundary),
+the boundary penalty and its impulses, the particle collision, the
+boundary clean-up and the body advance. The near set is sized to its
+counts (the JAX package sizes it by budgets b1 and near and re-runs a
+frame that overflows them): n_near and n_coarse are read on the host, as
+is the rigid page map's occupancy n_r, and Kr grows where the map is
+built. Host reads per substep: those three, the bodies for the host's
+rigid solves where the scene has collisions or articulations, and max|v|
+for the drift.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from taichi_mpm_torch.config import SimConfig
+from taichi_mpm_torch.core import transfer
 from taichi_mpm_torch.core.levelset import friction_project
+from taichi_mpm_torch.core.state import Particles
 from taichi_mpm_torch.materials import cforms
-from taichi_mpm_torch.math.kernels import inv_D
-from taichi_mpm_torch.ops import blocked
+from taichi_mpm_torch.math.kernels import bspline_weights, inv_D
+from taichi_mpm_torch.ops import blocked, g2p, p2g, packed
 from taichi_mpm_torch.ops.blocked import REC_LANES, VREC_LANES
 from taichi_mpm_torch.ops.rows import (
-    RACT, RAUX, RBN, RC, RF, RMASS, RMAT, RNEARB, RPAR, RSTATES, RV, RVOL,
+    NCH, RACT, RAUX, RBN, RC, RF, RMASS, RMAT, RNEARB, RORG, RPAR, RSTATES, RV, RVOL, RX,
 )
+from taichi_mpm_torch.ops.substep import build_page_map_full, grid_update_flat, prep_p2g
 from taichi_mpm_torch.rigid import cdf
 from taichi_mpm_torch.rigid.body import (
     R_UNROLL_MAX,
     accumulate_impulses,
     accumulate_impulses_masked,
+    advance,
+    apply_impulses,
     boundary_particle_world,
     velocity_at,
 )
@@ -253,3 +278,234 @@ def rigid_prologue(bodies, scene, cfg: SimConfig, dt, caps, rmap=None):
             ncdf = cdf.DenseNodeCDF(dist, rid, states, cfg, num_rigids=R, key=key)
             n_r = 0
     return bodies, ncdf, n_r, xb
+
+
+# -- the near-rigid set -----------------------------------------------------------
+
+
+def near_rigid_lanes(pm, node_states, cfg: SimConfig, positions, states,
+                     fast_stage2: bool = False):
+    """The near-rigid set read off the block sort. Stage 1: the sorted
+    lane ranges of the blocks holding tagged nodes, dilated by one block
+    (the stencil's reach and the lazy sort's half-cell drift); stage 2:
+    the lanes whose quadratic stencil touches a tagged node or that carry
+    affinity bits, in lane order. `positions(idx)` (n, 3) and
+    `states(idx)` (n,) read the lanes' positions and affinity. Returns
+    (idx (n_near,) int64, n_near, n_coarse), both counts read on the
+    host."""
+    nbp = blocked.num_blocks_padded(cfg)
+    total = blocked.total_blocks_padded(cfg)
+    core = blocked._dilate27(node_states.tagged_blocks().reshape(nbp)).reshape(-1)
+    core = torch.cat([core, core.new_zeros(1)])
+    ids = pm["ids"].long()
+    tagged = core[torch.clamp(ids, max=total)] & (ids < total)
+    s_arr = pm["s_arr"]
+    e_arr = torch.where(tagged, pm["e_arr"], s_arr)
+    n_coarse = host_read((e_arr - s_arr).sum())
+    idx1 = blocked.range_lanes(s_arr, e_arr, n_coarse)[1]
+    pos = positions(idx1) * cfg.inv_dx
+    base, _, _ = bspline_weights(cfg.kernel_order, pos)
+    if fast_stage2:
+        # one dilated-plane lookup at the stencil centre, exact under the
+        # lazy dilate=4 / chk_dilate=1 rigid map
+        exact = node_states.stencil_tagged(base.long() + 1)
+    else:
+        nodes = const(cfg.grid_nodes, torch.int64, pos.device)
+        exact = torch.zeros((n_coarse,), dtype=torch.bool, device=pos.device)
+        for off in transfer.stencil_offsets(3, cfg.kernel_order):
+            nidx = base.long() + const(off, torch.int64, pos.device)
+            inb = torch.all((nidx >= 0) & (nidx < nodes), -1)
+            s, _, _ = node_states.lookup(nidx, inb)
+            exact = exact | (s != 0)
+    exact = exact | (states(idx1) != 0)
+    idx = idx1[exact]  # stable: the near lanes in coarse order
+    HostSyncs.count += 1  # the boolean index reads its size on the host
+    return idx, idx.numel(), n_coarse
+
+
+def compact_near_rigid_ranges(p: Particles, pm, node_states, cfg: SimConfig):
+    """The near-rigid set of a sorted Particles set over its page map
+    (``near_rigid_lanes``, the exact stage-2 test). Returns (idx, n_near,
+    n_coarse)."""
+    return near_rigid_lanes(pm, node_states, cfg, lambda i: p.x[i], lambda i: p.states[i])
+
+
+def compact_near_rigid(p: Particles, grid_states, cfg: SimConfig):
+    """The near-rigid set of any Particles set over the dense grid's
+    node states: the particles in blocks holding tagged nodes (dilated by
+    one block) or carrying affinity bits, in lane order, then the exact
+    stencil test. Returns (idx, n_near, n_coarse), read on the host."""
+    nodes = cfg.grid_nodes
+    nbp = blocked.num_blocks_padded(cfg)
+    tag = torch.zeros(tuple(4 * n for n in nbp), dtype=torch.bool, device=p.device)
+    tag[: nodes[0], : nodes[1], : nodes[2]] = (grid_states != 0).reshape(nodes)
+    core = tag.reshape(nbp[0], 4, nbp[1], 4, nbp[2], 4).any(5).any(3).any(1)
+    core = blocked._dilate27(core).reshape(-1)
+    touch = core[blocked.block_id_of(p.x, cfg).long()]
+    idx1 = torch.nonzero(p.active & (touch | (p.states != 0))).flatten()
+    n_coarse = idx1.numel()
+    base, _, _ = bspline_weights(cfg.kernel_order, p.x[idx1] * cfg.inv_dx)
+    nodes_t = const(nodes, torch.int64, p.device)
+    exact = p.states[idx1] != 0
+    for off in transfer.stencil_offsets(3, cfg.kernel_order):
+        nidx = base.long() + const(off, torch.int64, p.device)
+        inb = torch.all((nidx >= 0) & (nidx < nodes_t), -1)
+        lin = (nidx[..., 0] * nodes[1] + nidx[..., 1]) * nodes[2] + nidx[..., 2]
+        exact = exact | (torch.where(inb, grid_states[torch.where(inb, lin, 0)], 0) != 0)
+    idx = idx1[exact]
+    HostSyncs.count += 2
+    return idx, idx.numel(), n_coarse
+
+
+# -- the pytree frame ---------------------------------------------------------------
+
+
+def _gather_rows(p: Particles, pm):
+    """The packed rows the gather kernel reads (positions and block
+    origins; the other rows zero)."""
+    rows = torch.zeros((NCH, p.capacity), dtype=torch.float32, device=p.device)
+    rows[RX:RX + 3] = p.x.t()
+    rows[RORG:RORG + 3] = pm["origin"].t()
+    return rows
+
+
+def cpic_blocked_substep_presorted(p: Particles, pm, bodies, t, cfg: SimConfig, scene, dt,
+                                   caps):
+    """One coupled substep of a sorted Particles set against its frozen
+    page map (``build_page_map_full``); caps.Kr sizes the rigid page map
+    (grown where it overflows). Returns ((p, bodies, t + dt), n_near,
+    n_coarse, n_r, vmax, plast) with vmax (max |v| component after the
+    finish, before the penalty) and plast as 0-d device tensors."""
+    from taichi_mpm_torch.core.solver import clear_boundary_particles
+    from taichi_mpm_torch.rigid.collision import rigid_levelset_collision
+
+    R = bodies.num
+    n = p.capacity
+    bodies, ncdf, n_r, xb = rigid_prologue(bodies, scene, cfg, dt, caps)
+
+    # the CDF gather on the near set; affinity rebuilt from zero
+    idx, n_near, n_coarse = compact_near_rigid_ranges(p, pm, ncdf, cfg)
+    near = p.take(idx)
+    nd = cdf.stencil_node_data(near.x, ncdf, cfg)
+    st_c, bd_c, bn_c, nb_c = cdf.gather_cdf_lookup(near.x, near.states, R, cfg, nd)
+
+    def scattered(vals, shape, dtype):
+        out = torch.zeros(shape, dtype=dtype, device=p.device)
+        out[idx] = vals
+        return out
+
+    p = dataclasses.replace(
+        p, states=scattered(st_c, (n,), torch.int32), bdist=scattered(bd_c, (n,), torch.float32),
+        bnormal=scattered(bn_c, (n, 3), torch.float32), near_b=scattered(nb_c, (n,), torch.bool))
+    mini = packed.pack_particles(p.take(idx))
+
+    # plain P2G over all particles, then the correction of the near set
+    pdata = prep_p2g(p, None, cfg, dt, origin=pm["origin"])
+    tiles = p2g.p2g_blocked(pm["s_arr"], pm["e_arr"], pdata)
+    del pdata
+    rec = blocked.merge_tiles(tiles, pm["nbr"])
+    del tiles
+    rec, J1, tau1 = p2g_correction(mini, nd, pm, bodies, rec, cfg, dt)
+    bodies = apply_impulses(bodies, J1, tau1)
+    if scene.colliders:
+        bodies = rigid_levelset_collision(bodies, xb, scene.bp_rid, scene.colliders, t, dt)
+    vrec = grid_update_flat(rec, pm["ids"], cfg, scene.colliders, t, dt)
+    win = blocked.windows(vrec, pm["nbr"])
+
+    # plain G2P over all particles, the correction of the near set, the finish
+    pout = g2p.g2p_blocked(pm["slot_keys"], _gather_rows(p, pm), win, cfg)
+    del win
+    act = p.active
+    v_new = torch.where(act[:, None], pout[0:3].t(), 0.0)
+    b_new = torch.where(act[:, None, None], pout[3:12].t().reshape(n, 3, 3), 0.0)
+    dv, dB, rid_last = g2p_correction(mini, nd, pm, bodies, vrec, cfg, dt)
+    v_new[idx] += dv  # the near lanes are distinct
+    b_new[idx] += dB
+    p, plast = transfer.g2p_finish(p, v_new, b_new, cfg, dt, zero_C=p.near_b,
+                                   return_count=True)
+    vmax = torch.amax(torch.where(p.active[:, None], torch.abs(p.v), 0.0))
+
+    # boundary penetration penalty (transfer.cpp:671-682) on the near set,
+    # the only lanes whose affinity fields are set; torque arms at the
+    # advected positions
+    act_c = p.active[idx]
+    pen = act_c & nb_c & (bd_c < -0.05 * cfg.dx) & (bd_c > -0.3 * cfg.dx)
+    dvp = bd_c[:, None] * bn_c * cfg.penalty
+    v = p.v.clone()
+    v[idx] = torch.where(pen[:, None], v[idx] - dvp, v[idx])
+    J2, tau2 = accumulate_impulses(bodies, torch.clamp(rid_last, 0, R - 1),
+                                   dvp * p.mass[idx][:, None], p.x[idx], pen & (rid_last >= 0))
+    p = dataclasses.replace(p, v=v)
+    bodies = apply_impulses(bodies, J2, tau2)
+    if cfg.particle_collision:
+        p = transfer.particle_collision_resolution(p, cfg, scene.colliders, t)
+    if cfg.clean_boundary:
+        p = clear_boundary_particles(p, cfg)
+    bodies = advance(bodies, t, dt, scene.pos_funcs, scene.rot_funcs, cfg.gravity)
+    return (p, bodies, np.float32(t) + np.float32(dt)), n_near, n_coarse, n_r, vmax, plast
+
+
+def _sort_and_map_full(p: Particles, cfg: SimConfig, K: int):
+    """Sort + page map with origins, grown at once where the occupancy
+    exceeds K (``ops.packed.sort_and_map``'s rule)."""
+    p, keys, _ = blocked.sort_particles(p, cfg)
+    pm = build_page_map_full(keys, cfg, K)
+    n_act = int(pm["n_act"])
+    if n_act > K:
+        pm = build_page_map_full(keys, cfg, packed.grown_capacity(n_act, cfg))
+    return p, keys, pm
+
+
+def cpic_blocked_substep(p: Particles, bodies, t, cfg: SimConfig, scene, dt, K: int, caps):
+    """One coupled substep with its own sort and page map. Returns ((p,
+    bodies, t + dt), n_act, n_near)."""
+    p, _, pm = _sort_and_map_full(p, cfg, K)
+    (p, bodies, t), n_near, _, _, _, _ = cpic_blocked_substep_presorted(
+        p, pm, bodies, t, cfg, scene, dt, caps)
+    return (p, bodies, t), int(pm["n_act"]), n_near
+
+
+def cpic_pack_carry(p: Particles, cfg: SimConfig, K: int):
+    """The persistent pytree CPIC carry: (sorted Particles, keys, page map
+    with origins, zero drift)."""
+    p, keys, pm = _sort_and_map_full(p, cfg, K)
+    return (p, keys, pm, np.float32(0.0))
+
+
+def cpic_frame_carry(carry, bodies, t, cfg: SimConfig, scene, dt, n_substeps: int, caps):
+    """A fixed-dt CPIC frame over a persistent pytree carry: the lazy
+    re-sort continues across frames (a re-sort after the substep whose
+    drift sum(dt * inv_dx * max|v|) reaches 0.45 cell, the last one
+    included). One host read per substep for the drift, besides the
+    substep's own. Returns (carry, bodies, t, max n_act, max n_near,
+    max n_coarse, max n_r, n_sorts, plast)."""
+    p, keys, pm, drift = carry
+    drift = np.float32(drift)
+    step_drift = np.float32(dt * cfg.inv_dx)
+    nmax = int(pm["n_act"])
+    nnear = ncoarse = nr = nsorts = 0
+    plast = torch.zeros((), dtype=torch.int64, device=p.device)
+    for _ in range(n_substeps):
+        (p, bodies, t), n_near, n_coarse, n_r, vmax, dplast = cpic_blocked_substep_presorted(
+            p, pm, bodies, t, cfg, scene, dt, caps)
+        drift = drift + step_drift * np.float32(host_read(vmax))
+        plast = plast + dplast
+        nnear, ncoarse, nr = max(nnear, n_near), max(ncoarse, n_coarse), max(nr, n_r)
+        if drift >= packed.DRIFT_BOUND:
+            p, keys, pm = _sort_and_map_full(p, cfg, pm["ids"].shape[0])
+            drift = np.float32(0.0)
+            nsorts += 1
+            nmax = max(nmax, int(pm["n_act"]))
+    return (p, keys, pm, drift), bodies, t, nmax, nnear, ncoarse, nr, nsorts, plast
+
+
+def cpic_blocked_frame(p: Particles, bodies, t, cfg: SimConfig, scene, dt, n_substeps: int,
+                       K: int, caps):
+    """A CPIC frame from a Particles set (sorted first; returned in sorted
+    lane order). Returns (p, bodies, t, max n_act, max n_near,
+    max n_coarse, max n_r, n_sorts, plast); the sort count includes the
+    first sort."""
+    carry = cpic_pack_carry(p, cfg, K)
+    carry, bodies, t, nmax, nnear, ncoarse, nr, nsorts, plast = cpic_frame_carry(
+        carry, bodies, t, cfg, scene, dt, n_substeps, caps)
+    return carry[0], bodies, t, nmax, nnear, ncoarse, nr, nsorts + 1, plast

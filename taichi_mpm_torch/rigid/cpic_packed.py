@@ -49,8 +49,6 @@ import torch
 
 from taichi_mpm_torch.config import SimConfig
 from taichi_mpm_torch.core.state import Particles
-from taichi_mpm_torch.core.transfer import stencil_offsets
-from taichi_mpm_torch.math.kernels import bspline_weights
 from taichi_mpm_torch.ops import blocked, g2p, p2g, packed
 from taichi_mpm_torch.ops.rows import (
     RACT, RMASS, RNEARB, RSTATES, RV, RX,
@@ -66,11 +64,12 @@ from taichi_mpm_torch.rigid.body import (
 from taichi_mpm_torch.rigid.collision import rigid_levelset_collision
 from taichi_mpm_torch.rigid.cpic_blocked import (
     g2p_correction,
+    near_rigid_lanes,
     p2g_correction,
     rigid_map,
     rigid_prologue,
 )
-from taichi_mpm_torch.utils import HostSyncs, const, host_read
+from taichi_mpm_torch.utils import host_read
 
 DRIFT_BOUND = packed.DRIFT_BOUND
 
@@ -90,46 +89,11 @@ def gather_mini(st, idx):
 
 def compact_near_rigid_packed(st, pm, node_states, cfg: SimConfig,
                               fast_stage2: bool = False):
-    """The near-rigid set on packed rows: stage 1 reads the sorted lane
-    ranges of the tagged blocks (dilated by one block) off the page map;
-    stage 2 keeps the lanes whose quadratic stencil touches a tagged node
-    or that carry affinity bits, in lane order. Returns (idx (n_near,),
+    """The near-rigid set on packed rows (``cpic_blocked.near_rigid_lanes``
+    over the state's position and affinity rows). Returns (idx (n_near,),
     n_near, n_coarse), both counts read on the host."""
-    nbp = blocked.num_blocks_padded(cfg)
-    total = blocked.total_blocks_padded(cfg)
-    K = pm["ids"].shape[0]
-    pw = st.shape[1]
-    core = blocked._dilate27(node_states.tagged_blocks().reshape(nbp)).reshape(-1)
-    core = torch.cat([core, core.new_zeros(1)])
-    ids = pm["ids"].long()
-    tagged = core[torch.clamp(ids, max=total)] & (ids < total)
-    counts = torch.where(tagged, pm["e_arr"] - pm["s_arr"], 0)
-    ends = torch.cumsum(counts, 0)
-    n_coarse = host_read(ends[-1])
-    # lane of coarse entry j: its slot is the first with end > j
-    j = torch.arange(n_coarse, device=st.device)
-    slot = torch.clamp(torch.searchsorted(ends, j, right=True), max=K - 1)
-    idx1 = torch.clamp(pm["s_arr"].long()[slot] + j - (ends - counts)[slot], 0, pw - 1)
-
-    pos = st[RX:RX + 3, idx1].t() * cfg.inv_dx
-    pstates = st[RSTATES, idx1].view(torch.int32)
-    base, _, _ = bspline_weights(cfg.kernel_order, pos)
-    if fast_stage2:
-        # one dilated-plane lookup at the stencil centre, exact under the
-        # lazy dilate=4 / chk_dilate=1 rigid map
-        exact = node_states.stencil_tagged(base.long() + 1)
-    else:
-        nodes = const(cfg.grid_nodes, torch.int64, st.device)
-        exact = torch.zeros((n_coarse,), dtype=torch.bool, device=st.device)
-        for off in stencil_offsets(3, cfg.kernel_order):
-            nidx = base.long() + const(off, torch.int64, st.device)
-            inb = torch.all((nidx >= 0) & (nidx < nodes), -1)
-            s, _, _ = node_states.lookup(nidx, inb)
-            exact = exact | (s != 0)
-    exact = exact | (pstates != 0)
-    idx = idx1[exact]  # stable: the near lanes in coarse order
-    HostSyncs.count += 1  # the boolean index reads its size on the host
-    return idx, idx.numel(), n_coarse
+    return near_rigid_lanes(pm, node_states, cfg, lambda i: st[RX:RX + 3, i].t(),
+                            lambda i: st[RSTATES, i].view(torch.int32), fast_stage2)
 
 
 def _write_rows(st, r0, idx, values):

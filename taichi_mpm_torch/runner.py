@@ -12,6 +12,7 @@ A scene script on the port reads
 and the module runs the scripts' counterparts in ``scenes`` itself:
 
     python -m taichi_mpm_torch.runner water --res 32 --frames 3 --cpu --out out/
+    python -m taichi_mpm_torch.runner balls --res 32 --frames 2 --cpu
     python -m taichi_mpm_torch.runner sand_paddles --frame-dt 1e-3 --out out/
     python -m taichi_mpm_torch.runner colliding_balls_energy --res 32 --frames 2 --cpu
     python -m taichi_mpm_torch.runner tetris --frames 5 --cpu --out out/
@@ -132,6 +133,12 @@ def _water(args):
     return scenes.water_script(res=args.res or 64, device=args.device), None
 
 
+def _balls(args):
+    from taichi_mpm_torch import scenes
+
+    return scenes.async_balls(res=args.res or 64, device=args.device), None
+
+
 def _sand_paddles(args):
     from taichi_mpm_torch import scenes
 
@@ -166,7 +173,7 @@ def _dense(name, res):
 
 
 # the scene scripts' counterparts: name -> (args -> (sim, frame_update))
-SCENES = {"water": _water, "sand_paddles": _sand_paddles,
+SCENES = {"water": _water, "balls": _balls, "sand_paddles": _sand_paddles,
           "colliding_balls_energy": _dense("colliding_balls_energy", 100),
           "oscillating_jello": _dense("oscillating_jello", 50),
           "tetris": _dense("tetris", 128), "mpm88": _dense("mpm88", None),

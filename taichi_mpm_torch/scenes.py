@@ -12,8 +12,9 @@ hub, joined by a rotation articulation.
 ``water_dam`` is the adaptive-dt dam break of ``scripts/async/water.py``
 and ``sand_column`` the sand column of ``scripts/async/sand.py``, both
 seeded on a lattice (the cells the earlier H100 measurements name).
-``water_script`` and ``sand_paddles`` build their scripts' scenes line
-for line, texture seeding and the sand source included.
+``water_script``, ``async_balls`` (``scripts/async/balls.py``) and
+``sand_paddles`` build their scripts' scenes line for line, texture
+seeding and the sand source included.
 ``elastic_block_drop`` and ``sand_column_collapse`` are the JAX package's
 baseline scenes.
 
@@ -192,18 +193,37 @@ def sand_column_collapse(res: int = 64, base_dt: float = 1e-4, device=None) -> M
     return sim
 
 
-def water_script(res: int = 64, device=None) -> AsyncMPM:
+def water_script(res: int = 64, device=None, per_block: bool = False) -> AsyncMPM:
     """``scripts/async/water.py`` line for line: AsyncMPM(res^3,
     base_delta_t=1e-3, frame_dt=0.01, unit_delta_t=1e-6), a frictionless
     floor at y = 0.08, and water (density 1000) seeded by Poisson disks
     from the texture box((0.1, 0.08, 0.1), (0.35, 0.5, 0.9)) * 6
-    (1,056,758 particles at res 128). Runs on the card unless `device`
-    names another."""
+    (1,056,758 particles at res 128). `per_block` is AsyncMPM's (the
+    per-block bucketed scheduler). Runs on the card unless `device` names
+    another."""
     sim = AsyncMPM(res=(res, res, res), base_delta_t=1e-3, frame_dt=0.01,
-                   unit_delta_t=1e-6, device=device)
+                   unit_delta_t=1e-6, per_block=per_block, device=device)
     sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 1] - 0.08, friction=0.0))
     dam = texture.box((0.1, 0.08, 0.1), (0.35, 0.5, 0.9)) * 6
     sim.add_particles("water", density=1000, density_tex=dam)
+    return sim
+
+
+def async_balls(res: int = 64, device=None, per_block: bool = False) -> AsyncMPM:
+    """``scripts/async/balls.py`` line for line, the script's
+    CFL-heterogeneous scene: AsyncMPM(res^3, base_delta_t=1e-3,
+    frame_dt=0.005, unit_delta_t=1e-6, no gravity), a stiff elastic ball
+    (E 1e5, nu 0.3, density 400) seeded by Poisson disks from
+    sphere((0.25, 0.5, 0.5), 0.07) * 8 moving at 3 m/s along x into a soft
+    one (E 1e4) from sphere((0.65, 0.5, 0.5), 0.1) * 8 at rest.
+    `per_block` is AsyncMPM's. Runs on the card unless `device` names
+    another."""
+    sim = AsyncMPM(res=(res, res, res), base_delta_t=1e-3, frame_dt=0.005,
+                   unit_delta_t=1e-6, gravity=(0, 0, 0), per_block=per_block, device=device)
+    t1 = texture.sphere((0.25, 0.5, 0.5), 0.07) * 8
+    sim.add_particles("elastic", density=400, density_tex=t1, vel=(3.0, 0, 0), E=1e5, nu=0.3)
+    t2 = texture.sphere((0.65, 0.5, 0.5), 0.1) * 8
+    sim.add_particles("elastic", density=400, density_tex=t2, E=1e4, nu=0.3)
     return sim
 
 

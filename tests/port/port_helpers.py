@@ -60,11 +60,12 @@ def jax_particles(arrays):
     return JParticles(**{k: jnp.asarray(arrays[k]) for k in FIELDS})
 
 
-def configs(mats, res=(32, 32, 32), base_dt=2e-4, **kw):
+def configs(mats, res=(32, 32, 32), base_dt=2e-4, gravity_zero=False, **kw):
     """(JAX SimConfig, port SimConfig) with the same fields."""
     from taichi_mpm_tpu.config import SimConfig as JConfig
 
-    jcfg = JConfig(res=res, base_dt=base_dt, gravity=(0.0, -10.0, 0.0),
+    jcfg = JConfig(res=res, base_dt=base_dt,
+                   gravity=(0.0, 0.0, 0.0) if gravity_zero else (0.0, -10.0, 0.0),
                    active_materials=tuple(mats), **kw)
     return jcfg, convert.config_from_dict(dataclasses.asdict(jcfg))
 
@@ -248,6 +249,35 @@ def assert_close_by_id(p, q, bounds=FRAME_BOUNDS, equal=()):
         assert err <= bound, (name, err)
     for name in equal:
         assert np.array_equal(a[name], b[name]), name
+
+
+# -- per-block bucketed async: tests/test_async_bucketed.py's blobs --------------
+
+# (lo, hi, n, E) of the elastic blobs of tests/test_async_bucketed.py
+SOFT = ((0.15, 0.3, 0.3), (0.45, 0.7, 0.7), 1600, 4e3)
+STIFF = ((0.65, 0.4, 0.4), (0.85, 0.6, 0.6), 400, 4e5)
+
+
+def blob_arrays(blobs, seed=0, cap_extra=1, v=None):
+    """tests/test_async_bucketed.py's ``_make`` in numpy: elastic blobs
+    (nu 0.3, mass 1e-3, vol 1e-6) in a res-32 box without gravity, v ~
+    0.1 N(0, 1) (or `v`), and `cap_extra` inactive lanes after them.
+    Returns (arrays, (JAX config, port config))."""
+    rng = np.random.default_rng(seed)
+    xs, ps = [], []
+    mid = None
+    for lo, hi, n, E in blobs:
+        mid, par, _ = tmodels.pack_params("elastic", E=E, nu=0.3)
+        xs.append(rng.uniform(lo, hi, (n, 3)).astype(np.float32))
+        ps.append(np.broadcast_to(np.asarray(par, np.float32), (n, 8)))
+    n = sum(b[2] for b in blobs)
+    a, _ = scene_arrays(n, cap_extra=cap_extra, mats=("elastic",))
+    a["x"][:n] = np.concatenate(xs)
+    a["params"][:n] = np.concatenate(ps)
+    a["v"][:n] = (0.1 * np.random.default_rng(seed + 1).standard_normal((n, 3)).astype(np.float32)
+                  if v is None else np.float32(v))
+    a["aux"][:] = 0.0
+    return a, configs((mid,), base_dt=1e-3, gravity_zero=True)
 
 
 # -- the dense path: scenes of any dimension, and the compiled-reference goldens --
@@ -508,23 +538,13 @@ def jax_dense_vs_blocked_report():
               + ", ".join(f"{f} {e:.3e}" for f, e in errs.items()), flush=True)
 
 
-def jax_cpic_dense_vs_blocked(substeps=4):
-    """The JAX package's own two CPIC paths on the CPU, on chip_smoke.py's
-    dense_cpic_vs_fused scene (``chip_smoke.cpic_check_scene``: the 10k
-    water wheel, res 96): its oracle ``cpic_substep`` (jitted, dt the
-    scene's base_dt, the body of its MPM's dense CPIC frame) against its
-    packed CPIC frame ``cpic_packed_frame`` (the Pallas kernels in
-    interpret mode, the MPM's own capacities), `substeps` substeps,
-    particles matched by id. Returns the largest difference of x, v, F,
-    states (count of differing lanes) and the bodies' omega and vel."""
-    import jax
-    import jax.numpy as jnp
-
+def _jax_check_wheel():
+    """chip_smoke.py's cpic_check scene (``chip_smoke.cpic_check_scene``:
+    the 10k water wheel, res 96) built by the JAX package's MPM from the
+    port's seeding, with id tags. Returns (JAX solver, tagged arrays)."""
     import chip_smoke
     from taichi_mpm_tpu.core.solver import MPM as JMPM
     from taichi_mpm_tpu.rigid import mesh as jmesh
-    from taichi_mpm_tpu.rigid.cpic import cpic_substep
-    from taichi_mpm_tpu.rigid.cpic_packed import cpic_packed_frame
 
     port = chip_smoke.cpic_check_scene("cpu")
     port._ensure_finalized()
@@ -539,22 +559,76 @@ def jax_cpic_dense_vs_blocked(substeps=4):
     wheel = sim.add_particles("rigid", mesh=jmesh.paddle_wheel_mesh(), **body)
     sim.add_articulation("rotation", hub, wheel)
     sim._finalize()
+    return sim, a
+
+
+def _pair_errors(pa, ba, pb, bb):
+    x, y = by_id(pa), by_id(pb)
+    errs = {f: max_err(x[f], y[f]) for f in ("x", "v", "F")}
+    errs["states_differ"] = int((x["states"] != y["states"]).sum())
+    errs.update({f"body_{f}": max_err(getattr(ba, f), getattr(bb, f)) for f in ("omega", "vel")})
+    return errs
+
+
+def _jax_packed_wheel_frame(sim, p0, substeps):
+    import jax.numpy as jnp
+
+    from taichi_mpm_tpu.rigid.cpic_packed import cpic_packed_frame
+
+    cfg = sim.cfg
+    sim.particles = p0
+    near, b1, Kr = sim._near_budget_cap()
+    return cpic_packed_frame(p0, sim.bodies, jnp.float32(0.0), cfg, sim.rigid_scene,
+                             cfg.base_dt, substeps, sim._active_block_cap(), near, b1, Kr,
+                             interpret=True, two_d=True)
+
+
+def jax_cpic_dense_vs_blocked(substeps=4):
+    """The JAX package's own two CPIC paths on the CPU, on chip_smoke.py's
+    dense_cpic_vs_fused scene (``_jax_check_wheel``): its oracle
+    ``cpic_substep`` (jitted, dt the scene's base_dt, the body of its MPM's
+    dense CPIC frame) against its packed CPIC frame ``cpic_packed_frame``
+    (the Pallas kernels in interpret mode, the MPM's own capacities),
+    `substeps` substeps, particles matched by id. Returns the largest
+    difference of x, v, F, states (count of differing lanes) and the
+    bodies' omega and vel."""
+    import jax
+    import jax.numpy as jnp
+
+    from taichi_mpm_tpu.rigid.cpic import cpic_substep
+
+    sim, a = _jax_check_wheel()
     p0 = jax_particles(a)
     cfg, scene, dt = sim.cfg, sim.rigid_scene, sim.cfg.base_dt
     step = jax.jit(lambda p, b, t: cpic_substep(p, b, t, cfg, scene, dt))
     po, bo, t = p0, sim.bodies, jnp.float32(0.0)
     for _ in range(substeps):
         po, bo, t = step(po, bo, t)
+    out = _jax_packed_wheel_frame(sim, p0, substeps)
+    return _pair_errors(po, bo, out[0], out[1])
+
+
+def jax_cpic_unfused_vs_fused(substeps=6):
+    """The JAX package's pytree CPIC frame (``cpic_blocked_frame``, its
+    TMT_FUSED=0 route) against its packed one (``cpic_packed_frame``) on
+    the CPU, on chip_smoke.py's cpic_unfused_check scene
+    (``_jax_check_wheel``), `substeps` substeps at the MPM's own
+    capacities, the Pallas kernels in interpret mode, particles matched
+    by id: the errors of ``jax_cpic_dense_vs_blocked``."""
+    import jax.numpy as jnp
+
+    from taichi_mpm_tpu.rigid.cpic_blocked import cpic_blocked_frame
+
+    sim, a = _jax_check_wheel()
+    p0 = jax_particles(a)
+    cfg = sim.cfg
     sim.particles = p0
     near, b1, Kr = sim._near_budget_cap()
-    out = cpic_packed_frame(p0, sim.bodies, jnp.float32(0.0), cfg, scene, dt, substeps,
-                            sim._active_block_cap(), near, b1, Kr, interpret=True, two_d=True)
-    pb, bb = out[0], out[1]
-    x, y = by_id(po), by_id(pb)
-    errs = {f: max_err(x[f], y[f]) for f in ("x", "v", "F")}
-    errs["states_differ"] = int((x["states"] != y["states"]).sum())
-    errs.update({f"body_{f}": max_err(getattr(bo, f), getattr(bb, f)) for f in ("omega", "vel")})
-    return errs
+    pytree = cpic_blocked_frame(p0, sim.bodies, jnp.float32(0.0), cfg, sim.rigid_scene,
+                                cfg.base_dt, substeps, sim._active_block_cap(), near, b1, Kr,
+                                interpret=True)
+    out = _jax_packed_wheel_frame(sim, p0, substeps)
+    return _pair_errors(pytree[0], pytree[1], out[0], out[1])
 
 
 def cos_sin_against_xla(n=200_000, seed=0):
@@ -647,8 +721,8 @@ if __name__ == "__main__":
 
     ap = argparse.ArgumentParser(description="the measurements behind the dense path's bounds")
     ap.add_argument("what", choices=("dense-noise", "jax-dense-vs-blocked",
-                                     "jax-cpic-dense-vs-blocked", "dense-cpic-profile",
-                                     "hub-wheel-witness", "cos-sin"))
+                                     "jax-cpic-dense-vs-blocked", "jax-cpic-unfused-vs-fused",
+                                     "dense-cpic-profile", "hub-wheel-witness", "cos-sin"))
     args = ap.parse_args()
     torch.set_num_threads(1)
     if args.what == "dense-cpic-profile":  # on the card
@@ -664,6 +738,10 @@ if __name__ == "__main__":
     elif args.what == "hub-wheel-witness":
         os.environ.setdefault("JAX_PLATFORMS", "cpu")
         hub_wheel_witness()
+    elif args.what == "jax-cpic-unfused-vs-fused":
+        os.environ.setdefault("JAX_PLATFORMS", "cpu")
+        print("JAX, cpic_check's 10k wheel, 6 substeps, pytree - packed:",
+              jax_cpic_unfused_vs_fused(), flush=True)
     else:
         os.environ.setdefault("JAX_PLATFORMS", "cpu")
         print("JAX, cpic_check's 10k wheel, 4 substeps, oracle - packed:",

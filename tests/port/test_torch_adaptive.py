@@ -9,7 +9,7 @@ material. The port's ``packed_adaptive_frame`` against the JAX package's
 whose dt changes inside the frame (the advection CFL binds, then the max
 dt): the substep count, the time and the occupancy equal, the state
 within the bounds of ``tests/test_fused.py``. Then ``AsyncMPM``: its
-frames are the adaptive frames, and what it refuses."""
+frames are the adaptive frames, and per block what it refuses."""
 
 import numpy as np
 import pytest
@@ -168,5 +168,14 @@ def test_async_mpm_frames_are_adaptive_frames(fast_jelly, monkeypatch):
 
 
 def test_async_mpm_per_block_raises():
-    with pytest.raises(NotImplementedError, match="queue 1, .per-block bucketed async."):
-        tadaptive.AsyncMPM(res=(32, 32, 32), per_block=True, device="cpu")
+    """The per-block scheduler runs (test_torch_async_mpm.py holds it to
+    JAX) and raises where the JAX package asserts: a 2-D scene."""
+    sim = tadaptive.AsyncMPM(res=(32, 32), per_block=True, device="cpu")
+    sim.add_particles("jelly", pos=np.full((4, 2), 0.5, np.float32))
+    with pytest.raises(ValueError, match="3D-only"):
+        sim.step()
+    sim = tadaptive.AsyncMPM(res=(32, 32, 32), per_block=True, frame_dt=6.4e-3,
+                             unit_delta_t=1e-4, device="cpu")
+    sim.add_particles("jelly", pos=np.full((4, 3), 0.5, np.float32))
+    sim.step()
+    assert sim.update_counter > 0 and sim.last_frame_stats.n_substeps > 0

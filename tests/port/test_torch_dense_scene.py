@@ -81,9 +81,9 @@ def test_2d_takes_the_dense_path(optimized):
 def test_rigid_bodies_on_the_dense_path_raise(monkeypatch):
     """Rigid bodies on the dense path run the dense CPIC frame (2-D, 3-D
     with optimized=False, AsyncMPM at order 3 with the order's warning);
-    what still raises is fixed-dt CPIC on the blocked path with
-    TMT_FUSED=0 (the pytree CPIC frame, ROADMAP.md queue 1, 'the rest of
-    CPIC')."""
+    and fixed-dt CPIC on the blocked path with TMT_FUSED=0, which raised
+    before the pytree CPIC frame was ported, runs that frame (its carry a
+    Particles set)."""
     sim = MPM(res=(16, 16), device="cpu")
     sim.add_particles("jelly", pos=[[0.5, 0.6]])
     sim.add_particles("rigid", mesh=np.asarray([[[-0.2, 0.0], [0.2, 0.0]]], np.float32),
@@ -102,8 +102,8 @@ def test_rigid_bodies_on_the_dense_path_raise(monkeypatch):
     monkeypatch.setenv("TMT_FUSED", "0")
     sim = _scene3d()
     sim.add_particles("rigid", mesh=plate_mesh(0.1, 0.1), scripted_position=lambda t: (0.5, 0.3, 0.5))
-    with pytest.raises(NotImplementedError, match="queue 1, .the rest of CPIC."):
-        sim.step()
+    sim.step()
+    assert isinstance(sim.packed_carry[0], type(sim.particles)) and sim.particles.count() == 64
 
 
 def _pair_2d():

@@ -24,7 +24,8 @@ def test_port_import_does_not_load_jax():
         "taichi_mpm_torch.rigid.collision, taichi_mpm_torch.rigid.scene, "
         "taichi_mpm_torch.rigid.mesh, taichi_mpm_torch.math.quat, "
         "taichi_mpm_torch.rigid.cpic, taichi_mpm_torch.rigid.cdf, taichi_mpm_torch.rigid.body, "
-        "taichi_mpm_torch.rigid.host, "
+        "taichi_mpm_torch.rigid.host, taichi_mpm_torch.rigid.cpic_blocked, "
+        "taichi_mpm_torch.ops.async_bucketed, taichi_mpm_torch.ops.substep, "
         "taichi_mpm_torch.core.adaptive, taichi_mpm_torch.diagnostics, "
         "taichi_mpm_torch.sampling, taichi_mpm_torch.sampling.poisson, "
         "taichi_mpm_torch.sampling.texture, taichi_mpm_torch.io, taichi_mpm_torch.io.bgeo, "
@@ -64,8 +65,8 @@ def test_mpm_without_device_needs_cuda():
 
 def test_unported_paths_raise(monkeypatch):
     """2-D scenes, kernel order 3 and 2-D rigid bodies run on the dense
-    path; what stays unported raises: the per-block scheduler and the
-    multi-device driver."""
+    path; the per-block scheduler refuses a 2-D scene, as the JAX package
+    does; what stays unported raises: the multi-device driver."""
     from taichi_mpm_torch import MPM, runner
     from taichi_mpm_torch.core.adaptive import AsyncMPM
 
@@ -80,8 +81,10 @@ def test_unported_paths_raise(monkeypatch):
                       scripted_position=lambda t: (0.5, 0.3))
     sim.step()
     assert sim.packed_carry is None and sim.bodies.rot.shape == (2, 1)
-    with pytest.raises(NotImplementedError, match="per-block bucketed async"):
-        AsyncMPM(res=(16, 16), per_block=True, device="cpu")
+    sim = AsyncMPM(res=(16, 16), per_block=True, device="cpu")
+    sim.add_particles("jelly", pos=np.full((4, 2), 0.5, np.float32))
+    with pytest.raises(ValueError, match="3D-only"):
+        sim.step()
     monkeypatch.setenv("SHARDS", "2")
     with pytest.raises(NotImplementedError, match="multi-gpu"):
         runner.mpm_class("cpu")

@@ -141,11 +141,11 @@ def test_body_impulses_and_velocities():
 
 def test_body_advance_with_scripts():
     jb, tb = _random_bodies(2)
-    # JAX calls the scripts with a float32 value, the port with a Python
-    # float: scripts whose arithmetic is exact in both (power-of-two
-    # factors) give the same values, so the forward differences agree
-    pos_funcs = (None, None, lambda t: (0.5, 0.25 + 2.0 * t, 0.5), None)
-    rot_funcs = (None, None, lambda t: (0.0, 8.0 * t, 20.0 + 64.0 * t), None)
+    # both packages call the scripts with float32 values, so a script that
+    # is not exact in float32 (0.4 + t, a factor 60) rounds alike in both,
+    # and the forward differences (ulp / dt) agree
+    pos_funcs = (None, None, lambda t: (0.5, 0.4 + t, 0.5), None)
+    rot_funcs = (None, None, lambda t: (0.0, 8.0 * t, 20.0 + 60.0 * t), None)
     for step in range(3):
         t = np.float32(step * 2e-4)
         jb = jbody.advance(jb, jnp.float32(t), 2e-4, pos_funcs, rot_funcs, (0.0, -10.0, 0.0))

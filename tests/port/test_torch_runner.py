@@ -7,7 +7,8 @@ for bit; snapshots every frame; ``--continue`` from a snapshot, whose
 frames are the uninterrupted run's, bit for bit (an AsyncMPM frame sorts
 afresh at its start either way); the energy printed. ``mpm_class``
 honours ASYNC=1 and refuses SHARDS > 1. ``main`` runs the sand-paddles
-script's counterpart, whose source emits every frame."""
+script's counterpart, whose source emits every frame, and the balls
+script's, which prints its update counter."""
 
 import numpy as np
 import pytest
@@ -74,3 +75,12 @@ def test_main_runs_the_sand_paddles_script(tmp_path, capsys, monkeypatch):
     assert sim.particles.capacity == 50_000 and sim.bodies.num == 3
     assert sorted(p.name for p in out.glob("00001*")) == [
         "00001.bgeo", "00001_rigid_1.obj", "00001_rigid_2.obj"]
+
+
+def test_main_runs_the_balls_script(capsys):
+    """scripts/async/balls.py's scene through the runner, one frame on the
+    CPU at res 32: it prints the update counter as the script does."""
+    sim = runner.main(["balls", "--res", "32", "--frames", "1", "--cpu"])
+    out = capsys.readouterr().out
+    assert sim.particles.count() > 0 and sim.update_counter > 0
+    assert f"total particle updates: {sim.update_counter}" in out

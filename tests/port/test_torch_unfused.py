@@ -93,7 +93,9 @@ def test_mpm_route_follows_tmt_fused(monkeypatch, env, route):
 
 
 def test_unfused_cpic_raises(monkeypatch):
-    """The unfused CPIC route is the pytree CPIC frame, not ported."""
+    """The unfused CPIC route no longer raises: it runs the pytree CPIC
+    frame (test_torch_cpic_unfused.py holds it to JAX), launching
+    p2g_blocked's and g2p_blocked's twins and no fused one."""
     from taichi_mpm_torch.rigid.mesh import plate_mesh
 
     monkeypatch.setenv("TMT_FUSED", "0")
@@ -103,8 +105,12 @@ def test_unfused_cpic_raises(monkeypatch):
     sim.add_particles("rigid", mesh=plate_mesh(half_u=0.25, half_v=0.25, axis=1),
                       scripted_position=lambda t: (0.5, 0.45, 0.5),
                       scripted_rotation=lambda t: (0.0, 0.0, 0.0), codimensional=True)
-    with pytest.raises(NotImplementedError, match="queue 1, .the rest of CPIC."):
-        sim.step()
+    calls = []
+    monkeypatch.setattr(tp2g, "p2g_fused", lambda *a: calls.append("p2g_fused"))
+    sim.frame_dt = 2 * sim.cfg.base_dt
+    sim.step()
+    assert not calls and not sim.fused and sim.particles.count() == 40
+    assert isinstance(sim.packed_carry[0], type(sim.particles)) and sim.n_sorts >= 1
 
 
 def test_stage_report_times_every_stage():
