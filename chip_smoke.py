@@ -203,10 +203,34 @@ Phases, each printed as one JSON line:
    omega). ``dense_cpic_scale``: the 100k CPIC wheel with
    optimized=False, a 20-substep frame beside the fused CPIC frame's ms
    per substep of ``cpic_path``, the memory peak and the stages'
-   CUDA-event ms. Then ``timing``: the seconds of these phases and of the
-   whole script.
+   CUDA-event ms.
+14. The slabs (``DistributedMPM`` over ``torch.distributed``; the script
+   needs one GPU, so its ranks share it and nothing here is a scaling
+   number). ``dist_check``: the 125k cube (``benchmark_cube(cells=25,
+   res=128)``) drifting at 12 m/s along x and spinning at 163 rad/s about
+   z (``dist_cube``), 3 frames of 12 substeps on each route with uniform
+   and balanced bounds, (a) one rank over NCCL in this process and (b)
+   two ranks sharing the card over gloo, spawned (``comm.run_ranks``),
+   the default route twice: each run held to ``MPM``'s frames on the
+   card at the bounds of phase 2 (particles matched by an id tag), each
+   kernel of its route once per substep per rank and no other, every
+   particle kept, active, finite and in the domain, on two ranks
+   migrants both ways and a balanced bound moved, the two default runs
+   equal in bits. ``dist_path``: the 8M jelly cube at res 128 (125 does
+   not divide into slab blocks) on two ranks sharing the card, fused and
+   balanced, a warm-up and 2 timed frames of 20 substeps: ms and host
+   syncs (``utils.HostSyncs``) per substep, re-sorts, migrants and
+   bounds, each kernel once per substep per rank; one frame under
+   torch's sync debug mode, whose warnings count every synchronizing
+   CUDA call; one frame with a device sync around each record exchange
+   and migration, for their ms per substep; all 8,000,000 particles
+   kept, finite and in the domain; beside it the same scene through
+   ``MPM``. Then
+   ``timing``: the seconds of these phases and of the whole script.
 
-Then the ``kernels`` line: per kernel its launches on each path, its
+Then the ``kernels`` line: per kernel its launches on each path (the
+slab phases' per rank: summed over ``dist_check``'s runs, and
+``dist_path``'s timed frames by rank), its
 CUDA-event time at the 8M shapes (and at the dam's), its plain version's
 time, its max abs error against the plain version there (from
 ``kernel_checks``), and its bound (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the
@@ -1807,27 +1831,36 @@ def tag_ids(sim):
     sim._set_particles(p)
 
 
-def id_errors(a, b, label, failures, bounds=FRAME_BOUNDS):
-    """Two scenes' particles matched by their id tags: the same particles
-    alive, the fields within `bounds`. Returns the errors."""
+def tagged(p):
+    """The active particles of a Particles set as numpy arrays, ordered by
+    their id tag."""
     from taichi_mpm_torch import convert
 
-    def by_id(sim):
-        arr = convert.particles_to_numpy(sim.particles)
-        act = arr["active"]
-        order = np.argsort(arr["params"][act, ID_ROW_PARAM], kind="stable")
-        return {k: v[act][order] for k, v in arr.items()}
+    a = convert.particles_to_numpy(p)
+    act = a["active"]
+    order = np.argsort(a["params"][act, ID_ROW_PARAM], kind="stable")
+    return {k: v[act][order] for k, v in a.items()}
 
-    pa, pb = by_id(a), by_id(b)
-    if not np.array_equal(pa["params"][:, ID_ROW_PARAM], pb["params"][:, ID_ROW_PARAM]):
+
+def tagged_errors(ref, got, label, failures, bounds=FRAME_BOUNDS):
+    """Two tagged particle sets: the same particles, the fields within
+    `bounds`. Returns the errors."""
+    if not np.array_equal(ref["params"][:, ID_ROW_PARAM], got["params"][:, ID_ROW_PARAM]):
         failures.append(f"{label}: other particles alive")
         return {}
     errs = {}
     for name, bnd in bounds:
-        errs[name] = float(np.abs(pa[name].astype(np.float64) - pb[name].astype(np.float64)).max())
+        diff = ref[name].astype(np.float64) - got[name].astype(np.float64)
+        errs[name] = float(np.abs(diff).max())
         if not errs[name] <= bnd:
             failures.append(f"{label}: {name} differs by {errs[name]} > {bnd}")
     return errs
+
+
+def id_errors(a, b, label, failures, bounds=FRAME_BOUNDS):
+    """Two scenes' particles matched by their id tags: the same particles
+    alive, the fields within `bounds`. Returns the errors."""
+    return tagged_errors(tagged(a.particles), tagged(b.particles), label, failures, bounds)
 
 
 def same_bits(a, b, label, failures):
@@ -3124,6 +3157,299 @@ def phase_cpic_unfused_path(card, fused_sim, fused_ms):
     return launches
 
 
+# -- slabs: DistributedMPM over torch.distributed ------------------------------------
+
+DIST_SUBSTEPS = 12  # a frame of the 125k check
+DIST_FRAMES = 3
+# the 125k check's motion: the cube drifts along +x at DIST_DRIFT m/s and
+# spins about its z axis at DIST_SPIN rad/s (its lower face at -4 m/s, its
+# upper at +28), a rigid motion that strains the jelly little. Particles
+# cross the slab boundary both ways, the frames re-sort every other
+# substep, and the equal-count split moves right, so a balanced bound moves.
+DIST_DRIFT = 12.0
+DIST_SPIN = 163.0
+DIST_ROUTES = {"fused_balanced": (True, True), "fused_uniform": (True, False),
+               "unfused_uniform": (False, False), "unfused_balanced": (False, True)}
+DIST_DEVICE = "cuda:0"  # every rank of the shared-card group runs on the one card
+DIST_PATH_RES = 128  # the 8M cube's res on slabs: 125 does not divide into slab blocks
+DIST_PATH_TIMED_FRAMES = 2  # after one warm-up frame
+DIST_TIMEOUT_S = 600
+
+
+def dist_cube(solver, device):
+    """The 125k slab check's scene: benchmark_cube(cells=25, res=128) built
+    by `solver`, frames of DIST_SUBSTEPS, moving at DIST_DRIFT and
+    spinning at DIST_SPIN, each particle's index in params[:, ID_ROW_PARAM]."""
+    from taichi_mpm_torch import scenes
+
+    sim = scenes.benchmark_cube(cells=25, res=128, device=device, solver=solver,
+                                **CUBE_KW["jelly"])
+    sim.frame_dt = DIST_SUBSTEPS * sim.cfg.base_dt
+    batch = sim._pending[0]
+    r = batch["x"] - batch["x"].mean(0)
+    batch["v"][:, 0] = DIST_DRIFT - DIST_SPIN * r[:, 1]
+    batch["v"][:, 1] = DIST_SPIN * r[:, 0]
+    batch["params"][:, ID_ROW_PARAM] = np.arange(r.shape[0], dtype=np.float32)
+    return sim
+
+
+def dist_routes(ref_dir, runs):
+    """On every rank of the current group: for each (route, repeat) of
+    `runs`, dist_cube on DistributedMPM over DIST_FRAMES frames with every
+    launch count set to 0 before. Rank 0 holds the gathered particles to
+    the one-device frames saved in `ref_dir` (FRAME_BOUNDS) and checks
+    them: all active, finite and in the domain. Returns per run: this
+    rank's launches and slab events, and on rank 0 the errors, the
+    failures and the SHA-256 of the gathered state."""
+    import functools
+
+    import torch
+
+    from taichi_mpm_torch.parallel.driver import DistributedMPM
+    from taichi_mpm_torch.utils import HostSyncs
+
+    out = {}
+    for name, rep in runs:
+        fused, balanced = DIST_ROUTES[name]
+        solver = functools.partial(DistributedMPM, balanced=balanced)
+        sim = on_route(fused, lambda: dist_cube(solver, DIST_DEVICE))
+        sim._ensure_finalized()
+        zero_counts()
+        syncs = HostSyncs.count
+        for _ in range(DIST_FRAMES):
+            sim.step()
+        torch.cuda.synchronize()
+        syncs = HostSyncs.count - syncs
+        launches = read_counts()
+        g = sim._gather()
+        st = sim.slab_stats
+        res = dict(launches=launches, fused=sim.fused, balanced=sim.balanced,
+                   substeps=st.substeps, resorts=st.resorts, sent=(st.sent_left, st.sent_right),
+                   arrived=st.arrived, grown=st.grown, bounds=st.bounds[:1] + st.bounds[-1:],
+                   bounds_moved=len(set(st.bounds)) > 1, count=sim.particle_count(),
+                   host_syncs_per_substep=syncs / st.substeps)
+        if sim.rank == 0:
+            failures = []
+            got = tagged(g)
+            with np.load(os.path.join(ref_dir, f"ref_fused{int(fused)}.npz")) as ref:
+                res["errors"] = tagged_errors(dict(ref), got, name, failures)
+            x = got["x"]
+            hi = sim.cfg.res[0] * sim.cfg.dx
+            if not (np.isfinite(x).all() and x.min() >= 0.0 and x.max() <= hi):
+                failures.append(f"{name}: positions not finite or outside the domain")
+            res["failures"] = failures
+            res["sha256"] = hashlib.sha256(b"".join(
+                np.ascontiguousarray(v).tobytes() for v in got.values())).hexdigest()
+        out[f"{name}_{rep}"] = res
+        del sim, g
+    return out
+
+
+def dist_failures(label, res, n_expected, substeps, failures):
+    """The checks of one rank's run of dist_routes."""
+    failures += [f"{label}: {f}" for f in route_failures(res["launches"], res["fused"], substeps)]
+    failures += [f"{label}: {f}" for f in res.get("failures", [])]
+    if res["count"] != n_expected:
+        failures.append(f"{label}: {res['count']} particles, not {n_expected}")
+    if res["substeps"] != substeps:
+        failures.append(f"{label}: {res['substeps']} substeps, not {substeps}")
+
+
+def phase_dist_check(card):
+    """``dist_check``: the moving, spinning 125k cube (``dist_cube``) on DistributedMPM, each
+    route with uniform and balanced bounds, DIST_FRAMES frames of
+    DIST_SUBSTEPS: (a) one rank over NCCL in this process; (b) two ranks
+    sharing the card over gloo (spawned; the default route twice). Each
+    run held to MPM's frames on the card (FRAME_BOUNDS, particles matched
+    by id), each kernel of its route once per substep per rank and no
+    other, every particle kept, active, finite and in the domain;
+    migrants both ways and a bound moved on two ranks; the two default
+    runs equal in bits. Returns the launches by path."""
+    import tempfile
+
+    from taichi_mpm_torch import MPM
+    from taichi_mpm_torch.parallel import comm
+
+    failures = []
+    n_sub = DIST_FRAMES * DIST_SUBSTEPS
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as d:
+        for fused in (True, False):
+            ref = on_route(fused, lambda: dist_cube(MPM, "cuda"))
+            for _ in range(DIST_FRAMES):
+                ref.step()
+            np.savez(os.path.join(d, f"ref_fused{int(fused)}.npz"), **tagged(ref.particles))
+            n_expected = ref.particle_count()
+            del ref
+        runs = [(name, 0) for name in DIST_ROUTES]
+        with comm.process_group("nccl", 0, 1, comm.free_port(), timeout_s=DIST_TIMEOUT_S):
+            nccl = dist_routes(d, runs)
+        gloo = comm.run_ranks(dist_routes, 2, "gloo",
+                              args=(d, runs + [("fused_balanced", 1)]),
+                              timeout_s=DIST_TIMEOUT_S)
+    for key, res in nccl.items():
+        dist_failures(f"nccl {key}", res, n_expected, n_sub, failures)
+    for r, ranks in enumerate(gloo):
+        for key, res in ranks.items():
+            dist_failures(f"gloo rank {r} {key}", res, n_expected, n_sub, failures)
+    for key in gloo[0]:
+        sent = [gloo[r][key]["sent"] for r in range(2)]
+        if not (sent[0][1] > 0 and sent[1][0] > 0):
+            failures.append(f"gloo {key}: no migrants both ways ({sent})")
+        if gloo[0][key]["balanced"] and not gloo[0][key]["bounds_moved"]:
+            failures.append(f"gloo {key}: no bound moved ({gloo[0][key]['bounds']})")
+    if gloo[0]["fused_balanced_0"]["sha256"] != gloo[0]["fused_balanced_1"]["sha256"]:
+        failures.append("gloo fused_balanced: two runs not equal in bits")
+    launches = {"dist_check_nccl": {}, "dist_check_gloo": {}}
+    for path, runs_of in (("dist_check_nccl", [nccl]), ("dist_check_gloo", gloo)):
+        for ranks in runs_of:
+            for res in ranks.values():
+                for k, v in res["launches"].items():
+                    launches[path][k] = launches[path].get(k, 0) + v
+    emit(dict(phase="dist_check", card=card, particles=n_expected, substeps_per_run=n_sub,
+              seconds=time.perf_counter() - t0,
+              nccl={k: {kk: v for kk, v in r.items() if kk != "launches"}
+                    for k, r in nccl.items()},
+              gloo=[{k: {kk: v for kk, v in r.items() if kk != "launches"}
+                     for k, r in ranks.items()} for ranks in gloo],
+              launches=launches, failures=failures))
+    raise_failures(failures)
+    return launches
+
+
+def torch_synced_frame(sim):
+    """One frame of `sim` under torch's sync debug mode: the synchronizing
+    CUDA calls torch itself reports (each a warning), per substep. It sees
+    the waits that ``utils.HostSyncs`` does not count: a boolean-mask
+    index's nonzero, a blocking copy to the host, a read of a count."""
+    import warnings
+
+    import torch
+
+    from taichi_mpm_torch.parallel.spatial_blocked import SlabStats
+
+    sim.slab_stats = SlabStats()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sim.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    n = sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+    return n / sim.slab_stats.substeps
+
+
+def dist_path_rank():
+    """On each rank of the shared-card group: the 8M jelly cube at res 128
+    on DistributedMPM (fused route, balanced), a warm-up frame,
+    DIST_PATH_TIMED_FRAMES timed frames of SUBSTEPS_PER_FRAME (ms and
+    host syncs per substep), one frame under torch's sync debug mode
+    (``torch_synced_frame``), then one frame with a device sync around
+    each exchange and migration, for their ms."""
+    import torch
+
+    from taichi_mpm_torch import scenes
+    from taichi_mpm_torch.parallel import comm
+    from taichi_mpm_torch.parallel.driver import DistributedMPM
+    from taichi_mpm_torch.parallel.spatial_blocked import SlabStats
+    from taichi_mpm_torch.utils import HostSyncs
+
+    t0 = time.perf_counter()
+    sim = on_route(True, lambda: scenes.benchmark_cube(
+        cells=100, res=DIST_PATH_RES, device=DIST_DEVICE, solver=DistributedMPM,
+        **CUBE_KW["jelly"]))
+    sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
+    sim._ensure_finalized()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    sim.step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    sim.slab_stats = st = SlabStats()
+    comm.all_max(torch.zeros((), device=DIST_DEVICE))  # the ranks start the clock together
+    syncs = HostSyncs.count
+    t0 = time.perf_counter()
+    for _ in range(DIST_PATH_TIMED_FRAMES):
+        sim.step()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    syncs = HostSyncs.count - syncs
+    launches = read_counts()
+    torch_syncs = torch_synced_frame(sim)
+    sim.slab_stats = split = SlabStats(timed=True)
+    t0 = time.perf_counter()
+    sim.step()
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
+    p = sim.particles
+    x = p.x[p.active]
+    hi = sim.cfg.res[0] * sim.cfg.dx
+    bad = int((~(torch.isfinite(x).all(-1) & (x >= 0).all(-1) & (x <= hi).all(-1))).sum())
+    bad = int(comm.all_sum(torch.tensor(bad, device=DIST_DEVICE)))
+    n = st.substeps
+    return dict(rank=sim.rank, substeps=n, ms_per_substep=secs * 1e3 / n,
+                host_syncs_per_substep=syncs / n, torch_syncs_per_substep=torch_syncs,
+                exchange_ms_per_substep=split.exchange_s * 1e3 / split.substeps,
+                migrate_ms_per_substep=split.migrate_s * 1e3 / split.substeps,
+                synced_ms_per_substep=split_s * 1e3 / split.substeps, resorts=st.resorts,
+                sent=(st.sent_left, st.sent_right), arrived=st.arrived, grown=st.grown,
+                bounds=st.bounds, local_particles=int(p.active.sum()),
+                count=sim.particle_count(), outside_or_nan=bad, launches=launches,
+                K=int(sim.block_capacity), setup_s=setup_s, fused=sim.fused,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def phase_dist_path(card):
+    """``dist_path``: the 8M jelly cube at res 128 on two ranks sharing the
+    card (gloo), fused and balanced, 1 + DIST_PATH_TIMED_FRAMES frames of
+    20 substeps (ms and host syncs per substep, re-sorts, migrants and the
+    bounds), one frame for torch's count of syncs and one for the
+    exchange's and the migration's ms; each kernel once per substep per
+    rank; all 8,000,000 particles kept, finite and in the domain. Beside it the same scene through MPM on the card. The two
+    ranks time-share one H100: this is no scaling number. Returns the
+    launches by rank."""
+    import torch
+
+    from taichi_mpm_torch import scenes
+    from taichi_mpm_torch.parallel import comm
+
+    failures = []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = comm.run_ranks(dist_path_rank, 2, "gloo", timeout_s=DIST_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    n_timed = DIST_PATH_TIMED_FRAMES * SUBSTEPS_PER_FRAME
+    for r in ranks:
+        failures += [f"rank {r['rank']}: {f}" for f in route_failures(r["launches"], True, n_timed)]
+        if r["count"] != 8_000_000 or r["outside_or_nan"]:
+            failures.append(f"rank {r['rank']}: {r['count']} particles, "
+                            f"{r['outside_or_nan']} outside the domain or not finite")
+    if sum(r["local_particles"] for r in ranks) != 8_000_000:
+        failures.append("the slabs do not hold 8,000,000 particles between them")
+
+    sim = on_route(True, lambda: scenes.benchmark_cube(cells=100, res=DIST_PATH_RES, device="cuda",
+                                                       **CUBE_KW["jelly"]))
+    sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
+    sim.step()
+    sim.sync()
+    t0 = time.perf_counter()
+    for _ in range(DIST_PATH_TIMED_FRAMES):
+        sim.step()
+    sim.sync()
+    one_ms = (time.perf_counter() - t0) * 1e3 / n_timed
+    del sim
+    emit(dict(phase="dist_path", card=card, what="two processes time-sharing one H100, "
+              "not a scaling number", particles=8_000_000, res=DIST_PATH_RES,
+              timed_substeps=n_timed, ranks=ranks, one_device_ms_per_substep=one_ms,
+              ranks_s=ranks_s, clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"),
+              failures=failures))
+    raise_failures(failures)
+    return {f"dist_path_rank{r['rank']}": r["launches"] for r in ranks}
+
+
 def main():
     import torch
 
@@ -3202,8 +3528,13 @@ def main():
     phase_dense_cpic_vs_fused()
     launches["wheel_2d"] = phase_wheel_2d_path(card)
     launches["dense_cpic_wheel_100k"] = phase_dense_cpic_scale(card, cpic_ms)
-    emit(dict(phase="timing", dense_cpic_phases_s=time.perf_counter() - t_dense_cpic,
+    dense_cpic_s = time.perf_counter() - t_dense_cpic
+    t_dist = time.perf_counter()
+    launches.update(phase_dist_check(card))
+    launches.update(phase_dist_path(card))
+    emit(dict(phase="timing", dense_cpic_phases_s=dense_cpic_s,
               bucketed_and_unfused_cpic_phases_s=new_phases_s,
+              dist_phases_s=time.perf_counter() - t_dist,
               script_s=time.perf_counter() - t_start))
     emit({"kernels": kernels_line(measured, launches, dam_ms, by_material)})
     print(card, flush=True)

@@ -3,7 +3,8 @@
 The blocked 3-D path (``MPM``, ``add_particles``, ``add_collider``,
 ``step``; ``AsyncMPM`` at global adaptive dt; CPIC rigid coupling), all
 eight materials, with hand-written CUDA kernels for P2G and G2P
-(``csrc/``); texture seeding, BGEO and checkpoint I/O, the energy and
+(``csrc/``); ``DistributedMPM`` over x-slabs of a ``torch.distributed``
+group (``parallel/``); texture seeding, BGEO and checkpoint I/O, the energy and
 a frame runner for scene scripts (``runner``). Entry points run on the
 card unless the caller passes ``device="cpu"``, which runs the kernels'
 plain-torch twins.
@@ -20,7 +21,18 @@ torch.backends.cudnn.allow_tf32 = False
 from taichi_mpm_torch.config import SimConfig  # noqa: E402
 from taichi_mpm_torch.core import levelset  # noqa: E402
 from taichi_mpm_torch.core.adaptive import AsyncMPM  # noqa: E402
-from taichi_mpm_torch.core.solver import MPM  # noqa: E402
+from taichi_mpm_torch.core.solver import MPM, mechanical_energy  # noqa: E402
 from taichi_mpm_torch.core.state import Particles, empty_particles  # noqa: E402
 
-__all__ = ["MPM", "AsyncMPM", "SimConfig", "Particles", "empty_particles", "levelset"]
+
+def __getattr__(name):
+    # lazy, as in the JAX package: parallel.driver brings torch.distributed
+    if name in ("DistributedMPM", "DistributedAsyncMPM"):
+        from taichi_mpm_torch.parallel import driver
+
+        return getattr(driver, name)
+    raise AttributeError(name)
+
+
+__all__ = ["MPM", "AsyncMPM", "DistributedMPM", "DistributedAsyncMPM", "SimConfig", "Particles",
+           "empty_particles", "mechanical_energy", "levelset"]

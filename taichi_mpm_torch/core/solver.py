@@ -616,6 +616,11 @@ class MPM:
         p = self.particles
         return p.v[p.active].cpu().numpy()
 
+    def particle_count(self) -> int:
+        """The number of active particles."""
+        self._ensure_finalized()
+        return self.particles.count()
+
     def simulate(self, num_frames: int, frame_update=None):
         """`num_frames` frames, each after frame_update(self, f) where
         given (an emitter's add_particles, scripted changes). Returns the
@@ -656,10 +661,16 @@ class MPM:
         rigid bodies their current meshes go beside it as
         ``<stem>_rigid_<id>.obj``. writer "numpy" takes the native
         writer's numpy twin."""
+        self._ensure_finalized()
+        self._write_bgeo(self.particles, path, verbose, writer)
+        if write_rigid and self.bodies is not None:
+            self.write_rigid_meshes(os.path.splitext(path)[0] + "_rigid")
+
+    @staticmethod
+    def _write_bgeo(p: Particles, path: str, verbose: bool, writer: str):
+        """The active particles of `p` to a BGEO file (``visualize``)."""
         from taichi_mpm_torch.io.bgeo import write_bgeo
 
-        self._ensure_finalized()
-        p = self.particles
         act = p.active
         attrs = {}
         if verbose:
@@ -668,8 +679,6 @@ class MPM:
             attrs["boundary"] = p.near_b[act].to(torch.float32).cpu().numpy()
             attrs["distance"] = p.bdist[act].cpu().numpy()
         write_bgeo(path, p.x[act].cpu().numpy(), attrs, writer=writer)
-        if write_rigid and self.bodies is not None:
-            self.write_rigid_meshes(os.path.splitext(path)[0] + "_rigid")
 
     def write_rigid_meshes(self, prefix: str):
         """Each rigid body's current world-space mesh as

@@ -22,6 +22,7 @@ their full precision.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -72,12 +73,23 @@ def library_path(name: str, mats: int = 0) -> Path:
 def build(*libs) -> dict:
     """Compile the libraries that are not built yet, all at once; each is
     a (source name, material set) pair. Returns the seconds each one took,
-    from the common start to its nvcc's exit, by library file name."""
+    from the common start to its nvcc's exit, by library file name.
+    Processes that build together (the ranks of a ``torchrun`` launch)
+    take turns on a lock file in the build directory: the first compiles,
+    the others then find its libraries (the lock goes with its holder's
+    process)."""
     todo = {(name, int(mats)): library_path(name, mats) for name, mats in libs}
-    todo = [(spec, out) for spec, out in todo.items() if not out.exists()]
-    if not todo:
+    if all(out.exists() for out in todo.values()):
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_missing([(spec, out) for spec, out in todo.items() if not out.exists()])
+
+
+def _build_missing(todo) -> dict:
+    if not todo:
+        return {}
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = []

@@ -217,13 +217,24 @@ def particle_collision_packed(st, cfg: SimConfig, colliders, t):
 # -- the substep / frame ------------------------------------------------------
 
 
-def fused_substep_presorted(st, pm, t, cfg: SimConfig, colliders, dt):
+def fused_substep_presorted(st, pm, t, cfg: SimConfig, colliders, dt, gcfg: SimConfig = None,
+                            grid_colliders=None, exchange_fn=None):
     """One substep on a sorted state (origins annotated by sort_and_map);
     `st` is updated in place. Returns ((st, t + dt), n_act, vmax, plast)
-    with vmax and plast as 0-d device tensors."""
+    with vmax and plast as 0-d device tensors.
+
+    The slab frames' hooks (``parallel.spatial_blocked``): `gcfg` is the
+    slab's local grid config, which the grid update decodes block ids
+    with (positions and the origin rows stay global, so the kernels need
+    no hook); `grid_colliders` are the colliders shifted into that local
+    frame; `exchange_fn(rec)` sums the slab-boundary records between the
+    merge and the grid update."""
     tiles = p2g.p2g_fused(pm["s_arr"], pm["e_arr"], st, dt, cfg)
     rec = blocked.merge_tiles(tiles, pm["nbr"])
-    vrec = grid_update_flat(rec, pm["ids"], cfg, colliders, t, dt)
+    if exchange_fn is not None:
+        rec = exchange_fn(rec)
+    vrec = grid_update_flat(rec, pm["ids"], gcfg or cfg,
+                            colliders if grid_colliders is None else grid_colliders, t, dt)
     win = blocked.windows(vrec, pm["nbr"])
     vmax, plast = g2p.g2p_fused(pm["slot_keys"], st, win, dt, cfg)
     if cfg.particle_collision:

@@ -1,0 +1,237 @@
+"""DistributedMPM: the MPM scene API over x-slabs, one rank each (torch
+counterpart of ``taichi_mpm_tpu.parallel.driver``'s 1-D slabs).
+
+The JAX package drives all devices from one process under ``shard_map``.
+The port is SPMD, as ``torchrun`` launches it: every rank runs the same
+scene script, builds the same particle set from the same seed, keeps the
+particles of its own slab, and steps it with the port's kernels
+(``parallel.spatial_blocked.slab_frame``), meeting the other ranks in
+the collectives of ``parallel.comm``. Every call of the scene API is made
+by every rank; the read-outs return the global answer on every rank,
+and files are written by rank 0.
+
+Plain 3-D scenes run on 1-D slabs, on both routes (``TMT_FUSED``), with
+load-balanced bounds by default. Still to come (ROADMAP.md queue 1,
+'multi-gpu'): rigid bodies on slabs, ``DistributedAsyncMPM``, and the
+2-D pencil mesh (``mesh_shape``).
+"""
+
+from __future__ import annotations
+
+import types
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from taichi_mpm_torch.core.solver import MPM, mechanical_energy
+from taichi_mpm_torch.core.state import FIELDS, Particles
+from taichi_mpm_torch.ops import blocked, packed
+from taichi_mpm_torch.ops.rows import RACT
+from taichi_mpm_torch.parallel import comm
+from taichi_mpm_torch.parallel import spatial_blocked as sb
+from taichi_mpm_torch.parallel.spatial import shard_spatially
+
+
+def _round64(n: int) -> int:
+    return -(-int(n) // 64) * 64
+
+
+class DistributedMPM(MPM):
+    """``MPM`` over x-slabs of the ranks of the current process group.
+
+    Extra keywords:
+      n_shards:   the number of slabs; must equal the group's world size
+                  (default: the world size)
+      mesh_shape: the 2-D pencil mesh, not ported yet (raises)
+      balanced:   load-balanced slab bounds (default True; uniform slabs
+                  where the grid gives the bounds no room, r_max < 1)
+      r:          balance radius in block columns (default: the largest
+                  the grid allows)
+      slack:      each slab's initial capacity over the largest slab's
+                  count (default 2.0). The JAX package's slabs keep that
+                  capacity and raise when migration exhausts it; here a
+                  slab grows where its arrivals need more lanes, so
+                  slack only sizes the initial split.
+      device:     this rank's device: default cuda:{LOCAL_RANK}
+                  (``comm.rank_device``); "cpu" runs on the CPU.
+
+    ``particles`` is this rank's slab (its lanes in its sorted order);
+    ``positions``, ``velocities``, ``energy`` and ``particle_count`` are
+    global. A process group must exist (``torchrun`` and
+    ``runner.mpm_class``, or ``comm.process_group``).
+    """
+
+    def __init__(self, res: Sequence[int], *args, n_shards: Optional[int] = None,
+                 mesh_shape: Optional[tuple] = None, balanced: bool = True,
+                 r: Optional[int] = None, slack: float = 2.0, device=None, **kw):
+        if mesh_shape is not None:
+            raise NotImplementedError(
+                "DistributedMPM(mesh_shape=...) is the 2-D pencil mesh, not ported yet "
+                "(ROADMAP.md queue 1, 'multi-gpu'); use 1-D slabs")
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "DistributedMPM runs one rank per process of a torch.distributed group, "
+                "and none is initialized: launch with `torchrun --nproc-per-node N` "
+                "(SHARDS=N through the runner), or start one with "
+                "taichi_mpm_torch.parallel.comm.process_group")
+        super().__init__(res, *args, device=comm.rank_device(device), **kw)
+        if dist.get_backend() == "nccl":
+            torch.cuda.set_device(self.device)  # NCCL's collectives run on the current device
+        if self.cfg.dim != 3:
+            raise ValueError("DistributedMPM is 3-D only")
+        self.n_shards = comm.world() if n_shards is None else int(n_shards)
+        if self.n_shards != comm.world():
+            raise ValueError(f"n_shards={self.n_shards} must equal the process group's "
+                             f"world size {comm.world()}")
+        self.rank = comm.rank()
+        self.slack = slack
+        self.r = None
+        if balanced:
+            r_max = sb.max_radius(self.cfg, self.n_shards)
+            r = r_max if r is None else r
+            if r > r_max:
+                raise ValueError(f"balance radius {r} > max {r_max}")
+            self.r = int(r) if r >= 1 else None
+        self.balanced = self.r is not None
+        self.slabs = sb.Slabs(self.cfg, self.n_shards, self.rank, self.r)
+        self.slab_stats = sb.SlabStats()
+        self._bounds = self._hist = None  # the bounds and histogram of the split
+
+    # -- the slab state: MPM's _pcarry holds (state, SlabCarry) after a frame ------
+
+    @property
+    def block_capacity(self) -> Optional[int]:
+        return None if self._pcarry is None else self._pcarry[1].K
+
+    def _add_rigid(self, *a, **kw):
+        raise NotImplementedError(
+            "rigid bodies on slabs (CPIC) are not ported yet (ROADMAP.md queue 1, "
+            "'multi-gpu'); run the scene with MPM")
+
+    def _gather(self):
+        """The global particle set on every rank: the ranks' lanes one
+        after another, the JAX package's global layout. A collective."""
+        p = self.particles
+        rows = comm.all_gather_rows(packed.pack_particles(p).t().contiguous())
+        return packed.unpack_particles(rows.t().contiguous(), rows.shape[0])
+
+    def _shard(self):
+        """Split the global particle set (self._particles, the same on
+        every rank) into this rank's slab, leaving `slack` headroom."""
+        p = self._particles
+        cfg = self.cfg
+        self.slabs = sb.Slabs(cfg, self.n_shards, self.rank, self.r)
+        if self.balanced:
+            self._bounds = sb.balanced_bounds_host(p, cfg, self.n_shards, self.r)
+            self._hist = torch.zeros((self.slabs.CB,), dtype=torch.int32, device=self.device)
+            local, _ = sb.shard_spatially_bounds(p, cfg, self.n_shards, self.rank, self._bounds,
+                                                 self.slack)
+        else:
+            self._bounds, self._hist = None, None
+            local, _ = shard_spatially(p, cfg, self.n_shards, self.rank, self.slack)
+        self._set_particles(local)
+
+    def _finalize(self, capacity: Optional[int] = None, allow_empty: bool = False):
+        super()._finalize(capacity, allow_empty)
+        self._shard()
+
+    def _finalize_for_load(self, snap_cap: int):
+        """A scene a snapshot is loaded into: the global set (unsharded)."""
+        if self._particles is None and self._pcarry is None or self._pending:
+            MPM._finalize(self, self.capacity or (None if self._pending else snap_cap),
+                          allow_empty=True)
+        else:
+            self._set_particles(self._gather())
+
+    def _inject(self, batch: dict):
+        """Emission after the first frame: the global set gathered, the
+        batch written into its free lanes, the set split again (sources
+        land on their owner)."""
+        self._set_particles(self._gather())
+        super()._inject(batch)
+        self._shard()
+
+    def load(self, path: str):
+        """Resume a snapshot (the port's or the JAX package's, of one device
+        or of slabs: snapshots hold the global set), then split it."""
+        super().load(path)
+        self._shard()
+
+    # -- frames -------------------------------------------------------------------
+
+    def _initial_K(self) -> int:
+        return _round64(min(blocked.total_blocks_padded(self.slabs.lcfg),
+                            max(256, self._active_block_cap())))
+
+    def step(self, frame_dt: Optional[float] = None):
+        """One frame on every rank (``slab_frame``). The slab's state stays
+        in its carry; ``particles`` unpacks it when read."""
+        if (self._particles is None and self._pcarry is None) or self._pending:
+            self._finalize()
+        n_sub = max(1, int(round((frame_dt or self.frame_dt) / self.cfg.base_dt)))
+        carry = None if self._pcarry is None else self._pcarry[1]
+        if carry is None:
+            p = self.particles
+            state = (packed.pack_particles(p) if self.fused
+                     else Particles(**{f: getattr(p, f).clone() for f in FIELDS}))
+            carry = sb.SlabCarry(state, self._bounds, self._hist, self._initial_K())
+        sorts0 = self.slab_stats.resorts
+        carry, t, plast = sb.slab_frame(carry, self.t, self.slabs, tuple(self.colliders),
+                                        self.cfg.base_dt, n_sub, self.fused, self.slab_stats)
+        if self.fused:
+            self._cap_p = carry.state.shape[1]  # the lanes the packed state unpacks to
+        self._end_frame((carry.state, carry), t, self.slab_stats.resorts - sorts0,
+                        comm.all_sum(plast))
+
+    # -- read-out and I/O (every rank calls; the answers are global) ---------------
+
+    def particle_count(self) -> int:
+        self._ensure_finalized()
+        st = None if self._pcarry is None else self._pcarry[0]
+        act = (st[RACT] > 0.5) if isinstance(st, torch.Tensor) else self.particles.active
+        return int(comm.all_sum(act.sum(dtype=torch.int64)))
+
+    def positions(self) -> np.ndarray:
+        self._ensure_finalized()
+        p = self.particles
+        return comm.all_gather_rows(p.x[p.active]).cpu().numpy()
+
+    def velocities(self) -> np.ndarray:
+        self._ensure_finalized()
+        p = self.particles
+        return comm.all_gather_rows(p.v[p.active]).cpu().numpy()
+
+    def energy(self) -> float:
+        """Mechanical energy of all slabs: each rank's sum, summed."""
+        self._ensure_finalized()
+        return float(comm.all_sum(mechanical_energy(self.particles, self.cfg)))
+
+    def visualize(self, path: str, verbose: bool = False, write_rigid: bool = True,
+                  writer: str = "native"):
+        """The global particles to a BGEO file, written by rank 0."""
+        self._ensure_finalized()
+        p = self._gather()
+        if self.rank == 0:
+            self._write_bgeo(p, path, verbose, writer)
+
+    def save(self, path: str):
+        """A snapshot of the global state (one device's format), written by
+        rank 0."""
+        from taichi_mpm_torch.io.checkpoint import save_checkpoint
+
+        self._ensure_finalized()
+        p = self._gather()
+        if self.rank == 0:
+            save_checkpoint(path, types.SimpleNamespace(
+                particles=p, bodies=None, t=self.t, cfg=self.cfg, frame_dt=self.frame_dt))
+
+
+class DistributedAsyncMPM(DistributedMPM):
+    """The per-block adaptive scheduler over slabs, not ported yet."""
+
+    def __init__(self, *a, **kw):
+        raise NotImplementedError(
+            "DistributedAsyncMPM is not ported yet (ROADMAP.md queue 1, 'multi-gpu'); "
+            "use DistributedMPM at fixed dt, or AsyncMPM on one device")

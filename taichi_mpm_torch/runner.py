@@ -18,6 +18,12 @@ and the module runs the scripts' counterparts in ``scenes`` itself:
     python -m taichi_mpm_torch.runner tetris --frames 5 --cpu --out out/
     python -m taichi_mpm_torch.runner sand_wheel_2d --res 128 --frames 3 --cpu
 
+With SHARDS=N under ``torchrun`` a scene that takes the runner's solver
+class runs on N ranks (``parallel.driver.DistributedMPM``, one GPU per
+rank over nccl; with ``--cpu``, gloo on the CPU):
+
+    SHARDS=2 torchrun --nproc-per-node 2 -m taichi_mpm_torch.runner colliding_balls_energy
+
 Frames go to ``<out>/<frame>.bgeo`` (five digits), snapshots to
 ``<out>/snapshot_<frame>.npz`` every ``--snapshot-interval`` frames, and
 ``--continue F`` resumes from ``<out>/snapshot_F.npz`` (this package's or
@@ -28,6 +34,7 @@ the card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import os
 import time
@@ -59,18 +66,30 @@ def parse_args(argv=None, **defaults):
 
 def mpm_class(device=None):
     """The scene's solver class, bound to `device`: ``MPM``; or, with
-    ASYNC=1, ``AsyncMPM`` at global adaptive dt (UNIT_DT the power-of-two
-    unit, default 1e-6; ASYNC_MAX_DT, where set, the largest dt in place
-    of the scene's base_delta_t). SHARDS > 1 asks for the multi-device
-    driver, which the port does not have yet."""
+    SHARDS=N > 1, ``DistributedMPM`` over the torch.distributed group of N
+    ranks that ``torchrun`` launched (``main`` joins it; without such a
+    group this raises and says how to launch); or, with ASYNC=1,
+    ``AsyncMPM`` at global adaptive dt (UNIT_DT the power-of-two unit,
+    default 1e-6; ASYNC_MAX_DT, where set, the largest dt in place of the
+    scene's base_delta_t). SHARDS takes precedence over ASYNC, as in the
+    JAX package's runner."""
+    import torch.distributed as dist
+
     from taichi_mpm_torch.core.adaptive import AsyncMPM
     from taichi_mpm_torch.core.solver import MPM
 
     n = int(os.environ.get("SHARDS", "1"))
     if n > 1:
-        raise NotImplementedError(
-            f"SHARDS={n} selects the multi-device driver (DistributedMPM), not "
-            "ported yet (ROADMAP.md queue 1, 'multi-gpu'); unset SHARDS")
+        from taichi_mpm_torch.parallel.driver import DistributedMPM
+
+        world = dist.get_world_size() if dist.is_initialized() else 0
+        if world != n:
+            raise RuntimeError(
+                f"SHARDS={n} runs DistributedMPM on a torch.distributed group of {n} ranks, "
+                f"and {'none is initialized' if not world else f'this one has {world}'}: "
+                f"launch `SHARDS={n} torchrun --nproc-per-node {n} -m taichi_mpm_torch.runner "
+                "<scene> ...` (one GPU per rank over nccl; gloo on the CPU with --cpu)")
+        return functools.partial(DistributedMPM, n_shards=n, device=device)
     if os.environ.get("ASYNC", "0") == "1":
         unit = float(os.environ.get("UNIT_DT", "1e-6"))
         max_dt = os.environ.get("ASYNC_MAX_DT")
@@ -86,6 +105,30 @@ def mpm_class(device=None):
     return functools.partial(MPM, device=device)
 
 
+@contextlib.contextmanager
+def launched_group(args):
+    """The process group of a ``torchrun`` launch with SHARDS > 1, joined
+    for the run and left after it: gloo with --cpu, else nccl (one GPU
+    per rank). Nothing where SHARDS is unset or a group already exists."""
+    import torch.distributed as dist
+
+    if int(os.environ.get("SHARDS", "1")) <= 1 or dist.is_initialized() \
+            or "WORLD_SIZE" not in os.environ:
+        yield
+        return
+    from taichi_mpm_torch.parallel import comm
+
+    if not args.cpu:
+        import torch
+
+        torch.cuda.set_device(comm.rank_device())
+    dist.init_process_group("gloo" if args.cpu else "nccl", init_method="env://")
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def snapshot_path(out: str, frame: int) -> str:
     return os.path.join(out, f"snapshot_{frame:05d}.npz")
 
@@ -99,7 +142,8 @@ def simulate(sim, args, frame_update=None, print_energy=False):
     loading that snapshot) to ``--frames``; each after frame_update(sim,
     f), printed with its time, particle count and wall time (and the
     energy), written to ``--out`` as BGEO and, every
-    ``--snapshot-interval`` frames, as a snapshot."""
+    ``--snapshot-interval`` frames, as a snapshot. On slabs every rank
+    runs it; rank 0 prints and writes."""
     if getattr(args, "frame_dt", 0.0):
         sim.frame_dt = args.frame_dt
     out = args.out or None
@@ -115,11 +159,12 @@ def simulate(sim, args, frame_update=None, print_energy=False):
         t0 = time.perf_counter()
         sim.step()
         wall = time.perf_counter() - t0
-        n = sim.particles.count()
+        n = sim.particle_count()
         msg = f"frame {f:05d}  t={float(sim.t):.4f}  particles={n}  wall={wall*1e3:.0f}ms"
         if print_energy:
             msg += f"  E={sim.energy():.5f}"
-        print(msg, flush=True)
+        if getattr(sim, "rank", 0) == 0:
+            print(msg, flush=True)
         if out:
             sim.visualize(frame_path(out, f), verbose=args.verbose_bgeo)
             if args.snapshot_interval and f % args.snapshot_interval == 0:
@@ -184,8 +229,10 @@ ENERGY_SCENES = ("colliding_balls_energy", "oscillating_jello")
 
 def main(argv=None):
     args = parse_args(argv, scene=True)
-    sim, frame_update = SCENES[args.scene](args)
-    simulate(sim, args, frame_update=frame_update, print_energy=args.scene in ENERGY_SCENES)
+    with launched_group(args):
+        sim, frame_update = SCENES[args.scene](args)
+        simulate(sim, args, frame_update=frame_update,
+                 print_energy=args.scene in ENERGY_SCENES)
     if hasattr(sim, "update_counter"):
         print("total particle updates:", sim.update_counter)
     return sim

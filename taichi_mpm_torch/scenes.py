@@ -67,13 +67,15 @@ def benchmark_cube(
     base_dt: float = 1e-4,
     gravity: float = -10.0,
     device=None,
+    solver=MPM,
     **mat_kw,
 ) -> MPM:
     """cells=25 -> 125k particles; cells=100 -> 8M (the reference's
     benchmark=125 / benchmark=8000). `material` is a material name, or a
     tuple of names that take the lattice's particles in turn (each with
-    `mat_kw`). Runs on the card unless `device` names another."""
-    sim = MPM(
+    `mat_kw`). `solver` is the class (MPM, or DistributedMPM with its
+    keywords bound). Runs on the card unless `device` names another."""
+    sim = solver(
         res=(res, res, res),
         base_delta_t=base_dt,
         gravity=(0.0, gravity, 0.0),

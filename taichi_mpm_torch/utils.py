@@ -89,9 +89,10 @@ def upload(values, device, dtype=np.float32):
 
 class HostSyncs:
     """Device-to-host reads the frame loops make once or more per
-    substep (each waits for the card): a plain counter, read and reset by
-    callers that measure. The page map's occupancy read at a re-sort is
-    not counted."""
+    substep (each waits for the card), and the copies to the host of the
+    slab communicator's staged transport (``parallel.comm``): a plain
+    counter, read and reset by callers that measure. The page map's
+    occupancy read at a re-sort is not counted."""
 
     count = 0
 

@@ -32,7 +32,9 @@ def test_port_import_does_not_load_jax():
         "taichi_mpm_torch.io.checkpoint, taichi_mpm_torch.math.svd, "
         "taichi_mpm_torch.materials.models, taichi_mpm_torch.runner, "
         "taichi_mpm_torch.core.transfer, taichi_mpm_torch.core.solver, "
-        "taichi_mpm_torch.math.kernels, taichi_mpm_torch.core.state, taichi_mpm_torch.config\n"
+        "taichi_mpm_torch.math.kernels, taichi_mpm_torch.core.state, taichi_mpm_torch.config, "
+        "taichi_mpm_torch.parallel.comm, taichi_mpm_torch.parallel.spatial, "
+        "taichi_mpm_torch.parallel.spatial_blocked, taichi_mpm_torch.parallel.driver\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'taichi_mpm_tpu'))]\n"
         "assert not bad, bad\n"
@@ -66,7 +68,8 @@ def test_mpm_without_device_needs_cuda():
 def test_unported_paths_raise(monkeypatch):
     """2-D scenes, kernel order 3 and 2-D rigid bodies run on the dense
     path; the per-block scheduler refuses a 2-D scene, as the JAX package
-    does; what stays unported raises: the multi-device driver."""
+    does; the multi-device driver needs a process group, and what stays
+    unported of it raises: the pencil mesh and DistributedAsyncMPM."""
     from taichi_mpm_torch import MPM, runner
     from taichi_mpm_torch.core.adaptive import AsyncMPM
 
@@ -86,8 +89,14 @@ def test_unported_paths_raise(monkeypatch):
     with pytest.raises(ValueError, match="3D-only"):
         sim.step()
     monkeypatch.setenv("SHARDS", "2")
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
+        runner.mpm_class("cpu")  # no process group: says how to launch
+    from taichi_mpm_torch import DistributedAsyncMPM, DistributedMPM
+
     with pytest.raises(NotImplementedError, match="multi-gpu"):
-        runner.mpm_class("cpu")
+        DistributedMPM(res=(16, 16, 16), mesh_shape=(2, 2), device="cpu")
+    with pytest.raises(NotImplementedError, match="multi-gpu"):
+        DistributedAsyncMPM(res=(16, 16, 16), device="cpu")
 
 
 def test_rigid_surface_rejects_misuse():

@@ -59,7 +59,7 @@ def test_mpm_class(monkeypatch):
     sim = runner.mpm_class("cpu")(res=(16, 16, 16), base_delta_t=1e-4)
     assert isinstance(sim, AsyncMPM) and sim.cfg.base_dt == 2e-3 and sim.unit_delta_t == 1e-6
     monkeypatch.setenv("SHARDS", "2")
-    with pytest.raises(NotImplementedError, match="queue 1, 'multi-gpu'"):
+    with pytest.raises(RuntimeError, match="none is initialized: launch `SHARDS=2 torchrun"):
         runner.mpm_class("cpu")
 
 

@@ -17,7 +17,7 @@ import torch
 
 import taichi_mpm_torch
 from taichi_mpm_torch import MPM
-from taichi_mpm_torch.core import adaptive
+from taichi_mpm_torch.core import adaptive, solver
 
 torch.set_num_threads(1)
 
@@ -42,6 +42,7 @@ def test_mpm_unoptimized_names_the_dense_path():
 def test_async_mpm_is_exported_and_step_returns_particles():
     assert taichi_mpm_torch.AsyncMPM is adaptive.AsyncMPM
     assert "AsyncMPM" in taichi_mpm_torch.__all__
+    assert taichi_mpm_torch.mechanical_energy is solver.mechanical_energy  # as JAX exports it
     sim = taichi_mpm_torch.AsyncMPM(res=(16, 16, 16), base_delta_t=2e-4, frame_dt=4e-4,
                                     unit_delta_t=1e-6, device="cpu")
     pos = np.random.default_rng(3).uniform(0.4, 0.6, (200, 3)).astype(np.float32)
