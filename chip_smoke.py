@@ -225,12 +225,37 @@ Phases, each printed as one JSON line:
    CUDA call; one frame with a device sync around each record exchange
    and migration, for their ms per substep; all 8,000,000 particles
    kept, finite and in the domain; beside it the same scene through
-   ``MPM``. Then
+   ``MPM``.
+15. CPIC on slabs (``DistributedMPM`` with rigid bodies: the bodies
+   replicated on every rank, the impulses all-reduced twice a substep;
+   again no scaling number). ``dist_cpic_check``: the 10k wheel of
+   ``cpic_check``, its water moved to straddle the slab boundary and
+   sheared (``dist_cpic_scene``), 3 frames of 12 substeps on each CPIC
+   slab frame (the packed frame on balanced and uniform bounds, the
+   pytree frame on uniform bounds), (a) one rank over NCCL in this
+   process, with its errors against ``MPM`` and whether they are 0, and
+   (b) two ranks sharing the card over gloo, the default route twice:
+   each run held to ``MPM``'s CPIC frames on the card at the CPIC bounds
+   of phase 8, each kernel of its route once per substep per rank, every
+   particle kept; on two ranks the bodies equal in bits on both ranks
+   after every frame, migrants both ways, a balanced bound moved, both
+   near sets used, the default runs equal in bits. ``dist_cpic_path``:
+   the 100k CPIC wheel (``scenes.cpic_wheel()``) on two ranks sharing the
+   card, fused and balanced, 1 + 2 frames of 20 substeps: ms and host
+   syncs per substep per rank (``HostSyncs`` and torch's own count), the
+   exchange's, the impulse all-reduces' and the migration's ms per
+   substep in a synced frame, beside ``MPM``'s CPIC frame.
+   ``water_wheel_slabs``: ``scripts/mls-cpic/water_wheel.py`` at res 64
+   through the runner's scene with SHARDS=2 on two ranks sharing the
+   card, 3 frames of 2e-3 s (``--frame-dt``) with its source, against the
+   same through ``MPM``: equal particle counts, the wheel's omega within
+   1e-5. Then
    ``timing``: the seconds of these phases and of the whole script.
 
 Then the ``kernels`` line: per kernel its launches on each path (the
-slab phases' per rank: summed over ``dist_check``'s runs, and
-``dist_path``'s timed frames by rank), its
+slab phases' per rank: summed over ``dist_check``'s and
+``dist_cpic_check``'s runs, and ``dist_path``'s, ``dist_cpic_path``'s
+timed frames and ``water_wheel_slabs``' frames by rank), its
 CUDA-event time at the 8M shapes (and at the dam's), its plain version's
 time, its max abs error against the plain version there (from
 ``kernel_checks``), and its bound (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the
@@ -3341,29 +3366,19 @@ def torch_synced_frame(sim):
     return n / sim.slab_stats.substeps
 
 
-def dist_path_rank():
-    """On each rank of the shared-card group: the 8M jelly cube at res 128
-    on DistributedMPM (fused route, balanced), a warm-up frame,
-    DIST_PATH_TIMED_FRAMES timed frames of SUBSTEPS_PER_FRAME (ms and
-    host syncs per substep), one frame under torch's sync debug mode
+def slab_path_frames(sim, setup_s):
+    """The timed part of a slab path on each rank: a warm-up frame,
+    DIST_PATH_TIMED_FRAMES timed frames (ms and host syncs per substep,
+    the launches), one frame under torch's sync debug mode
     (``torch_synced_frame``), then one frame with a device sync around
-    each exchange and migration, for their ms."""
+    each exchange, migration and impulse all-reduce, for their ms; the
+    particles outside the domain or not finite, summed over the ranks."""
     import torch
 
-    from taichi_mpm_torch import scenes
     from taichi_mpm_torch.parallel import comm
-    from taichi_mpm_torch.parallel.driver import DistributedMPM
     from taichi_mpm_torch.parallel.spatial_blocked import SlabStats
     from taichi_mpm_torch.utils import HostSyncs
 
-    t0 = time.perf_counter()
-    sim = on_route(True, lambda: scenes.benchmark_cube(
-        cells=100, res=DIST_PATH_RES, device=DIST_DEVICE, solver=DistributedMPM,
-        **CUBE_KW["jelly"]))
-    sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
-    sim._ensure_finalized()
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
     sim.step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3394,12 +3409,31 @@ def dist_path_rank():
                 host_syncs_per_substep=syncs / n, torch_syncs_per_substep=torch_syncs,
                 exchange_ms_per_substep=split.exchange_s * 1e3 / split.substeps,
                 migrate_ms_per_substep=split.migrate_s * 1e3 / split.substeps,
+                impulse_sum_ms_per_substep=split.impulse_sum_s * 1e3 / split.substeps,
                 synced_ms_per_substep=split_s * 1e3 / split.substeps, resorts=st.resorts,
                 sent=(st.sent_left, st.sent_right), arrived=st.arrived, grown=st.grown,
-                bounds=st.bounds, local_particles=int(p.active.sum()),
+                bounds=st.bounds, n_near=st.n_near, local_particles=int(p.active.sum()),
                 count=sim.particle_count(), outside_or_nan=bad, launches=launches,
                 K=int(sim.block_capacity), setup_s=setup_s, fused=sim.fused,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def dist_path_rank():
+    """On each rank of the shared-card group: the 8M jelly cube at res 128
+    on DistributedMPM (fused route, balanced), ``slab_path_frames``."""
+    import torch
+
+    from taichi_mpm_torch import scenes
+    from taichi_mpm_torch.parallel.driver import DistributedMPM
+
+    t0 = time.perf_counter()
+    sim = on_route(True, lambda: scenes.benchmark_cube(
+        cells=100, res=DIST_PATH_RES, device=DIST_DEVICE, solver=DistributedMPM,
+        **CUBE_KW["jelly"]))
+    sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
+    sim._ensure_finalized()
+    torch.cuda.synchronize()
+    return slab_path_frames(sim, time.perf_counter() - t0)
 
 
 def phase_dist_path(card):
@@ -3448,6 +3482,360 @@ def phase_dist_path(card):
               failures=failures))
     raise_failures(failures)
     return {f"dist_path_rank{r['rank']}": r["launches"] for r in ranks}
+
+
+# -- CPIC on slabs: DistributedMPM with rigid bodies ------------------------------------
+
+DIST_CPIC_ROUTES = {"fused_balanced": (True, True), "fused_uniform": (True, False),
+                    "unfused_uniform": (False, False)}
+# the check's water: cpic_check_scene's 10k particles in a box as wide
+# (0.18 x 0.16 in x and z), on the wheel's upper right paddles above the
+# hub (x from 0.493, y 0.46 to 0.62), falling at 1 m/s: 373 of them lie
+# left of the uniform slab boundary at x = 0.5, and the equal-count split
+# sits 2 particles short of the column edge at x = 0.5833 (the balanced
+# bound starts at column 15); its lower half (y < 0.54) moves at -1.2 m/s
+# along x and its upper half at +0.5. It crosses both kinds of boundary
+# both ways, more of it leftwards, so the equal-count split, and the
+# balanced bound, moves left (15 -> 14). Most of the water stays right of
+# the axle, so the wheel's torques do not cancel (near-cancelling torques
+# would leave the bodies' rounding large beside their net spin).
+DIST_CPIC_LO, DIST_CPIC_HI = (0.493, 0.46, 0.42), (0.673, 0.62, 0.58)
+DIST_CPIC_SHEAR = (-1.2, 0.5)  # below, above the box's middle height
+WATER_WHEEL_FRAMES = 3
+WATER_WHEEL_FRAME_DT = 2e-3  # the runner's --frame-dt: 40 substeps of the script's 5e-5 s
+
+
+def dist_cpic_scene(solver, device):
+    """The slab CPIC check's scene (DIST_CPIC_LO, DIST_CPIC_HI,
+    DIST_CPIC_SHEAR): the CPIC wheel of cpic_check_scene built by
+    `solver`, frames of DIST_SUBSTEPS, each particle's index in
+    params[:, ID_ROW_PARAM]."""
+    from taichi_mpm_torch import scenes
+
+    sim = scenes.cpic_wheel(n=10_000, res=96, lo=DIST_CPIC_LO, hi=DIST_CPIC_HI,
+                            vel=(0.0, -1.0, 0.0), device=device, solver=solver)
+    sim.frame_dt = DIST_SUBSTEPS * sim.cfg.base_dt
+    batch = sim._pending[0]
+    lower = batch["x"][:, 1] < 0.5 * (DIST_CPIC_LO[1] + DIST_CPIC_HI[1])
+    batch["v"][:, 0] = np.where(lower, *DIST_CPIC_SHEAR)
+    batch["params"][:, ID_ROW_PARAM] = np.arange(batch["x"].shape[0], dtype=np.float32)
+    return sim
+
+
+def bodies_sha(sim):
+    return hashlib.sha256(b"".join(getattr(sim.bodies, k).cpu().numpy().tobytes()
+                                   for k in ("pos", "vel", "rot", "omega"))).hexdigest()
+
+
+def dist_cpic_routes(ref_dir, runs, device=DIST_DEVICE):
+    """On every rank of the current group: for each (route, repeat) of
+    `runs`, dist_cpic_scene on DistributedMPM over DIST_FRAMES frames, every
+    launch count set to 0 before. Each rank hashes its bodies after every
+    frame; rank 0 holds the gathered particles and the bodies to the
+    one-device frames saved in `ref_dir` (the CPIC bounds) and checks that
+    every particle stays finite and in the domain. Returns per run: this
+    rank's launches, slab events and body hashes, and on rank 0 the errors,
+    whether they are 0 (MPM's bits), the failures and the SHA-256 of the
+    gathered state."""
+    import functools
+
+    import torch
+
+    from taichi_mpm_torch.parallel.driver import DistributedMPM
+    from taichi_mpm_torch.utils import HostSyncs
+
+    out = {}
+    for name, rep in runs:
+        fused, balanced = DIST_CPIC_ROUTES[name]
+        solver = functools.partial(DistributedMPM, balanced=balanced)
+        sim = on_route(fused, lambda: dist_cpic_scene(solver, device))
+        sim._ensure_finalized()
+        zero_counts()
+        syncs = HostSyncs.count
+        shas = []
+        for _ in range(DIST_FRAMES):
+            sim.step()
+            shas.append(bodies_sha(sim))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        syncs = HostSyncs.count - syncs
+        launches = read_counts()
+        g = sim._gather()
+        st = sim.slab_stats
+        res = dict(launches=launches, fused=sim.fused, balanced=sim.slabs.balanced,
+                   substeps=st.substeps, resorts=st.resorts, sent=(st.sent_left, st.sent_right),
+                   arrived=st.arrived, bounds=st.bounds[:1] + st.bounds[-1:],
+                   bounds_moved=len(set(st.bounds)) > 1, count=sim.particle_count(),
+                   n_near=st.n_near, n_coarse=st.n_coarse, body_sha=shas,
+                   wheel_omega_z=float(sim.bodies.omega[2, 2]),
+                   host_syncs_per_substep=syncs / st.substeps)
+        if sim.rank == 0:
+            failures = []
+            got = tagged(g)
+            with np.load(os.path.join(ref_dir, f"cpic_ref_fused{int(fused)}.npz")) as ref:
+                ref = dict(ref)
+            errs = tagged_errors(ref, got, name, failures, CPIC_BOUNDS)
+            for k, bound in BODY_BOUNDS:
+                errs["body_" + k] = float(np.abs(ref["body_" + k].astype(np.float64)
+                                                 - getattr(sim.bodies, k).cpu().numpy()).max())
+                if not errs["body_" + k] <= bound:
+                    failures.append(f"{name}: body {k} differs by {errs['body_' + k]} > {bound}")
+            res["errors"] = errs
+            res["mpm_bits"] = all(v == 0.0 for v in errs.values()) and all(
+                np.array_equal(ref[k], got[k]) for k in ("x", "v", "F", "C", "states", "near_b"))
+            x = got["x"]
+            hi = sim.cfg.res[0] * sim.cfg.dx
+            if not (np.isfinite(x).all() and x.min() >= 0.0 and x.max() <= hi):
+                failures.append(f"{name}: positions not finite or outside the domain")
+            res["failures"] = failures
+            res["sha256"] = hashlib.sha256(b"".join(
+                np.ascontiguousarray(v).tobytes() for v in got.values())).hexdigest()
+        out[f"{name}_{rep}"] = res
+        del sim, g
+    return out
+
+
+def cpic_refs(ref_dir, device):
+    """MPM's CPIC frames of dist_cpic_scene on both routes, saved in
+    `ref_dir` (particles by id, bodies). Returns the particle count."""
+    from taichi_mpm_torch import MPM
+
+    for fused in (True, False):
+        ref = on_route(fused, lambda: dist_cpic_scene(MPM, device))
+        for _ in range(DIST_FRAMES):
+            ref.step()
+        arrays = tagged(ref.particles)
+        arrays.update({"body_" + k: getattr(ref.bodies, k).cpu().numpy()
+                       for k in ("pos", "vel", "rot", "omega")})
+        np.savez(os.path.join(ref_dir, f"cpic_ref_fused{int(fused)}.npz"), **arrays)
+        n = ref.particle_count()
+        del ref
+    return n
+
+
+def dist_cpic_failures(label, res, n_expected, substeps, failures):
+    """The checks of one rank's run of dist_cpic_routes."""
+    kernels = CPIC_KERNELS if res["fused"] else UNFUSED_CPIC_KERNELS
+    failures += [f"{label}: {f}"
+                 for f in route_failures(res["launches"], res["fused"], substeps, kernels)]
+    failures += [f"{label}: {f}" for f in res.get("failures", [])]
+    if res["count"] != n_expected:
+        failures.append(f"{label}: {res['count']} particles, not {n_expected}")
+    if res["substeps"] != substeps:
+        failures.append(f"{label}: {res['substeps']} substeps, not {substeps}")
+
+
+def phase_dist_cpic_check(card):
+    """``dist_cpic_check``: dist_cpic_scene (the 10k CPIC wheel, its water
+    straddling the slab boundary, sheared) on DistributedMPM on each CPIC
+    slab frame (the packed frame on balanced and on uniform bounds, the
+    pytree frame on uniform bounds), DIST_FRAMES frames of DIST_SUBSTEPS:
+    (a) one rank over NCCL in this process; (b) two ranks sharing the card
+    over gloo (spawned; the default route twice). Each run held to MPM's
+    CPIC frames on the card at the CPIC bounds (particles matched by id,
+    bodies), each kernel of its route once per substep per rank and no
+    other, every particle kept, finite and in the domain. On one rank the
+    fused routes' errors are printed beside whether they are 0 (MPM's
+    bits). On two ranks: the bodies equal in bits on both ranks after
+    every frame, migrants both ways, a balanced bound moved, the two
+    default runs equal in bits, both ranks' near sets used. Returns the
+    launches by path."""
+    import tempfile
+
+    from taichi_mpm_torch.parallel import comm
+
+    failures = []
+    n_sub = DIST_FRAMES * DIST_SUBSTEPS
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_cpic_") as d:
+        n_expected = cpic_refs(d, "cuda")
+        runs = [(name, 0) for name in DIST_CPIC_ROUTES]
+        with comm.process_group("nccl", 0, 1, comm.free_port(), timeout_s=DIST_TIMEOUT_S):
+            nccl = dist_cpic_routes(d, runs)
+        gloo = comm.run_ranks(dist_cpic_routes, 2, "gloo",
+                              args=(d, runs + [("fused_balanced", 1)]),
+                              timeout_s=DIST_TIMEOUT_S)
+    for key, res in nccl.items():
+        dist_cpic_failures(f"nccl {key}", res, n_expected, n_sub, failures)
+    for r, ranks in enumerate(gloo):
+        for key, res in ranks.items():
+            dist_cpic_failures(f"gloo rank {r} {key}", res, n_expected, n_sub, failures)
+    for key in gloo[0]:
+        if gloo[0][key]["body_sha"] != gloo[1][key]["body_sha"]:
+            failures.append(f"gloo {key}: the ranks' bodies differ in bits")
+        sent = [gloo[r][key]["sent"] for r in range(2)]
+        if not (sent[0][1] > 0 and sent[1][0] > 0):
+            failures.append(f"gloo {key}: no migrants both ways ({sent})")
+        if gloo[0][key]["balanced"] and not gloo[0][key]["bounds_moved"]:
+            failures.append(f"gloo {key}: no bound moved ({gloo[0][key]['bounds']})")
+        if min(gloo[r][key]["n_near"] for r in range(2)) == 0:
+            failures.append(f"gloo {key}: a rank's near set stayed empty")
+    if gloo[0]["fused_balanced_0"]["sha256"] != gloo[0]["fused_balanced_1"]["sha256"]:
+        failures.append("gloo fused_balanced: two runs not equal in bits")
+    launches = {"dist_cpic_check_nccl": {}, "dist_cpic_check_gloo": {}}
+    for path, runs_of in (("dist_cpic_check_nccl", [nccl]), ("dist_cpic_check_gloo", gloo)):
+        for ranks in runs_of:
+            for res in ranks.values():
+                for k, v in res["launches"].items():
+                    launches[path][k] = launches[path].get(k, 0) + v
+
+    def shown(r):
+        return {k: v for k, v in r.items() if k not in ("launches", "body_sha")}
+
+    emit(dict(phase="dist_cpic_check", card=card, particles=n_expected, substeps_per_run=n_sub,
+              seconds=time.perf_counter() - t0,
+              nccl={k: shown(r) for k, r in nccl.items()},
+              gloo=[{k: shown(r) for k, r in ranks.items()} for ranks in gloo],
+              launches=launches, failures=failures))
+    raise_failures(failures)
+    return launches
+
+
+def dist_cpic_path_rank():
+    """On each rank of the shared-card group: the 100k CPIC wheel
+    (scenes.cpic_wheel(), res 96) on DistributedMPM, fused and balanced,
+    ``slab_path_frames``, with the bodies' hash and the rigid map's
+    capacity."""
+    import torch
+
+    from taichi_mpm_torch import scenes
+    from taichi_mpm_torch.parallel.driver import DistributedMPM
+
+    t0 = time.perf_counter()
+    sim = on_route(True, lambda: scenes.cpic_wheel(device=DIST_DEVICE, solver=DistributedMPM))
+    sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
+    sim._ensure_finalized()
+    torch.cuda.synchronize()
+    out = slab_path_frames(sim, time.perf_counter() - t0)
+    out.update(body_sha=bodies_sha(sim), Kr=sim.cpic_caps.Kr)
+    return out
+
+
+def phase_dist_cpic_path(card):
+    """``dist_cpic_path``: the 100k CPIC wheel (scenes.cpic_wheel(), res 96,
+    bench.py's CPIC scene) on two ranks sharing the card (gloo), fused and
+    balanced, 1 + DIST_PATH_TIMED_FRAMES frames of 20 substeps: ms and host
+    syncs per substep per rank (HostSyncs and torch's own count), the
+    exchange's, the impulse all-reduces' and the migration's ms (a synced
+    frame), each kernel once per substep per rank; all 100,000 particles
+    kept, finite and in the domain, the bodies equal in bits on both
+    ranks. Beside it the same frames through MPM's CPIC frame. The two
+    ranks time-share one H100: this is no scaling number. Returns the
+    launches by rank."""
+    import torch
+
+    from taichi_mpm_torch import scenes
+    from taichi_mpm_torch.parallel import comm
+    from taichi_mpm_torch.utils import HostSyncs
+
+    failures = []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = comm.run_ranks(dist_cpic_path_rank, 2, "gloo", timeout_s=DIST_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    n_timed = DIST_PATH_TIMED_FRAMES * SUBSTEPS_PER_FRAME
+    for r in ranks:
+        failures += [f"rank {r['rank']}: {f}"
+                     for f in route_failures(r["launches"], True, n_timed, CPIC_KERNELS)]
+        if r["count"] != 100_000 or r["outside_or_nan"]:
+            failures.append(f"rank {r['rank']}: {r['count']} particles, "
+                            f"{r['outside_or_nan']} outside the domain or not finite")
+    if sum(r["local_particles"] for r in ranks) != 100_000:
+        failures.append("the slabs do not hold 100,000 particles between them")
+    if ranks[0]["body_sha"] != ranks[1]["body_sha"]:
+        failures.append("the ranks' bodies differ in bits")
+
+    sim = on_route(True, lambda: scenes.cpic_wheel(device="cuda"))
+    sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
+    sim.step()
+    sim.sync()
+    syncs = HostSyncs.count
+    t0 = time.perf_counter()
+    for _ in range(DIST_PATH_TIMED_FRAMES):
+        sim.step()
+    sim.sync()
+    one_ms = (time.perf_counter() - t0) * 1e3 / n_timed
+    one_syncs = (HostSyncs.count - syncs) / n_timed
+    del sim
+    emit(dict(phase="dist_cpic_path", card=card, what="two processes time-sharing one H100, "
+              "not a scaling number", particles=100_000, res=96, timed_substeps=n_timed,
+              ranks=[{k: v for k, v in r.items() if k != "body_sha"} for r in ranks],
+              one_device_ms_per_substep=one_ms, one_device_host_syncs_per_substep=one_syncs,
+              ranks_s=ranks_s, clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"),
+              failures=failures))
+    raise_failures(failures)
+    return {f"dist_cpic_path_rank{r['rank']}": r["launches"] for r in ranks}
+
+
+def water_wheel_rank(shards, device=DIST_DEVICE):
+    """scripts/mls-cpic/water_wheel.py through the runner's scene
+    (``runner.SCENES["water_wheel"]``, its source, ``runner.simulate``) for
+    WATER_WHEEL_FRAMES frames of WATER_WHEEL_FRAME_DT at res 64 (the
+    source emits each frame), with SHARDS=`shards`
+    (DistributedMPM on the current group, every rank on `device`; 1: MPM),
+    every launch count set to 0 before. Returns the particle count, the
+    bodies, their hash, the substeps, the seconds and the launches."""
+    import torch
+
+    from taichi_mpm_torch import runner
+
+    os.environ["SHARDS"] = str(shards)
+    try:
+        args = runner.parse_args(["water_wheel", "--frames", str(WATER_WHEEL_FRAMES),
+                                  "--frame-dt", str(WATER_WHEEL_FRAME_DT)], scene=True)
+        args.device = device
+        sim, frame_update = on_route(True, lambda: runner.SCENES["water_wheel"](args))
+        zero_counts()
+        t0 = time.perf_counter()
+        runner.simulate(sim, args, frame_update=frame_update)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        os.environ.pop("SHARDS", None)
+    st = getattr(sim, "slab_stats", None)
+    return dict(type=type(sim).__name__, count=sim.particle_count(), seconds=secs,
+                omega=sim.bodies.omega.cpu().numpy(), body_sha=bodies_sha(sim),
+                substeps=None if st is None else st.substeps, launches=read_counts(),
+                n_near=None if st is None else st.n_near)
+
+
+def phase_water_wheel_slabs(card):
+    """``water_wheel_slabs``: scripts/mls-cpic/water_wheel.py's scene
+    through the runner with SHARDS=2 on two ranks sharing the card (gloo),
+    WATER_WHEEL_FRAMES frames of WATER_WHEEL_FRAME_DT, and with SHARDS
+    unset (MPM) on the card: the
+    same particle count, the wheel's omega within the body bounds of MPM's,
+    the bodies equal in bits on both ranks, each CPIC kernel once per
+    substep per rank. Returns the launches by rank."""
+    from taichi_mpm_torch.parallel import comm
+
+    failures = []
+    t0 = time.perf_counter()
+    ranks = comm.run_ranks(water_wheel_rank, 2, "gloo", args=(2,), timeout_s=DIST_TIMEOUT_S)
+    ref = water_wheel_rank(1, "cuda")
+    bound = dict(BODY_BOUNDS)["omega"]
+    for r, res in enumerate(ranks):
+        if res["type"] != "DistributedMPM":
+            failures.append(f"rank {r}: the runner built {res['type']}")
+        if res["count"] != ref["count"]:
+            failures.append(f"rank {r}: {res['count']} particles, MPM {ref['count']}")
+        err = float(np.abs(res["omega"] - ref["omega"]).max())
+        if not err <= bound:
+            failures.append(f"rank {r}: omega differs from MPM's by {err} > {bound}")
+        failures += [f"rank {r}: {f}" for f in
+                     route_failures(res["launches"], True, res["substeps"], CPIC_KERNELS)]
+    if ranks[0]["body_sha"] != ranks[1]["body_sha"]:
+        failures.append("the ranks' bodies differ in bits")
+    if ref["count"] == 0:
+        failures.append("the source emitted nothing")
+    emit(dict(phase="water_wheel_slabs", card=card, frames=WATER_WHEEL_FRAMES,
+              particles=ref["count"], seconds=time.perf_counter() - t0,
+              mpm_seconds=ref["seconds"], ranks_seconds=[r["seconds"] for r in ranks],
+              substeps_per_rank=ranks[0]["substeps"], n_near=[r["n_near"] for r in ranks],
+              wheel_omega_z=float(ranks[0]["omega"][2, 2]),
+              mpm_wheel_omega_z=float(ref["omega"][2, 2]), failures=failures))
+    raise_failures(failures)
+    return {f"water_wheel_rank{r}": res["launches"] for r, res in enumerate(ranks)}
 
 
 def main():
@@ -3532,9 +3920,14 @@ def main():
     t_dist = time.perf_counter()
     launches.update(phase_dist_check(card))
     launches.update(phase_dist_path(card))
+    dist_s = time.perf_counter() - t_dist
+    t_dist_cpic = time.perf_counter()
+    launches.update(phase_dist_cpic_check(card))
+    launches.update(phase_dist_cpic_path(card))
+    launches.update(phase_water_wheel_slabs(card))
     emit(dict(phase="timing", dense_cpic_phases_s=dense_cpic_s,
-              bucketed_and_unfused_cpic_phases_s=new_phases_s,
-              dist_phases_s=time.perf_counter() - t_dist,
+              bucketed_and_unfused_cpic_phases_s=new_phases_s, dist_phases_s=dist_s,
+              dist_cpic_phases_s=time.perf_counter() - t_dist_cpic,
               script_s=time.perf_counter() - t_start))
     emit({"kernels": kernels_line(measured, launches, dam_ms, by_material)})
     print(card, flush=True)

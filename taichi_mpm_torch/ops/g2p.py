@@ -115,10 +115,23 @@ def finish_packed(st, acc, cfg: SimConfig, dt, zero_C=None):
 def _gather_plain(keys, st, win, cfg: SimConfig):
     """The window gather of both twins: rows v (3) and B row-major (9) of
     every lane from its slot's window over the 3x3x3 quadratic support
-    (zero for slot key K), summed in the kernel's order."""
+    (zero for slot key K), summed in the kernel's order. Only the lanes
+    of a live slot are computed (a slot-K lane gathers zero), so a state
+    of mostly free lanes costs what its live ones do."""
     K = win.shape[0]
-    flat = torch.cat([win.reshape(K, -1), win.new_zeros(1, 3 * TILE_NODES)])
-    slot = keys.long().clamp(max=K)
+    live = torch.nonzero(keys.long() < K).flatten()
+    acc = _gather_lanes(keys[live].long(), st[:, live], win, cfg)
+    out = [torch.zeros((st.shape[1],), dtype=st.dtype, device=st.device) for _ in range(12)]
+    for o, a in zip(out, acc):
+        o[live] = a
+    return out
+
+
+def _gather_lanes(slot, st, win, cfg: SimConfig):
+    """``_gather_plain`` of lanes whose slots are `slot` (< K), rows of
+    `st`."""
+    K = win.shape[0]
+    flat = win.reshape(K, -1)
     pos = torch.stack([st[RX + a] * cfg.inv_dx - st[RORG + a] for a in range(3)])
     base = torch.clamp(torch.floor(pos - 0.5), -2.0, 7.0)
     w = [[quadratic_weight(pos[a] - (base[a] + d)) for d in range(3)] for a in range(3)]

@@ -10,14 +10,20 @@ the collectives of ``parallel.comm``. Every call of the scene API is made
 by every rank; the read-outs return the global answer on every rank,
 and files are written by rank 0.
 
-Plain 3-D scenes run on 1-D slabs, on both routes (``TMT_FUSED``), with
-load-balanced bounds by default. Still to come (ROADMAP.md queue 1,
-'multi-gpu'): rigid bodies on slabs, ``DistributedAsyncMPM``, and the
-2-D pencil mesh (``mesh_shape``).
+3-D scenes run on 1-D slabs, on both routes (``TMT_FUSED``), with
+load-balanced bounds by default. A scene with rigid bodies (CPIC) keeps
+them replicated: every rank builds them, runs the host's rigid solves on
+its copy and applies the impulses summed over the ranks, so the copies
+stay equal in bits. Its frames route as the JAX driver's do: the fused
+route on uniform or balanced bounds (the packed CPIC frame), the unfused
+route on uniform bounds only (the pytree CPIC frame). Still to come
+(ROADMAP.md queue 1, 'multi-gpu'): ``DistributedAsyncMPM`` and the 2-D
+pencil mesh (``mesh_shape``).
 """
 
 from __future__ import annotations
 
+import os
 import types
 from typing import Optional, Sequence
 
@@ -32,6 +38,7 @@ from taichi_mpm_torch.ops.rows import RACT
 from taichi_mpm_torch.parallel import comm
 from taichi_mpm_torch.parallel import spatial_blocked as sb
 from taichi_mpm_torch.parallel.spatial import shard_spatially
+from taichi_mpm_torch.rigid import cpic_packed
 
 
 def _round64(n: int) -> int:
@@ -46,7 +53,9 @@ class DistributedMPM(MPM):
                   (default: the world size)
       mesh_shape: the 2-D pencil mesh, not ported yet (raises)
       balanced:   load-balanced slab bounds (default True; uniform slabs
-                  where the grid gives the bounds no room, r_max < 1)
+                  where the grid gives the bounds no room, r_max < 1, and
+                  on the unfused route of a CPIC scene, as in the JAX
+                  driver)
       r:          balance radius in block columns (default: the largest
                   the grid allows)
       slack:      each slab's initial capacity over the largest slab's
@@ -105,10 +114,18 @@ class DistributedMPM(MPM):
     def block_capacity(self) -> Optional[int]:
         return None if self._pcarry is None else self._pcarry[1].K
 
-    def _add_rigid(self, *a, **kw):
-        raise NotImplementedError(
-            "rigid bodies on slabs (CPIC) are not ported yet (ROADMAP.md queue 1, "
-            "'multi-gpu'); run the scene with MPM")
+    def _slab_radius(self) -> Optional[int]:
+        """The balance radius the frames run with: None (uniform slabs) on
+        the unfused route of a CPIC scene, whose pytree frame the JAX
+        driver runs on uniform slabs only; else ``r``."""
+        if self.bodies is None or self.fused:
+            return self.r
+        if self.cfg.res[0] % (4 * self.n_shards):
+            raise ValueError(
+                "TMT_FUSED=0 routes CPIC scenes to the uniform-slab pytree frame: "
+                f"res[0]={self.cfg.res[0]} must divide into whole blocks per shard "
+                f"(4*{self.n_shards})")
+        return None
 
     def _gather(self):
         """The global particle set on every rank: the ranks' lanes one
@@ -122,8 +139,8 @@ class DistributedMPM(MPM):
         every rank) into this rank's slab, leaving `slack` headroom."""
         p = self._particles
         cfg = self.cfg
-        self.slabs = sb.Slabs(cfg, self.n_shards, self.rank, self.r)
-        if self.balanced:
+        self.slabs = sb.Slabs(cfg, self.n_shards, self.rank, self._slab_radius())
+        if self.slabs.balanced:
             self._bounds = sb.balanced_bounds_host(p, cfg, self.n_shards, self.r)
             self._hist = torch.zeros((self.slabs.CB,), dtype=torch.int32, device=self.device)
             local, _ = sb.shard_spatially_bounds(p, cfg, self.n_shards, self.rank, self._bounds,
@@ -155,7 +172,8 @@ class DistributedMPM(MPM):
 
     def load(self, path: str):
         """Resume a snapshot (the port's or the JAX package's, of one device
-        or of slabs: snapshots hold the global set), then split it."""
+        or of slabs: snapshots hold the global set and the bodies), then
+        split it; every rank restores the same bodies."""
         super().load(path)
         self._shard()
 
@@ -165,9 +183,19 @@ class DistributedMPM(MPM):
         return _round64(min(blocked.total_blocks_padded(self.slabs.lcfg),
                             max(256, self._active_block_cap())))
 
+    def _rigid_caps(self):
+        """The CPIC frames' capacities: the rigid page map's Kr estimated as
+        ``MPM`` does, at most the slab's local block space."""
+        if self.cpic_caps is None:
+            self.cpic_caps = cpic_packed.Capacities(
+                min(self._rigid_map_cap(), blocked.total_blocks_padded(self.slabs.lcfg)))
+        return self.cpic_caps
+
     def step(self, frame_dt: Optional[float] = None):
-        """One frame on every rank (``slab_frame``). The slab's state stays
-        in its carry; ``particles`` unpacks it when read."""
+        """One frame on every rank (``slab_frame``; the CPIC frame where the
+        scene has rigid bodies). The slab's state stays in its carry;
+        ``particles`` unpacks it when read, and ``bodies`` are this rank's
+        copy of the replicated bodies."""
         if (self._particles is None and self._pcarry is None) or self._pending:
             self._finalize()
         n_sub = max(1, int(round((frame_dt or self.frame_dt) / self.cfg.base_dt)))
@@ -177,13 +205,21 @@ class DistributedMPM(MPM):
             state = (packed.pack_particles(p) if self.fused
                      else Particles(**{f: getattr(p, f).clone() for f in FIELDS}))
             carry = sb.SlabCarry(state, self._bounds, self._hist, self._initial_K())
-        sorts0 = self.slab_stats.resorts
+        rigid = {}
+        if self.bodies is not None:
+            carry.bodies = self.bodies
+            rigid = dict(scene=self.rigid_scene, caps=self._rigid_caps())
+        st = self.slab_stats
+        sorts0 = st.resorts
+        st.n_near = st.n_coarse = st.n_r = 0
         carry, t, plast = sb.slab_frame(carry, self.t, self.slabs, tuple(self.colliders),
-                                        self.cfg.base_dt, n_sub, self.fused, self.slab_stats)
+                                        self.cfg.base_dt, n_sub, self.fused, st, **rigid)
         if self.fused:
             self._cap_p = carry.state.shape[1]  # the lanes the packed state unpacks to
-        self._end_frame((carry.state, carry), t, self.slab_stats.resorts - sorts0,
-                        comm.all_sum(plast))
+        if self.bodies is not None:
+            self.bodies = carry.bodies
+            self.cpic_stats = dict(n_near=st.n_near, n_coarse=st.n_coarse, n_r=st.n_r)
+        self._end_frame((carry.state, carry), t, st.resorts - sorts0, comm.all_sum(plast))
 
     # -- read-out and I/O (every rank calls; the answers are global) ---------------
 
@@ -210,22 +246,27 @@ class DistributedMPM(MPM):
 
     def visualize(self, path: str, verbose: bool = False, write_rigid: bool = True,
                   writer: str = "native"):
-        """The global particles to a BGEO file, written by rank 0."""
+        """The global particles to a BGEO file and, with rigid bodies and
+        `write_rigid`, their meshes beside it (``MPM.visualize``), written
+        by rank 0."""
         self._ensure_finalized()
         p = self._gather()
         if self.rank == 0:
             self._write_bgeo(p, path, verbose, writer)
+            if write_rigid and self.bodies is not None:
+                self.write_rigid_meshes(os.path.splitext(path)[0] + "_rigid")
 
     def save(self, path: str):
-        """A snapshot of the global state (one device's format), written by
-        rank 0."""
+        """A snapshot of the global state (one device's format: the
+        particles and the bodies), written by rank 0."""
         from taichi_mpm_torch.io.checkpoint import save_checkpoint
 
         self._ensure_finalized()
         p = self._gather()
         if self.rank == 0:
             save_checkpoint(path, types.SimpleNamespace(
-                particles=p, bodies=None, t=self.t, cfg=self.cfg, frame_dt=self.frame_dt))
+                particles=p, bodies=self.bodies, t=self.t, cfg=self.cfg,
+                frame_dt=self.frame_dt))
 
 
 class DistributedAsyncMPM(DistributedMPM):

@@ -21,9 +21,17 @@ its own x-slab (torch counterpart of the plain-scene parts of
   of the uniform split, moved at most DMAX columns per re-sort towards
   equal counts, from the ranks' summed column histogram of the previous
   re-sort.
+* Rigid bodies (CPIC, the JAX package's ``build_spatial_cpic_frame``,
+  ``build_spatial_cpic_packed_frame`` and its balanced form): the bodies
+  are replicated, each rank runs the rigid prologue on its copy and
+  rasterizes the CDF into its grid window (``world_off``, the slab's
+  offset), un-scatters its own near particles from its own records
+  before the exchange, and applies the impulses summed over the ranks
+  (``cpic_slab_substep``); the rigid page map is rebuilt every substep,
+  as in the JAX package's slab frames.
 
-``slab_frame`` is one host loop for both routes and both kinds of
-bounds, with each JAX frame's event sequence: a re-sort at every frame
+``slab_frame`` is one host loop for both routes, both kinds of bounds
+and plain or CPIC scenes, with each JAX frame's event sequence: a re-sort at every frame
 start (rebalance, migration, local keys, the sort, the page map), then
 substeps while the drift stays under 0.45 cell, and a re-sort when it
 reaches 0.45, after a frame's last substep too. The fused route (the
@@ -55,6 +63,8 @@ from taichi_mpm_torch.ops.rows import NCH, RORG, RX
 from taichi_mpm_torch.ops.substep import build_page_map_full, grid_update_flat, prep_p2g
 from taichi_mpm_torch.parallel import comm
 from taichi_mpm_torch.parallel.spatial import migrate, split_host
+from taichi_mpm_torch.rigid.cpic_blocked import cpic_blocked_substep_presorted
+from taichi_mpm_torch.rigid.cpic_packed import cpic_packed_substep_presorted
 from taichi_mpm_torch.utils import const, host_read
 
 GHOST_CELLS = 4  # one ghost block each side of a slab
@@ -311,8 +321,10 @@ class Slabs:
 class SlabStats:
     """What slab frames did on this rank: substeps, re-sorts (and the
     substep count each one followed), migrants sent and received, lanes
-    added, the bounds after each re-sort, and, where ``timed`` (a device sync around each exchange
-    and migration), the seconds spent in them."""
+    added, the bounds after each re-sort, on CPIC scenes the largest near
+    sets (exact and coarse) and rigid page map of this rank's slab, and,
+    where ``timed`` (a device sync around each exchange, migration and
+    impulse sum), the seconds spent in them."""
 
     timed: bool = False
     substeps: int = 0
@@ -323,8 +335,12 @@ class SlabStats:
     arrived: int = 0
     grown: int = 0
     bounds: List[tuple] = dataclasses.field(default_factory=list)
+    n_near: int = 0
+    n_coarse: int = 0
+    n_r: int = 0
     exchange_s: float = 0.0
     migrate_s: float = 0.0
+    impulse_sum_s: float = 0.0
 
     def clock(self, device) -> float:
         if self.timed and device.type == "cuda":
@@ -337,12 +353,15 @@ class SlabCarry:
     """A rank's state between frames: its particles (the packed state on
     the fused route, a Particles set on the unfused one), the bounds
     (host int32; None on uniform slabs), the column histogram of the last
-    re-sort (balanced), and the page-map capacity K."""
+    re-sort (balanced), the page-map capacity K, and on a CPIC scene the
+    rigid bodies, replicated: every rank holds them whole, in the same
+    bits."""
 
     state: object
     bounds: Optional[np.ndarray]
     hist: Optional[torch.Tensor]
     K: int
+    bodies: object = None
 
 
 def _page_map(build, keys, lcfg: SimConfig, K: int):
@@ -447,17 +466,73 @@ def spatial_blocked_substep_presorted(p: Particles, pm, t, slabs: Slabs, bounds,
     return p, np.float32(t) + np.float32(dt), vmax, plast
 
 
+def _impulse_sum(stats: SlabStats):
+    """The CPIC substep's ``sum_fn``: the ranks' impulses summed by one
+    all-reduce (``comm.all_sum``). The backends' all-reduce hands every
+    rank the same sum (each element is reduced once and the result sent
+    to all), so the replicated bodies stay equal in bits on every rank;
+    with two ranks the sum a + b is also the same whichever way it is
+    taken. With more ranks its order is the backend's, fixed for a given
+    group, so a rerun on the same group gives the same bits."""
+
+    def total(x):
+        t0 = stats.clock(x.device)
+        out = comm.all_sum(x)
+        stats.impulse_sum_s += stats.clock(x.device) - t0
+        return out
+
+    return total
+
+
+def cpic_slab_substep(carry: SlabCarry, state, pm, t, slabs: Slabs, dt, fused: bool, scene, caps,
+                      stats: SlabStats):
+    """One coupled substep of this rank's slab (the substeps of the JAX
+    package's ``build_spatial_cpic_packed_frame``, its balanced form and
+    ``build_spatial_cpic_frame``): the packed CPIC substep on the fused
+    route, the pytree one on the unfused, with the slab's hooks. The
+    bodies in `carry` are replaced by the advanced ones. Returns (state,
+    t + dt, vmax, plast)."""
+    bounds = carry.bounds
+    xoff = slabs.xoff(bounds)
+    hooks = dict(lcfg=slabs.lcfg, world_off=const((xoff, 0.0, 0.0), torch.float32, pm["ids"].device),
+                 grid_colliders=shifted_colliders(scene.colliders, xoff),
+                 exchange_fn=_exchange_fn(pm, slabs, bounds, stats), sum_fn=_impulse_sum(stats))
+    if fused:
+        out = cpic_packed_substep_presorted(state, pm, carry.bodies, t, slabs.cfg, scene, dt, caps,
+                                            **hooks)
+    else:
+        origin = pm["origin"] + const((float(slabs.off_cells(bounds)), 0.0, 0.0), torch.float32,
+                                      state.device)
+        out = cpic_blocked_substep_presorted(state, pm, carry.bodies, t, slabs.cfg, scene, dt,
+                                             caps, origin=origin, **hooks)
+    (state, carry.bodies, t), n_near, n_coarse, n_r, vmax, plast = out
+    stats.n_near = max(stats.n_near, n_near)
+    stats.n_coarse = max(stats.n_coarse, n_coarse)
+    stats.n_r = max(stats.n_r, n_r)
+    return state, t, vmax, plast
+
+
 def slab_frame(carry: SlabCarry, t, slabs: Slabs, colliders, dt, n_substeps: int,
-               fused: bool = True, stats: Optional[SlabStats] = None):
+               fused: bool = True, stats: Optional[SlabStats] = None, scene=None, caps=None):
     """One fixed-dt frame of this rank's slab (module docstring): a
     re-sort, then n_substeps substeps with the lazy re-sort. Every rank
     calls it together. One host read per substep: the drift reduced over
     the ranks. Returns (carry, t, plast) with plast this rank's plastic
     events as a 0-d tensor; `stats` (a SlabStats) gathers the frame's
-    events."""
+    events.
+
+    With a rigid scene (`scene`, the ``rigid.scene.RigidScene``, and
+    `caps`, its ``cpic_packed.Capacities``) it is a CPIC frame
+    (``cpic_slab_substep``), the bodies in ``carry.bodies``: the JAX
+    package's packed CPIC frame on the fused route, on uniform or
+    balanced bounds, and its pytree CPIC frame on the unfused route,
+    where the driver keeps the bounds uniform. Each substep adds two
+    impulse all-reduces; the CPIC substep's own host reads (the near
+    set's sizes, the rigid map's occupancy, the bodies for the host's
+    solves) are per rank and decide no collective."""
     stats = SlabStats() if stats is None else stats
     state, pm, bounds, hist = _resort(carry, slabs, fused, stats)
-    carry = SlabCarry(state, bounds, hist, pm["ids"].shape[0])
+    carry = SlabCarry(state, bounds, hist, pm["ids"].shape[0], carry.bodies)
     dev = state.device
     step = np.float32(dt * slabs.cfg.inv_dx)
     step_t = torch.tensor(step, device=dev)
@@ -467,15 +542,20 @@ def slab_frame(carry: SlabCarry, t, slabs: Slabs, colliders, dt, n_substeps: int
     n = 0
     while n < n_substeps or drift >= packed.DRIFT_BOUND:
         while n < n_substeps and drift < packed.DRIFT_BOUND:
-            if fused:
+            if scene is not None:
+                state, t, vmax, dplast = cpic_slab_substep(carry, state, pm, t, slabs, dt, fused,
+                                                           scene, caps, stats)
+            elif fused:
                 gcolls = shifted_colliders(colliders, slabs.xoff(bounds))
                 (state, t), _, vmax, dplast = packed.fused_substep_presorted(
                     state, pm, t, slabs.cfg, colliders, dt, gcfg=slabs.lcfg,
                     grid_colliders=gcolls, exchange_fn=_exchange_fn(pm, slabs, bounds, stats))
-                drift = drift + step * np.float32(host_read(comm.all_max(vmax)))
             else:
                 state, t, vmax, dplast = spatial_blocked_substep_presorted(
                     state, pm, t, slabs, bounds, colliders, dt, stats)
+            if fused:
+                drift = drift + step * np.float32(host_read(comm.all_max(vmax)))
+            else:
                 local = local + step_t * vmax
                 drift = np.float32(host_read(comm.all_max(local)))
             plast += dplast
@@ -484,7 +564,7 @@ def slab_frame(carry: SlabCarry, t, slabs: Slabs, colliders, dt, n_substeps: int
         if drift >= packed.DRIFT_BOUND:
             carry.state = state
             state, pm, bounds, hist = _resort(carry, slabs, fused, stats)
-            carry = SlabCarry(state, bounds, hist, pm["ids"].shape[0])
+            carry = SlabCarry(state, bounds, hist, pm["ids"].shape[0], carry.bodies)
             drift = np.float32(0.0)
             local = torch.zeros_like(local)
     carry.state = state

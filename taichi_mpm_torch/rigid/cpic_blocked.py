@@ -36,6 +36,15 @@ is the rigid page map's occupancy n_r, and Kr grows where the map is
 built. Host reads per substep: those three, the bodies for the host's
 rigid solves where the scene has collisions or articulations, and max|v|
 for the drift.
+
+On slabs (``parallel.spatial_blocked``) both CPIC substeps take the JAX
+package's multichip hooks: the grid-frame config and the slab's offset
+``world_off`` (the CDF, the near set, the page map and the grid update in
+the slab's local frame, positions global), the origins with the offset,
+the shifted colliders, the boundary exchange after the P2G correction,
+and ``sum_fn``, the sum over the ranks of each rank's impulses, in place
+of JAX's ``axis``. Without them each is one device's substep, in the
+same bits.
 """
 
 from __future__ import annotations
@@ -119,10 +128,30 @@ def _body_terms(bodies, nrid, xg, pstates):
     return v, _friction_of(bodies, nrid, pstates)
 
 
-def p2g_correction(mini, nd, pm, bodies, rec, cfg: SimConfig, dt):
+def _world_nodes(nidx, cfg: SimConfig, world_off):
+    """World positions of grid nodes: on a slab the local node plus the
+    slab's offset, as the JAX package adds it."""
+    xg = nidx.to(torch.float32) * cfg.dx
+    return xg if world_off is None else xg + world_off
+
+
+def summed(sum_fn, J, tau):
+    """(J, tau) summed over the ranks by one call of `sum_fn` on the two
+    stacked (the sum is elementwise: stacking changes no value); as they
+    are where there is no `sum_fn` (one device)."""
+    if sum_fn is None:
+        return J, tau
+    both = sum_fn(torch.stack([J, tau]))
+    return both[0], both[1]
+
+
+def p2g_correction(mini, nd, pm, bodies, rec, cfg: SimConfig, dt, world_off=None):
     """Undo the plain scatter of the near set at colour-incompatible
     nodes and turn it into rigid impulses. rec: (K, 256) node records.
-    Returns (rec, J_tot (R, 3), tau_tot (R, 3))."""
+    `cfg` is the grid's config; on a slab its local one, with `world_off`
+    (3,) the slab's offset, which takes the node positions back to the
+    world for the rigid terms. Returns (rec, J_tot (R, 3), tau_tot
+    (R, 3))."""
     K = pm["ids"].shape[0]
     R = bodies.num
     smask = cdf.state_mask(R)
@@ -155,7 +184,7 @@ def p2g_correction(mini, nd, pm, bodies, rec, cfg: SimConfig, dt):
     index_add_ordered(flat, index, torch.where(sel, vals.reshape(-1), 0.0))
 
     # rigid impulses (transfer.cpp:241-252)
-    xg = nidx.to(torch.float32) * cfg.dx
+    xg = _world_nodes(nidx, cfg, world_off)
     rigid_v, fric = _body_terms(bodies, nrid, xg, pstates)
     velb = vel.expand_as(xg)
     dv = velb - friction_project(velb, rigid_v, bnormal.expand_as(xg), fric)
@@ -168,10 +197,11 @@ def p2g_correction(mini, nd, pm, bodies, rec, cfg: SimConfig, dt):
     return flat[:K * REC_LANES].reshape(rec.shape), J_tot, tau_tot
 
 
-def g2p_correction(mini, nd, pm, bodies, vrec, cfg: SimConfig, dt):
+def g2p_correction(mini, nd, pm, bodies, vrec, cfg: SimConfig, dt, world_off=None):
     """Per-offset corrections of the near set: the gathered grid velocity
-    at incompatible nodes is replaced by the CPIC ghost value. Returns
-    (dv (B, 3), dB (B, 3, 3), rid_last (B,))."""
+    at incompatible nodes is replaced by the CPIC ghost value. `cfg` and
+    `world_off` as in ``p2g_correction``. Returns (dv (B, 3), dB (B, 3, 3),
+    rid_last (B,))."""
     K = pm["ids"].shape[0]
     R = bodies.num
     smask = cdf.state_mask(R)
@@ -189,7 +219,7 @@ def g2p_correction(mini, nd, pm, bodies, vrec, cfg: SimConfig, dt):
     vflat = torch.cat([vrec.reshape(-1), vrec.new_zeros(VREC_LANES)])
     gv = torch.stack([vflat[lin_base + c * 64] for c in range(3)], -1)  # (27, B, 3)
 
-    xg = nidx.to(torch.float32) * cfg.dx
+    xg = _world_nodes(nidx, cfg, world_off)
     v_g, fric = _body_terms(bodies, nrid, xg, pstates)
     push = float(np.float32(dt * cfg.dx * cfg.pushing_force))
     pvb = pv.expand_as(xg)
@@ -246,7 +276,8 @@ def _solve_bodies(bodies, scene, dt):
     return hb.apply_to(bodies)
 
 
-def rigid_prologue(bodies, scene, cfg: SimConfig, dt, caps, rmap=None):
+def rigid_prologue(bodies, scene, cfg: SimConfig, dt, caps, rmap=None, gcfg: SimConfig = None,
+                   world_off=None):
     """coupling_iterations x {rigidify, articulate, rasterize CDF}.
     Returns (bodies, ncdf, n_r, xb_world).
 
@@ -254,28 +285,36 @@ def rigid_prologue(bodies, scene, cfg: SimConfig, dt, caps, rmap=None):
     rmap = (rids, rslot_map, n_r, chk) reuses a lazily kept map, checked
     here against the post-rigidify boundary positions that the rasterize
     uses and rebuilt (dilate=4) when one of them has left the check plane
-    (one host sync). Kr = 0 keeps the dense grid arrays."""
+    (one host sync). Kr = 0 keeps the dense grid arrays.
+
+    On a slab, `gcfg` is the slab's local grid config and `world_off`
+    (3,) its offset: the replicated boundary particles and elements,
+    shifted by -world_off, are rasterized into the slab's grid window
+    (the JAX package's ``xb_g``, ``elem_g``); every rank runs this on the
+    same bodies, with no collective."""
+    gcfg = cfg if gcfg is None else gcfg
     R = bodies.num
     ncdf, n_r, xb = None, 0, None
     for _ in range(max(1, cfg.coupling_iterations)):
         bodies = _solve_bodies(bodies, scene, dt)
         xb, _, elem_w = boundary_particle_world(bodies, scene.bp_rid, scene.bp_offset,
                                                 scene.bp_normal, scene.bp_elem)
+        xb_g, elem_g = (xb, elem_w) if world_off is None else (xb - world_off, elem_w - world_off)
         if caps.Kr > 0:
-            if rmap is not None and host_read(torch.all(rmap[3][cdf.block_id_of(xb, cfg)])):
+            if rmap is not None and host_read(torch.all(rmap[3][cdf.block_id_of(xb_g, gcfg)])):
                 rids, rslot_map, n_r = rmap[:3]
             else:
-                rids, rslot_map, n_r, _ = rigid_map(xb, cfg, caps,
+                rids, rslot_map, n_r, _ = rigid_map(xb_g, gcfg, caps,
                                                     dilate=4 if rmap is not None else 1)
             Kr = rids.shape[0]
             dist_r, rid_r, states_r, key_r = cdf.rasterize_rigid_boundary_records(
-                xb, elem_w, scene.bp_rid, R, cfg, rslot_map, Kr, return_key=True)
-            ncdf = cdf.RecordNodeCDF(dist_r, rid_r, states_r, rids, rslot_map, Kr, cfg,
+                xb_g, elem_g, scene.bp_rid, R, gcfg, rslot_map, Kr, return_key=True)
+            ncdf = cdf.RecordNodeCDF(dist_r, rid_r, states_r, rids, rslot_map, Kr, gcfg,
                                      num_rigids=R, key=key_r)
         else:
             dist, rid, states, key = cdf.rasterize_rigid_boundary(
-                xb, elem_w, scene.bp_rid, R, cfg, return_key=True)
-            ncdf = cdf.DenseNodeCDF(dist, rid, states, cfg, num_rigids=R, key=key)
+                xb_g, elem_g, scene.bp_rid, R, gcfg, return_key=True)
+            ncdf = cdf.DenseNodeCDF(dist, rid, states, gcfg, num_rigids=R, key=key)
             n_r = 0
     return bodies, ncdf, n_r, xb
 
@@ -323,11 +362,19 @@ def near_rigid_lanes(pm, node_states, cfg: SimConfig, positions, states,
     return idx, idx.numel(), n_coarse
 
 
-def compact_near_rigid_ranges(p: Particles, pm, node_states, cfg: SimConfig):
+def local_x(x, world_off):
+    """Positions in a slab's local grid frame (x - world_off); `x` itself
+    on one device."""
+    return x if world_off is None else x - world_off
+
+
+def compact_near_rigid_ranges(p: Particles, pm, node_states, cfg: SimConfig, world_off=None):
     """The near-rigid set of a sorted Particles set over its page map
-    (``near_rigid_lanes``, the exact stage-2 test). Returns (idx, n_near,
-    n_coarse)."""
-    return near_rigid_lanes(pm, node_states, cfg, lambda i: p.x[i], lambda i: p.states[i])
+    (``near_rigid_lanes``, the exact stage-2 test); on a slab `cfg` is the
+    local grid config and the positions are shifted by -world_off.
+    Returns (idx, n_near, n_coarse)."""
+    return near_rigid_lanes(pm, node_states, cfg, lambda i: local_x(p.x[i], world_off),
+                            lambda i: p.states[i])
 
 
 def compact_near_rigid(p: Particles, grid_states, cfg: SimConfig):
@@ -360,34 +407,52 @@ def compact_near_rigid(p: Particles, grid_states, cfg: SimConfig):
 # -- the pytree frame ---------------------------------------------------------------
 
 
-def _gather_rows(p: Particles, pm):
+def _gather_rows(p: Particles, origin):
     """The packed rows the gather kernel reads (positions and block
     origins; the other rows zero)."""
     rows = torch.zeros((NCH, p.capacity), dtype=torch.float32, device=p.device)
     rows[RX:RX + 3] = p.x.t()
-    rows[RORG:RORG + 3] = pm["origin"].t()
+    rows[RORG:RORG + 3] = origin.t()
     return rows
 
 
 def cpic_blocked_substep_presorted(p: Particles, pm, bodies, t, cfg: SimConfig, scene, dt,
-                                   caps):
+                                   caps, lcfg: SimConfig = None, world_off=None, origin=None,
+                                   grid_colliders=None, exchange_fn=None, sum_fn=None):
     """One coupled substep of a sorted Particles set against its frozen
     page map (``build_page_map_full``); caps.Kr sizes the rigid page map
     (grown where it overflows). Returns ((p, bodies, t + dt), n_near,
     n_coarse, n_r, vmax, plast) with vmax (max |v| component after the
-    finish, before the penalty) and plast as 0-d device tensors."""
+    finish, before the penalty) and plast as 0-d device tensors.
+
+    The slab frames' hooks (``parallel.spatial_blocked``; the JAX
+    package's): `lcfg` the slab's local grid config, in which the CDF,
+    the page map and the grid update work, and `world_off` (3,) its
+    offset (positions stay global); `origin` the particles' block origins
+    with the slab's offset already added, so the kernels see one
+    device's coordinates; `grid_colliders` the colliders shifted into
+    the local frame; `exchange_fn(rec)` the boundary exchange, after the
+    P2G correction (each rank un-scatters its own particles from its own
+    records first); `sum_fn(x)` the sum over the ranks of each rank's
+    impulses, J and tau stacked into one call, twice a substep, before
+    they are applied. Every rank calls it, with zeros where its slab has
+    no particle near a body. Absent hooks give one device's substep."""
     from taichi_mpm_torch.core.solver import clear_boundary_particles
     from taichi_mpm_torch.rigid.collision import rigid_levelset_collision
 
+    gcfg = cfg if lcfg is None else lcfg
+    origin = pm["origin"] if origin is None else origin
     R = bodies.num
     n = p.capacity
-    bodies, ncdf, n_r, xb = rigid_prologue(bodies, scene, cfg, dt, caps)
+    bodies, ncdf, n_r, xb = rigid_prologue(bodies, scene, cfg, dt, caps, gcfg=gcfg,
+                                           world_off=world_off)
 
     # the CDF gather on the near set; affinity rebuilt from zero
-    idx, n_near, n_coarse = compact_near_rigid_ranges(p, pm, ncdf, cfg)
+    idx, n_near, n_coarse = compact_near_rigid_ranges(p, pm, ncdf, gcfg, world_off)
     near = p.take(idx)
-    nd = cdf.stencil_node_data(near.x, ncdf, cfg)
-    st_c, bd_c, bn_c, nb_c = cdf.gather_cdf_lookup(near.x, near.states, R, cfg, nd)
+    x_loc = local_x(near.x, world_off)
+    nd = cdf.stencil_node_data(x_loc, ncdf, gcfg)
+    st_c, bd_c, bn_c, nb_c = cdf.gather_cdf_lookup(x_loc, near.states, R, gcfg, nd)
 
     def scattered(vals, shape, dtype):
         out = torch.zeros(shape, dtype=dtype, device=p.device)
@@ -400,25 +465,28 @@ def cpic_blocked_substep_presorted(p: Particles, pm, bodies, t, cfg: SimConfig, 
     mini = packed.pack_particles(p.take(idx))
 
     # plain P2G over all particles, then the correction of the near set
-    pdata = prep_p2g(p, None, cfg, dt, origin=pm["origin"])
+    pdata = prep_p2g(p, None, cfg, dt, origin=origin)
     tiles = p2g.p2g_blocked(pm["s_arr"], pm["e_arr"], pdata)
     del pdata
     rec = blocked.merge_tiles(tiles, pm["nbr"])
     del tiles
-    rec, J1, tau1 = p2g_correction(mini, nd, pm, bodies, rec, cfg, dt)
-    bodies = apply_impulses(bodies, J1, tau1)
+    rec, J1, tau1 = p2g_correction(mini, nd, pm, bodies, rec, gcfg, dt, world_off)
+    if exchange_fn is not None:
+        rec = exchange_fn(rec)
+    bodies = apply_impulses(bodies, *summed(sum_fn, J1, tau1))
     if scene.colliders:
         bodies = rigid_levelset_collision(bodies, xb, scene.bp_rid, scene.colliders, t, dt)
-    vrec = grid_update_flat(rec, pm["ids"], cfg, scene.colliders, t, dt)
+    vrec = grid_update_flat(rec, pm["ids"], gcfg,
+                            scene.colliders if grid_colliders is None else grid_colliders, t, dt)
     win = blocked.windows(vrec, pm["nbr"])
 
     # plain G2P over all particles, the correction of the near set, the finish
-    pout = g2p.g2p_blocked(pm["slot_keys"], _gather_rows(p, pm), win, cfg)
+    pout = g2p.g2p_blocked(pm["slot_keys"], _gather_rows(p, origin), win, cfg)
     del win
     act = p.active
     v_new = torch.where(act[:, None], pout[0:3].t(), 0.0)
     b_new = torch.where(act[:, None, None], pout[3:12].t().reshape(n, 3, 3), 0.0)
-    dv, dB, rid_last = g2p_correction(mini, nd, pm, bodies, vrec, cfg, dt)
+    dv, dB, rid_last = g2p_correction(mini, nd, pm, bodies, vrec, gcfg, dt, world_off)
     v_new[idx] += dv  # the near lanes are distinct
     b_new[idx] += dB
     p, plast = transfer.g2p_finish(p, v_new, b_new, cfg, dt, zero_C=p.near_b,
@@ -436,7 +504,7 @@ def cpic_blocked_substep_presorted(p: Particles, pm, bodies, t, cfg: SimConfig, 
     J2, tau2 = accumulate_impulses(bodies, torch.clamp(rid_last, 0, R - 1),
                                    dvp * p.mass[idx][:, None], p.x[idx], pen & (rid_last >= 0))
     p = dataclasses.replace(p, v=v)
-    bodies = apply_impulses(bodies, J2, tau2)
+    bodies = apply_impulses(bodies, *summed(sum_fn, J2, tau2))
     if cfg.particle_collision:
         p = transfer.particle_collision_resolution(p, cfg, scene.colliders, t)
     if cfg.clean_boundary:

@@ -64,10 +64,12 @@ from taichi_mpm_torch.rigid.body import (
 from taichi_mpm_torch.rigid.collision import rigid_levelset_collision
 from taichi_mpm_torch.rigid.cpic_blocked import (
     g2p_correction,
+    local_x,
     near_rigid_lanes,
     p2g_correction,
     rigid_map,
     rigid_prologue,
+    summed,
 )
 from taichi_mpm_torch.utils import host_read
 
@@ -88,11 +90,14 @@ def gather_mini(st, idx):
 
 
 def compact_near_rigid_packed(st, pm, node_states, cfg: SimConfig,
-                              fast_stage2: bool = False):
+                              fast_stage2: bool = False, world_off=None):
     """The near-rigid set on packed rows (``cpic_blocked.near_rigid_lanes``
-    over the state's position and affinity rows). Returns (idx (n_near,),
-    n_near, n_coarse), both counts read on the host."""
-    return near_rigid_lanes(pm, node_states, cfg, lambda i: st[RX:RX + 3, i].t(),
+    over the state's position and affinity rows); on a slab `cfg` is the
+    local grid config and the (global) positions are shifted by
+    -world_off. Returns (idx (n_near,), n_near, n_coarse), both counts
+    read on the host."""
+    return near_rigid_lanes(pm, node_states, cfg,
+                            lambda i: local_x(st[RX:RX + 3, i].t(), world_off),
                             lambda i: st[RSTATES, i].view(torch.int32), fast_stage2)
 
 
@@ -102,26 +107,37 @@ def _write_rows(st, r0, idx, values):
 
 
 def cpic_packed_substep_presorted(st, pm, bodies, t, cfg: SimConfig, scene, dt,
-                                  caps: Capacities, rmap=None, marks=None):
+                                  caps: Capacities, rmap=None, marks=None,
+                                  lcfg: SimConfig = None, world_off=None, grid_colliders=None,
+                                  exchange_fn=None, sum_fn=None):
     """One coupled substep on a sorted packed state (origins annotated by
     the sort) against its frozen page map; `st` is replaced, not updated
     in place. rmap: the lazily kept rigid page map (Kr > 0). marks, where
     given, is a callable called with the name of each stage as it ends
     (timing). Returns ((st, bodies, t + dt), n_near, n_coarse, n_r, vmax,
-    plast) with vmax and plast as 0-d device tensors."""
+    plast) with vmax and plast as 0-d device tensors.
+
+    The slab frames' hooks are those of
+    ``cpic_blocked.cpic_blocked_substep_presorted`` (`lcfg`, `world_off`,
+    `grid_colliders`, `exchange_fn`, `sum_fn`); the origin rows of `st`
+    already hold the slab's offset."""
     mark = marks or (lambda name: None)
+    gcfg = cfg if lcfg is None else lcfg
     R = bodies.num
     dt32 = np.float32(dt)
 
-    bodies, ncdf, n_r, xb = rigid_prologue(bodies, scene, cfg, dt, caps, rmap=rmap)
+    bodies, ncdf, n_r, xb = rigid_prologue(bodies, scene, cfg, dt, caps, rmap=rmap, gcfg=gcfg,
+                                           world_off=world_off)
     mark("prologue")
 
-    idx, n_near, n_coarse = compact_near_rigid_packed(st, pm, ncdf, cfg,
-                                                      fast_stage2=rmap is not None)
+    idx, n_near, n_coarse = compact_near_rigid_packed(st, pm, ncdf, gcfg,
+                                                      fast_stage2=rmap is not None,
+                                                      world_off=world_off)
     mini = gather_mini(st, idx)
-    nd = cdf.stencil_node_data(mini[RX:RX + 3].t(), ncdf, cfg)
+    x_loc = local_x(mini[RX:RX + 3].t(), world_off)
+    nd = cdf.stencil_node_data(x_loc, ncdf, gcfg)
     st_c, bd_c, bn_c, nb_c = cdf.gather_cdf_lookup(
-        mini[RX:RX + 3].t(), mini[RSTATES].view(torch.int32), R, cfg, nd)
+        x_loc, mini[RSTATES].view(torch.int32), R, gcfg, nd)
     # affinity rows 37-42 rebuilt from zero (leaving the neighbourhood
     # clears affinity); only the near lanes carry values
     aff = torch.cat([st_c.view(torch.float32)[None], bd_c[None], bn_c.t(),
@@ -136,19 +152,22 @@ def cpic_packed_substep_presorted(st, pm, bodies, t, cfg: SimConfig, scene, dt,
     mark("p2g_kernel")
     rec = blocked.merge_tiles(tiles, pm["nbr"])
     mark("merge_tiles")
-    rec, J1, tau1 = p2g_correction(mini, nd, pm, bodies, rec, cfg, dt)
-    bodies = apply_impulses(bodies, J1, tau1)
+    rec, J1, tau1 = p2g_correction(mini, nd, pm, bodies, rec, gcfg, dt, world_off)
+    if exchange_fn is not None:
+        rec = exchange_fn(rec)
+    bodies = apply_impulses(bodies, *summed(sum_fn, J1, tau1))
     if scene.colliders:
         bodies = rigid_levelset_collision(bodies, xb, scene.bp_rid, scene.colliders, t, dt)
     mark("p2g_correction")
 
-    vrec = grid_update_flat(rec, pm["ids"], cfg, scene.colliders, t, dt)
+    vrec = grid_update_flat(rec, pm["ids"], gcfg,
+                            scene.colliders if grid_colliders is None else grid_colliders, t, dt)
     mark("grid_update")
     win = blocked.windows(vrec, pm["nbr"])
     mark("windows")
     pout = g2p.g2p_blocked(pm["slot_keys"], st, win, cfg)
     mark("g2p_blocked_kernel")
-    dv, dB, rid_last = g2p_correction(mini, nd, pm, bodies, vrec, cfg, dt)
+    dv, dB, rid_last = g2p_correction(mini, nd, pm, bodies, vrec, gcfg, dt, world_off)
     vmask = mini[RACT] > 0.5
     corr = torch.cat([dv.t(), dB.reshape(-1, 9).t()])
     pout[:, idx] += torch.where(vmask, corr, 0.0)  # the near lanes are distinct
@@ -167,7 +186,7 @@ def cpic_packed_substep_presorted(st, pm, bodies, t, cfg: SimConfig, scene, dt,
     x_pen = st[RX:RX + 3, idx].t()
     J2, tau2 = accumulate_impulses(bodies, torch.clamp(rid_last, 0, R - 1),
                                    dvp * mini[RMASS][:, None], x_pen, pen & (rid_last >= 0))
-    bodies = apply_impulses(bodies, J2, tau2)
+    bodies = apply_impulses(bodies, *summed(sum_fn, J2, tau2))
     if cfg.particle_collision:
         st = packed.particle_collision_packed(st, cfg, scene.colliders, t)
     if cfg.clean_boundary:

@@ -14,6 +14,7 @@ and the module runs the scripts' counterparts in ``scenes`` itself:
     python -m taichi_mpm_torch.runner water --res 32 --frames 3 --cpu --out out/
     python -m taichi_mpm_torch.runner balls --res 32 --frames 2 --cpu
     python -m taichi_mpm_torch.runner sand_paddles --frame-dt 1e-3 --out out/
+    python -m taichi_mpm_torch.runner water_wheel --res 32 --frames 2 --cpu --frame-dt 2e-3
     python -m taichi_mpm_torch.runner colliding_balls_energy --res 32 --frames 2 --cpu
     python -m taichi_mpm_torch.runner tetris --frames 5 --cpu --out out/
     python -m taichi_mpm_torch.runner sand_wheel_2d --res 128 --frames 3 --cpu
@@ -23,6 +24,7 @@ class runs on N ranks (``parallel.driver.DistributedMPM``, one GPU per
 rank over nccl; with ``--cpu``, gloo on the CPU):
 
     SHARDS=2 torchrun --nproc-per-node 2 -m taichi_mpm_torch.runner colliding_balls_energy
+    SHARDS=2 torchrun --nproc-per-node 2 -m taichi_mpm_torch.runner water_wheel --frames 120
 
 Frames go to ``<out>/<frame>.bgeo`` (five digits), snapshots to
 ``<out>/snapshot_<frame>.npz`` every ``--snapshot-interval`` frames, and
@@ -192,6 +194,14 @@ def _sand_paddles(args):
     return sim, scenes.sand_paddles_source
 
 
+def _water_wheel(args):
+    from taichi_mpm_torch import scenes
+
+    sim = scenes.water_wheel(res=args.res or 64, device=args.device,
+                             solver=mpm_class(args.device))
+    return sim, scenes.water_wheel_source
+
+
 def _sand_wheel_2d(args):
     from taichi_mpm_torch import scenes
 
@@ -219,6 +229,7 @@ def _dense(name, res):
 
 # the scene scripts' counterparts: name -> (args -> (sim, frame_update))
 SCENES = {"water": _water, "balls": _balls, "sand_paddles": _sand_paddles,
+          "water_wheel": _water_wheel,
           "colliding_balls_energy": _dense("colliding_balls_energy", 100),
           "oscillating_jello": _dense("oscillating_jello", 50),
           "tetris": _dense("tetris", 128), "mpm88": _dense("mpm88", None),

@@ -14,7 +14,9 @@ and ``sand_column`` the sand column of ``scripts/async/sand.py``, both
 seeded on a lattice (the cells the earlier H100 measurements name).
 ``water_script``, ``async_balls`` (``scripts/async/balls.py``) and
 ``sand_paddles`` build their scripts' scenes line for line, texture
-seeding and the sand source included.
+seeding and the sand source included, and so does ``water_wheel``
+(``scripts/mls-cpic/water_wheel.py``, the water source included), which
+runs on slabs with ``solver=DistributedMPM``.
 ``elastic_block_drop`` and ``sand_column_collapse`` are the JAX package's
 baseline scenes.
 
@@ -253,6 +255,44 @@ def sand_paddles(res: int = 64, device=None, solver=MPM) -> MPM:
             scripted_rotation=lambda t, k=k: (0.0, 0.0, (1 - 2 * (k % 2)) * 180.0 * t),
         )
     return sim
+
+
+WATER_WHEEL_CENTER = (0.5, 0.5, 0.5)
+# the stream strikes the paddles (reach |x - 0.5| <= 0.15) left of the axle
+WATER_WHEEL_SOURCE = texture.ring((0.40, 0.85), inner=0.0, outer=0.04, axis=2).bound(
+    2, 0.47, 0.53) * 8
+
+
+def water_wheel(res: int = 64, device=None, solver=MPM) -> MPM:
+    """``scripts/mls-cpic/water_wheel.py`` line for line: res^3, dt 5e-5,
+    frame_dt 0.01, penalty 1e3, capacity max(50,000, 0.025 res^3); a floor
+    at y = 0.1 with friction 0.2; a hub (cylinder, radius 0.04, half height
+    0.06, 16 sides, axis z) and a 6-paddle wheel, both codimensional with
+    density 1, friction 0.2, angular damping 3, their position scripted at
+    (0.5, 0.5, 0.5) and free rotation about z, joined by a rotation
+    articulation. It holds no particles at first: its water comes from
+    ``water_wheel_source``, the script's ``frame_update``. `solver` is the
+    class (the runner's ``mpm_class``: with SHARDS=N, ``DistributedMPM``).
+    Runs on the card unless `device` names another."""
+    sim = solver(res=(res, res, res), base_delta_t=5e-5, frame_dt=0.01, penalty=1e3,
+                 capacity=max(50_000, int(0.025 * res ** 3)), device=device)
+    sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 1] - 0.1, friction=0.2))
+    body = dict(density=1.0, friction=0.2, codimensional=True, angular_damping=3.0,
+                scripted_position=lambda t: WATER_WHEEL_CENTER, rotation_axis=(0, 0, 1))
+    hub = sim.add_particles("rigid", mesh=cylinder_mesh(radius=0.04, half_height=0.06, n=16,
+                                                        axis=2), **body)
+    wheel = sim.add_particles("rigid", mesh=paddle_wheel_mesh(), **body)
+    sim.add_articulation("rotation", hub, wheel)
+    return sim
+
+
+def water_wheel_source(s, f):
+    """The water source of ``scripts/mls-cpic/water_wheel.py`` (its
+    ``frame_update``): every frame, water (density 1000) emitted from the
+    ring texture at (0.40, 0.85), radius 0.04, z in [0.47, 0.53], density 8,
+    falling at 0.5 m/s."""
+    s.add_particles("water", density=1000, density_tex=WATER_WHEEL_SOURCE, pd_source=True,
+                    vel=(0, -0.5, 0), delta_t=s.frame_dt)
 
 
 def sand_paddles_source(s, f):

@@ -6,6 +6,7 @@ takes numpy inputs and returns numpy results."""
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -162,4 +163,216 @@ def scenes(snapshot, out_dir):
         del os.environ["SHARDS"]
     res["runner"] = dict(type=type(rsim).__name__, count=rsim.particle_count(),
                          energy=rsim.energy(), positions=rsim.positions())
+    return res
+
+
+# -- CPIC scenes (tests/port/test_torch_slabs_cpic.py) --------------------------------
+
+CPIC_ROUTES = {"fused_balanced": (True, True), "fused_uniform": (True, False),
+               "unfused_uniform": (False, False)}
+BODY_FIELDS = ("pos", "vel", "rot", "omega")
+
+
+def plate_scene(cls, plate_mesh, free=False, **kw):
+    """tests/test_distributed_driver.py:79-121's scene: 400 jelly particles
+    uniform in [0.25, 0.75]^3 moving at (1, -0.5, 0), res 32, penalty 1e3,
+    over a plate (half size 0.22, normal y) at (0.5, 0.4, 0.5), which
+    straddles the slab boundary at x = 0.5; its rotation scripted, or
+    free with `free`; frames of 6 substeps. `plate_mesh` is the mesh
+    module's of `cls`'s package; ids tagged."""
+    rng = np.random.default_rng(3)
+    sim = cls(res=(32, 32, 32), base_delta_t=2e-4, frame_dt=12e-4, gravity=(0, -10.0, 0),
+              penalty=1e3, **kw)
+    pos = rng.uniform(0.25, 0.75, size=(400, 3)).astype(np.float32)
+    sim.add_particles("jelly", pos=pos, vel=(1.0, -0.5, 0), E=1e4, nu=0.3, density=1000)
+    motion = {} if free else dict(scripted_rotation=lambda t: (0.0, 0.0, 0.0))
+    sim.add_particles("rigid", mesh=plate_mesh(half_u=0.22, half_v=0.22, axis=1),
+                      scripted_position=lambda t: (0.5, 0.4, 0.5), codimensional=True,
+                      friction=0.2, **motion)
+    tag_pending(sim)
+    return sim
+
+
+def cluster_scene(cls, plate_mesh, **kw):
+    """A left cluster pushed through a plate (after
+    tests/test_spatial_blocked.py:285-353, whose cluster moves at 2 m/s
+    for 18 substeps, too slow to reach its plate or move a bound): 500
+    jelly particles in [0.2, 0.4] x [0.35, 0.65]^2 at 20 m/s along x
+    through a scripted plate (half size 0.12, normal y) at (0.4, 0.5,
+    0.5), which cuts the cluster in two, res (64, 32, 32), gravity -4,
+    frames of 6 substeps. The equal-count split moves right, so a
+    balanced bound moves (r = 3: within [5, 11] of 16 columns); on
+    uniform slabs rank 1 holds nothing at first."""
+    rng = np.random.default_rng(5)
+    sim = cls(res=(64, 32, 32), base_delta_t=2e-4, frame_dt=12e-4, gravity=(0, -4.0, 0),
+              penalty=1e3, **kw)
+    n = 500
+    x0 = np.empty((n, 3), np.float32)
+    x0[:, 0] = rng.uniform(0.2, 0.4, n)
+    x0[:, 1] = rng.uniform(0.35, 0.65, n)
+    x0[:, 2] = rng.uniform(0.35, 0.65, n)
+    sim.add_particles("jelly", pos=x0, vel=(20.0, 0.0, 0.0), E=1e4, nu=0.3, density=1000)
+    sim.add_particles("rigid", mesh=plate_mesh(half_u=0.12, half_v=0.12, axis=1),
+                      scripted_position=lambda t: (0.4, 0.5, 0.5),
+                      scripted_rotation=lambda t: (0.0, 0.0, 0.0), codimensional=True,
+                      friction=0.2)
+    tag_pending(sim)
+    return sim
+
+
+def island_scene(cls, plate_mesh, **kw):
+    """A body inside rank 0's slab: 400 jelly particles in [0.1, 0.75] x
+    [0.42, 0.62] x [0.35, 0.65] falling at 1 m/s onto a small plate (half
+    size 0.08, normal y, free to turn) at (0.2, 0.4, 0.5), res 32; the
+    grid window of rank 1 (x >= 0.375) holds no node of the plate's CDF,
+    so its near set is empty while its slab holds particles."""
+    rng = np.random.default_rng(7)
+    sim = cls(res=(32, 32, 32), base_delta_t=2e-4, frame_dt=12e-4, gravity=(0, -10.0, 0),
+              penalty=1e3, **kw)
+    pos = (rng.uniform(0.0, 1.0, (400, 3)) * [0.65, 0.2, 0.3] + [0.1, 0.42, 0.35]).astype(
+        np.float32)
+    sim.add_particles("jelly", pos=pos, vel=(0.0, -1.0, 0.0), E=1e4, nu=0.3, density=1000)
+    sim.add_particles("rigid", mesh=plate_mesh(half_u=0.08, half_v=0.08, axis=1),
+                      scripted_position=lambda t: (0.2, 0.4, 0.5), codimensional=True,
+                      friction=0.2)
+    tag_pending(sim)
+    return sim
+
+
+CPIC_SCENES = {"plate_free": (functools.partial(plate_scene, free=True), 2),
+               "cluster": (cluster_scene, 3), "island": (island_scene, 2)}
+
+
+def island_with_source(cls, plate_mesh, frames=2, **kw):
+    """island_scene, and after its first frame a source of 60 jelly
+    particles above the plate, written into free lanes (on slabs: the
+    global set gathered, written and split again); the plate keeps
+    turning through it. Returns the scene after `frames` frames."""
+    sim = island_scene(cls, plate_mesh, capacity=600, **kw)
+    sim.step()
+    rng = np.random.default_rng(8)
+    pos = (rng.uniform(0.0, 1.0, (60, 3)) * [0.1, 0.05, 0.1] + [0.15, 0.45, 0.45]).astype(
+        np.float32)
+    sim.add_particles("jelly", pos=pos, vel=(0.0, -1.0, 0.0), E=1e4, nu=0.3, density=1000)
+    for _ in range(frames - 1):
+        sim.step()
+    return sim
+
+
+def _bodies(sim):
+    return {k: getattr(sim.bodies, k).cpu().numpy().copy() for k in BODY_FIELDS}
+
+
+def _cpic_run(make, frames):
+    """make(DistributedMPM) stepped `frames` times on this rank: the
+    gathered particles, this rank's bodies after each frame, the slab
+    events."""
+    from taichi_mpm_torch.parallel.driver import DistributedMPM
+
+    sim = make(DistributedMPM)
+    bodies = []
+    for _ in range(frames):
+        sim.step()
+        bodies.append(_bodies(sim))
+    st = sim.slab_stats
+    return dict(convert.particles_to_numpy(sim._gather()), bodies=bodies, fused=sim.fused,
+                balanced=sim.slabs.balanced, sent=(st.sent_left, st.sent_right),
+                bounds=list(st.bounds), resorts=st.resorts, n_near=st.n_near,
+                n_coarse=st.n_coarse, count=sim.particle_count(), t=float(sim.t))
+
+
+def _mpm_run(make, fused, frames):
+    """The one-device reference: make(MPM) on a route, `frames` frames."""
+    from taichi_mpm_torch import MPM
+
+    _route(fused)
+    sim = make(MPM)
+    for _ in range(frames):
+        sim.step()
+    return dict(convert.particles_to_numpy(sim.particles), bodies=_bodies(sim))
+
+
+def _runner_water_wheel(out_dir, shards):
+    """scenes.water_wheel through runner.main at res 32, 2 frames of 2e-3
+    s (40 substeps; the source emits each frame), on `shards` ranks."""
+    from taichi_mpm_torch import runner
+
+    if shards > 1:
+        os.environ["SHARDS"] = str(shards)
+    try:
+        sim = runner.main(["water_wheel", "--res", "32", "--frames", "2", "--cpu",
+                           "--frame-dt", "2e-3", "--out", out_dir])
+    finally:
+        os.environ.pop("SHARDS", None)
+    return dict(type=type(sim).__name__, count=sim.particle_count(), bodies=_bodies(sim),
+                positions=sim.positions())
+
+
+def cpic_scenes(out_dir):
+    """The CPIC slice on this rank: the plate scene on the default route
+    (held to JAX's); each scene of CPIC_SCENES on each slab frame; the
+    unfused route's indivisible res[0]; a save after frame 1 resumed by a
+    fresh scene; water_wheel through the runner with SHARDS=2; the island
+    scene with a source after its first frame; then this
+    rank's share of the one-device references (rank r the jobs r, r + 2,
+    ...). Returns a dict of numpy results."""
+    from taichi_mpm_torch import MPM
+    from taichi_mpm_torch.parallel.driver import DistributedMPM
+    from taichi_mpm_torch.rigid.mesh import plate_mesh
+
+    torch.set_num_threads(1)
+    s = comm.rank()
+    res = {}
+    _route(True)
+    res["jax_plate"] = _cpic_run(lambda cls: plate_scene(cls, plate_mesh, device="cpu"), 1)
+    for name, (scene, frames) in CPIC_SCENES.items():
+        for route, (fused, balanced) in CPIC_ROUTES.items():
+            _route(fused)
+            res[f"{name}_{route}"] = _cpic_run(
+                lambda cls: scene(cls, plate_mesh, balanced=balanced, device="cpu"), frames)
+
+    _route(False)
+    try:
+        sim = cluster_scene(lambda **kw: DistributedMPM(**dict(kw, res=(36, 32, 32))),
+                            plate_mesh, device="cpu")
+        sim.step()
+        res["indivisible"] = None
+    except ValueError as e:
+        res["indivisible"] = str(e)
+    _route(True)
+
+    snap = os.path.join(out_dir, "cpic_slabs.npz")
+    sim = island_scene(DistributedMPM, plate_mesh, balanced=False, device="cpu")
+    sim.step()
+    sim.save(snap)
+    sim.step()
+    resumed = island_scene(DistributedMPM, plate_mesh, balanced=False, capacity=4096,
+                           device="cpu")  # the lanes of the ranks' slabs, all of them
+    resumed.load(snap)
+    resumed.step()
+    res["resume"] = dict(
+        uninterrupted=dict(convert.particles_to_numpy(sim._gather()), bodies=_bodies(sim)),
+        resumed=dict(convert.particles_to_numpy(resumed._gather()), bodies=_bodies(resumed)),
+        migrants=(resumed.slab_stats.sent_left, resumed.slab_stats.sent_right,
+                  sim.slab_stats.resort_after))
+    res["water_wheel"] = _runner_water_wheel(os.path.join(out_dir, "ww_slabs"), 2)
+    sim = island_with_source(DistributedMPM, plate_mesh, device="cpu")
+    res["island_source"] = dict(count=sim.particle_count(), bodies=_bodies(sim))
+
+    jobs = [(f"{name}_{int(fused)}", scene, fused, frames)
+            for name, (scene, frames) in CPIC_SCENES.items() for fused in (True, False)]
+    jobs[:0] = [("water_wheel", None, True, 0), ("island_source", island_with_source, True, 0)]
+    mpm = {}
+    for key, scene, fused, frames in jobs[s::2]:
+        if scene is None:
+            _route(True)
+            mpm[key] = _runner_water_wheel(os.path.join(out_dir, "ww_mpm"), 1)
+        elif scene is island_with_source:
+            _route(True)
+            sim = island_with_source(MPM, plate_mesh, device="cpu")
+            mpm[key] = dict(count=sim.particle_count(), bodies=_bodies(sim))
+        else:
+            mpm[key] = _mpm_run(lambda cls: scene(cls, plate_mesh, device="cpu"), fused, frames)
+    _route(True)
+    res["mpm"] = mpm
     return res

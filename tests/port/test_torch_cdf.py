@@ -18,8 +18,13 @@ package's ``cpic_packed_pack_carry``). Held:
 * the gather-only G2P's plain version against ``g2p_blocked`` in
   interpret mode, with the block-local positions built as the JAX CPIC
   frame builds them: 1e-5 of max|v| (the TPU kernel forms B as
-  pos * v - sum w g node, the port as sum w g (pos - node)).
+  pos * v - sum w g node, the port as sum w g (pos - node));
+* the prologue at coupling_iterations = 2 against JAX's; and, on the
+  port alone, with a stale lazy map, which it must rebuild (a res-64
+  plate scene): the CDF of a fresh build in bits.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -41,6 +46,7 @@ from taichi_mpm_torch.ops.rows import RBN, RNEARB, RORG, RSTATES, RX
 from taichi_mpm_torch.rigid import cdf as tcdf
 from taichi_mpm_torch.rigid import cpic_blocked as tcb
 from taichi_mpm_torch.rigid import cpic_packed as tcp
+from taichi_mpm_torch.rigid.body import boundary_particle_world
 
 from port_helpers import jax_hub_wheel_scene, max_err, np_of, port_inputs
 
@@ -257,3 +263,72 @@ def test_g2p_blocked_plain_matches_jax(scene):
     scale = float(np.abs(jout[:3]).max())
     assert max_err(jout[:12], tout) <= 1e-5 * scale
     assert int((np_of(tout[0]) != 0).sum()) > 0
+
+
+def test_prologue_coupling_iterations_matches_jax(scene):
+    """coupling_iterations = 2 (tests/test_cpic.py:447 holds it between
+    JAX's blocked and oracle substeps): the prologue runs {rigidify,
+    articulate, rasterize} twice, with the record CDF, on the hub/wheel
+    pair turning at -3 and 5 rad/s, so that the articulation has work to
+    do, and matches JAX's at the bounds of test_prologue_matches_jax."""
+    sim = scene["sim"]
+    spin = np.zeros((3, 3), np.float32)
+    spin[1, 2], spin[2, 2] = -3.0, 5.0
+    jb0 = dataclasses.replace(sim.bodies, omega=sim.bodies.omega + jnp.asarray(spin))
+    tb0 = scene["tb"].replace(omega=scene["tb"].omega + torch.as_tensor(spin))
+    cfg2 = dataclasses.replace(sim.cfg, coupling_iterations=2)
+    tcfg2 = dataclasses.replace(scene["tcfg"], coupling_iterations=2)
+    jb, jn, jnr, jxb = jcb.rigid_prologue(jb0, sim.rigid_scene, cfg2, cfg2, cfg2.base_dt, 128)
+    tb, tn, tnr, txb = tcb.rigid_prologue(tb0, scene["ts"], tcfg2, cfg2.base_dt,
+                                          tcp.Capacities(128))
+    for name in ("pos", "vel", "rot", "omega"):
+        assert max_err(getattr(jb, name), getattr(tb, name)) <= 1e-6 * _scale(getattr(jb, name))
+    assert max_err(jxb, txb) <= 1e-6 and int(jnr) == int(tnr)
+    assert np.array_equal(np.asarray(jn.states), np_of(tn.states))
+    assert np.array_equal(np.asarray(jn.rid), np_of(tn.rid))
+    assert max_err(jn.dist, tn.dist) <= 1e-6
+    assert max_err(tb0.omega, tb.omega) > 1.0  # the articulation acted
+
+
+def test_prologue_rebuilds_stale_map():
+    """The lazy rigid map checked at use (the port's counterpart of
+    tests/test_cdf_fast.py:229): a map cached from the bodies moved 0.4 in
+    x, whose dilate-4 blocks and check plane miss the boundary particles'
+    blocks, is rebuilt inside the prologue, and the CDF equals the fresh
+    build's in bits, where rasterizing into the stale map's records loses
+    every write. A res-64 scene with a small plate, built by the port's
+    MPM (at low res the dilation covers the whole grid and no map goes
+    stale); the fresh build is held to JAX's by test_prologue_matches_jax."""
+    from taichi_mpm_torch import MPM
+    from taichi_mpm_torch.rigid.mesh import plate_mesh
+
+    rng = np.random.default_rng(11)
+    sim = MPM(res=(64, 64, 64), base_delta_t=2e-4, gravity=(0, -10.0, 0), device="cpu")
+    sim.add_particles("jelly", pos=rng.uniform(0.4, 0.6, size=(32, 3)).astype(np.float32),
+                      E=1e4, nu=0.3, density=1000)
+    sim.add_particles("rigid", mesh=plate_mesh(half_u=0.05, half_v=0.05, axis=1),
+                      scripted_position=lambda t: (0.5, 0.45, 0.5),
+                      scripted_rotation=lambda t: (0.0, 0.0, 0.0), codimensional=True,
+                      friction=0.2)
+    sim._finalize()
+    tb, ts, tcfg = sim.bodies, sim.rigid_scene, sim.cfg
+    Kr = tblocked.total_blocks_padded(tcfg)
+    _, fresh, _, txb = tcb.rigid_prologue(tb, ts, tcfg, tcfg.base_dt, tcp.Capacities(Kr))
+
+    far = tb.replace(pos=tb.pos + torch.tensor([0.4, 0.0, 0.0]))
+    stale = tcp._lazy_rmap(far, ts, tcfg, tcp.Capacities(Kr))
+    assert not bool(torch.all(stale[3][tcdf.block_id_of(txb, tcfg)]))
+    _, gated, _, _ = tcb.rigid_prologue(tb, ts, tcfg, tcfg.base_dt, tcp.Capacities(Kr),
+                                        rmap=stale)
+
+    # every node within 13 of the plate's (node 32, 29, 32 +- 3)
+    ii = torch.as_tensor(np.stack(np.meshgrid(*[np.arange(c - 13, c + 14) for c in (32, 29, 32)],
+                                              indexing="ij"), -1).reshape(-1, 3))
+    inb = torch.ones((ii.shape[0],), dtype=torch.bool)
+    ref, got = fresh.lookup(ii, inb), gated.lookup(ii, inb)
+    assert int((ref[0] != 0).sum()) == int((fresh.states != 0).sum()) > 0
+    for a, b in zip(got, ref):  # states, rid, dist
+        assert torch.equal(a, b)
+    xb, _, elem = boundary_particle_world(tb, ts.bp_rid, ts.bp_offset, ts.bp_normal, ts.bp_elem)
+    lost = tcdf.rasterize_rigid_boundary_records(xb, elem, ts.bp_rid, tb.num, tcfg, stale[1], Kr)
+    assert int((lost[2] != 0).sum()) == 0
