@@ -233,23 +233,31 @@ Phases, each printed as one JSON line:
    sheared (``dist_cpic_scene``), 3 frames of 12 substeps on each CPIC
    slab frame (the packed frame on balanced and uniform bounds, the
    pytree frame on uniform bounds), (a) one rank over NCCL in this
-   process, with its errors against ``MPM`` and whether they are 0, and
-   (b) two ranks sharing the card over gloo, the default route twice:
+   process, with its errors against ``MPM`` and whether they are 0 (and
+   ``resort_and_shift``: ``MPM`` re-sorted at each frame's start, as the
+   slab frames are, against ``MPM``; the one rank against it on the
+   wheel and, equal in bits, on ``exact_shift_scene``, whose shift into
+   the slab's frame is exact), and (b) two ranks sharing the card over gloo, the default route twice:
    each run held to ``MPM``'s CPIC frames on the card at the CPIC bounds
    of phase 8, each kernel of its route once per substep per rank, every
    particle kept; on two ranks the bodies equal in bits on both ranks
    after every frame, migrants both ways, a balanced bound moved, both
    near sets used, the default runs equal in bits. ``dist_cpic_path``:
-   the 100k CPIC wheel (``scenes.cpic_wheel()``) on two ranks sharing the
-   card, fused and balanced, 1 + 2 frames of 20 substeps: ms and host
+   the 100k CPIC wheel (``scenes.cpic_wheel()``) from phase 9's state
+   (its snapshot: the water on the wheel) on two ranks sharing the card,
+   fused and balanced, 1 + 2 frames of 20 substeps, both ranks' near
+   sets used: ms and host
    syncs per substep per rank (``HostSyncs`` and torch's own count), the
    exchange's, the impulse all-reduces' and the migration's ms per
-   substep in a synced frame, beside ``MPM``'s CPIC frame.
-   ``water_wheel_slabs``: ``scripts/mls-cpic/water_wheel.py`` at res 64
-   through the runner's scene with SHARDS=2 on two ranks sharing the
-   card, 3 frames of 2e-3 s (``--frame-dt``) with its source, against the
-   same through ``MPM``: equal particle counts, the wheel's omega within
-   1e-5. Then
+   substep in a synced frame, beside ``MPM``'s CPIC frame from the same
+   snapshot. Then, in the same two ranks (``phase_slab_cpic_paths``),
+   ``water_wheel_slabs``: ``scripts/mls-cpic/water_wheel.py``
+   at res 64 through the runner's scene, resumed (``--continue``) from a
+   snapshot whose first emission was moved down onto a paddle, with
+   SHARDS=2 on two ranks sharing the card, 3 frames of 2e-3 s with its
+   source, against the same through ``MPM``: equal particle counts, the
+   water near the paddles, the wheel turning, its omega within 1e-5.
+   Then
    ``timing``: the seconds of these phases and of the whole script.
 
 Then the ``kernels`` line: per kernel its launches on each path (the
@@ -3130,28 +3138,23 @@ def phase_cpic_unfused_check():
     raise_failures(failures)
 
 
-def phase_cpic_unfused_path(card, fused_sim, fused_ms):
+def phase_cpic_unfused_path(card, wheel_snapshot, fused_ms):
     """``scenes.cpic_wheel()`` (100k) on the pytree CPIC frame (TMT_FUSED=0)
-    from phase cpic_path's state (its snapshot loaded, the water on the
-    wheel): a warm-up frame and UNFUSED_CPIC_TIMED_FRAMES timed frames of
+    from phase cpic_path's state (its snapshot `wheel_snapshot` loaded,
+    the water on the wheel): a warm-up frame and UNFUSED_CPIC_TIMED_FRAMES timed frames of
     20 substeps, ms per substep beside cpic_path's fused figure, host
     syncs, the near sets; p2g_blocked and g2p_blocked once per substep and
     no other kernel; every particle active, finite and in the domain.
     Returns the launches."""
-    import tempfile
-
     import torch
 
     from taichi_mpm_torch import scenes
     from taichi_mpm_torch.utils import HostSyncs
 
     failures = []
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cpic_unfused_") as d:
-        path = os.path.join(d, "wheel.npz")
-        fused_sim.save(path)
-        sim = on_route(False, lambda: scenes.cpic_wheel(device="cuda"))
-        sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
-        sim.load(path)
+    sim = on_route(False, lambda: scenes.cpic_wheel(device="cuda"))
+    sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
+    sim.load(wheel_snapshot)
     sim.step()
     sim.sync()
     torch.cuda.reset_peak_memory_stats()
@@ -3218,46 +3221,119 @@ def dist_cube(solver, device):
     return sim
 
 
-def dist_routes(ref_dir, runs):
+def state_arrays(sim, particles):
+    """A run's state as numpy arrays: the active particles by id tag
+    (``tagged``) and, where the scene has rigid bodies, the bodies'
+    fields as ``body_<field>``."""
+    arrays = tagged(particles)
+    if sim.bodies is not None:
+        arrays.update({"body_" + k: getattr(sim.bodies, k).cpu().numpy()
+                       for k in ("pos", "vel", "rot", "omega")})
+    return arrays
+
+
+def held_to(ref, got, label, bounds, failures):
+    """Two runs' ``state_arrays``: the particles within `bounds`, the
+    bodies (where there are) within BODY_BOUNDS. Returns the errors and
+    whether the two are equal in bits."""
+    errs = tagged_errors(ref, got, label, failures, bounds)
+    for k, bound in BODY_BOUNDS:
+        if "body_" + k in ref:
+            errs["body_" + k] = float(np.abs(ref["body_" + k].astype(np.float64)
+                                             - got["body_" + k]).max())
+            if not errs["body_" + k] <= bound:
+                failures.append(f"{label}: body {k} differs by {errs['body_' + k]} > {bound}")
+    same = bool(errs) and all(np.array_equal(ref[k], got[k]) for k in ref)
+    return errs, same
+
+
+def ref_path(ref_dir, kind, fused, resorted=False):
+    return os.path.join(ref_dir, f"{kind}_fused{int(fused)}{'_resorted' * resorted}.npz")
+
+
+def load_ref(path):
+    with np.load(path) as ref:
+        return dict(ref)
+
+
+def dist_refs(kind, ref_dir, device, routes=(True, False), resorted=()):
+    """MPM's frames of the scene of DIST_KINDS[`kind`] on each route of
+    `routes` (fused or not; DIST_FRAMES frames), saved in `ref_dir`
+    (``state_arrays``), and on each route of `resorted` the same frames
+    with a re-sort at each frame's start, as the slab frames do (the
+    carry dropped after each frame, so that the next one packs and sorts
+    afresh). Returns the particle count."""
+    from taichi_mpm_torch import MPM
+
+    scene = DIST_KINDS[kind][0]
+    for fused, resort in [(f, False) for f in routes] + [(f, True) for f in resorted]:
+        ref = on_route(fused, lambda: scene(MPM, device))
+        for f in range(DIST_FRAMES):
+            if resort and f:
+                ref._particles, ref._pcarry = ref.particles, None
+            ref.step()
+        np.savez(ref_path(ref_dir, kind, fused, resort), **state_arrays(ref, ref.particles))
+        n = ref.particle_count()
+        del ref
+    return n
+
+
+def dist_routes(kind, ref_dir, runs, device=DIST_DEVICE):
     """On every rank of the current group: for each (route, repeat) of
-    `runs`, dist_cube on DistributedMPM over DIST_FRAMES frames with every
-    launch count set to 0 before. Rank 0 holds the gathered particles to
-    the one-device frames saved in `ref_dir` (FRAME_BOUNDS) and checks
-    them: all active, finite and in the domain. Returns per run: this
-    rank's launches and slab events, and on rank 0 the errors, the
-    failures and the SHA-256 of the gathered state."""
+    `runs`, the scene of DIST_KINDS[`kind`] on DistributedMPM over
+    DIST_FRAMES frames, every launch count set to 0 before; with rigid
+    bodies each rank hashes its bodies after every frame. Rank 0 holds
+    the gathered state to the one-device frames that ``dist_refs`` saved
+    in `ref_dir` (the kind's bounds; ``held_to``), and on one rank also to
+    the frames re-sorted at each frame's start, where they were saved;
+    every particle must stay finite and in the domain. Returns per run:
+    this rank's launches, slab events (and body hashes), and on rank 0
+    the errors, whether they are 0 (MPM's bits), the failures and the
+    SHA-256 of the gathered state."""
     import functools
 
     import torch
 
+    from taichi_mpm_torch.parallel import comm
     from taichi_mpm_torch.parallel.driver import DistributedMPM
     from taichi_mpm_torch.utils import HostSyncs
 
+    scene, routes, bounds = DIST_KINDS[kind]
     out = {}
     for name, rep in runs:
-        fused, balanced = DIST_ROUTES[name]
+        fused, balanced = routes[name]
         solver = functools.partial(DistributedMPM, balanced=balanced)
-        sim = on_route(fused, lambda: dist_cube(solver, DIST_DEVICE))
+        sim = on_route(fused, lambda: scene(solver, device))
         sim._ensure_finalized()
         zero_counts()
         syncs = HostSyncs.count
+        shas = []
         for _ in range(DIST_FRAMES):
             sim.step()
-        torch.cuda.synchronize()
+            if sim.bodies is not None:
+                shas.append(bodies_sha(sim))
+        if device != "cpu":
+            torch.cuda.synchronize()
         syncs = HostSyncs.count - syncs
         launches = read_counts()
         g = sim._gather()
         st = sim.slab_stats
-        res = dict(launches=launches, fused=sim.fused, balanced=sim.balanced,
+        res = dict(launches=launches, fused=sim.fused, balanced=sim.slabs.balanced,
                    substeps=st.substeps, resorts=st.resorts, sent=(st.sent_left, st.sent_right),
                    arrived=st.arrived, grown=st.grown, bounds=st.bounds[:1] + st.bounds[-1:],
                    bounds_moved=len(set(st.bounds)) > 1, count=sim.particle_count(),
                    host_syncs_per_substep=syncs / st.substeps)
+        if sim.bodies is not None:
+            res.update(n_near=st.n_near, n_coarse=st.n_coarse, body_sha=shas,
+                       omega_max=float(sim.bodies.omega.abs().max()))
         if sim.rank == 0:
             failures = []
-            got = tagged(g)
-            with np.load(os.path.join(ref_dir, f"ref_fused{int(fused)}.npz")) as ref:
-                res["errors"] = tagged_errors(dict(ref), got, name, failures)
+            got = state_arrays(sim, g)
+            res["errors"], res["mpm_bits"] = held_to(
+                load_ref(ref_path(ref_dir, kind, fused)), got, name, bounds, failures)
+            if comm.world() == 1 and os.path.exists(ref_path(ref_dir, kind, fused, True)):
+                res["vs_resorted"], res["resorted_bits"] = held_to(
+                    load_ref(ref_path(ref_dir, kind, fused, True)), got, name, bounds, [])
             x = got["x"]
             hi = sim.cfg.res[0] * sim.cfg.dx
             if not (np.isfinite(x).all() and x.min() >= 0.0 and x.max() <= hi):
@@ -3271,8 +3347,14 @@ def dist_routes(ref_dir, runs):
 
 
 def dist_failures(label, res, n_expected, substeps, failures):
-    """The checks of one rank's run of dist_routes."""
-    failures += [f"{label}: {f}" for f in route_failures(res["launches"], res["fused"], substeps)]
+    """The checks of one rank's run of dist_routes: each kernel of its
+    route (the CPIC frame's where the scene has bodies) once per substep,
+    rank 0's failures, every particle kept, every substep run."""
+    kernels = None
+    if "body_sha" in res:
+        kernels = CPIC_KERNELS if res["fused"] else UNFUSED_CPIC_KERNELS
+    failures += [f"{label}: {f}"
+                 for f in route_failures(res["launches"], res["fused"], substeps, kernels)]
     failures += [f"{label}: {f}" for f in res.get("failures", [])]
     if res["count"] != n_expected:
         failures.append(f"{label}: {res['count']} particles, not {n_expected}")
@@ -3280,38 +3362,46 @@ def dist_failures(label, res, n_expected, substeps, failures):
         failures.append(f"{label}: {res['substeps']} substeps, not {substeps}")
 
 
-def phase_dist_check(card):
-    """``dist_check``: the moving, spinning 125k cube (``dist_cube``) on DistributedMPM, each
-    route with uniform and balanced bounds, DIST_FRAMES frames of
+def phase_dist_check(card, kind="plain"):
+    """``dist_check`` (`kind` "plain": ``dist_cube``, the moving, spinning
+    125k cube, each route with uniform and balanced bounds) or
+    ``dist_cpic_check`` ("cpic": ``dist_cpic_scene``, the 10k CPIC wheel,
+    on each CPIC slab frame) on DistributedMPM, DIST_FRAMES frames of
     DIST_SUBSTEPS: (a) one rank over NCCL in this process; (b) two ranks
     sharing the card over gloo (spawned; the default route twice). Each
-    run held to MPM's frames on the card (FRAME_BOUNDS, particles matched
-    by id), each kernel of its route once per substep per rank and no
-    other, every particle kept, active, finite and in the domain;
-    migrants both ways and a bound moved on two ranks; the two default
-    runs equal in bits. Returns the launches by path."""
+    run held to MPM's frames on the card (the kind's bounds, particles
+    matched by id; the bodies within BODY_BOUNDS), each kernel of its
+    route once per substep per rank and no other, every particle kept,
+    finite and in the domain; on two ranks migrants both ways, a bound
+    moved, the two default runs equal in bits, and with bodies: the
+    bodies equal in bits on both ranks after every frame and both ranks'
+    near sets used. The one-rank runs print whether they give MPM's bits;
+    on CPIC scenes, ``resort_and_shift`` names what differs. Returns the
+    launches by path."""
     import tempfile
 
-    from taichi_mpm_torch import MPM
     from taichi_mpm_torch.parallel import comm
 
+    phase = "dist_check" if kind == "plain" else "dist_cpic_check"
+    cpic = kind == "cpic"
     failures = []
     n_sub = DIST_FRAMES * DIST_SUBSTEPS
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as d:
-        for fused in (True, False):
-            ref = on_route(fused, lambda: dist_cube(MPM, "cuda"))
-            for _ in range(DIST_FRAMES):
-                ref.step()
-            np.savez(os.path.join(d, f"ref_fused{int(fused)}.npz"), **tagged(ref.particles))
-            n_expected = ref.particle_count()
-            del ref
-        runs = [(name, 0) for name in DIST_ROUTES]
+    isolation = None
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase}_") as d:
+        n_expected = dist_refs(kind, d, "cuda", resorted=(True,) if cpic else ())
+        if cpic:
+            dist_refs("cpic_exact", d, "cuda", routes=(True,), resorted=(True,))
+        runs = [(name, 0) for name in DIST_KINDS[kind][1]]
         with comm.process_group("nccl", 0, 1, comm.free_port(), timeout_s=DIST_TIMEOUT_S):
-            nccl = dist_routes(d, runs)
+            nccl = dist_routes(kind, d, runs)
+            if cpic:
+                exact = dist_routes("cpic_exact", d, [("fused_balanced", 0)])["fused_balanced_0"]
         gloo = comm.run_ranks(dist_routes, 2, "gloo",
-                              args=(d, runs + [("fused_balanced", 1)]),
+                              args=(kind, d, runs + [("fused_balanced", 1)]),
                               timeout_s=DIST_TIMEOUT_S)
+        if cpic:
+            isolation = resort_and_shift(d, nccl, exact, failures)
     for key, res in nccl.items():
         dist_failures(f"nccl {key}", res, n_expected, n_sub, failures)
     for r, ranks in enumerate(gloo):
@@ -3323,21 +3413,28 @@ def phase_dist_check(card):
             failures.append(f"gloo {key}: no migrants both ways ({sent})")
         if gloo[0][key]["balanced"] and not gloo[0][key]["bounds_moved"]:
             failures.append(f"gloo {key}: no bound moved ({gloo[0][key]['bounds']})")
+        if cpic:
+            if gloo[0][key]["body_sha"] != gloo[1][key]["body_sha"]:
+                failures.append(f"gloo {key}: the ranks' bodies differ in bits")
+            if min(gloo[r][key]["n_near"] for r in range(2)) == 0:
+                failures.append(f"gloo {key}: a rank's near set stayed empty")
     if gloo[0]["fused_balanced_0"]["sha256"] != gloo[0]["fused_balanced_1"]["sha256"]:
         failures.append("gloo fused_balanced: two runs not equal in bits")
-    launches = {"dist_check_nccl": {}, "dist_check_gloo": {}}
-    for path, runs_of in (("dist_check_nccl", [nccl]), ("dist_check_gloo", gloo)):
+    launches = {f"{phase}_nccl": {}, f"{phase}_gloo": {}}
+    for path, runs_of in ((f"{phase}_nccl", [nccl]), (f"{phase}_gloo", gloo)):
         for ranks in runs_of:
             for res in ranks.values():
                 for k, v in res["launches"].items():
                     launches[path][k] = launches[path].get(k, 0) + v
-    emit(dict(phase="dist_check", card=card, particles=n_expected, substeps_per_run=n_sub,
+
+    def shown(r):
+        return {k: v for k, v in r.items() if k not in ("launches", "body_sha")}
+
+    emit(dict(phase=phase, card=card, particles=n_expected, substeps_per_run=n_sub,
               seconds=time.perf_counter() - t0,
-              nccl={k: {kk: v for kk, v in r.items() if kk != "launches"}
-                    for k, r in nccl.items()},
-              gloo=[{k: {kk: v for kk, v in r.items() if kk != "launches"}
-                     for k, r in ranks.items()} for ranks in gloo],
-              launches=launches, failures=failures))
+              nccl={k: shown(r) for k, r in nccl.items()},
+              gloo=[{k: shown(r) for k, r in ranks.items()} for ranks in gloo],
+              resort_and_shift=isolation, launches=launches, failures=failures))
     raise_failures(failures)
     return launches
 
@@ -3503,6 +3600,7 @@ DIST_CPIC_LO, DIST_CPIC_HI = (0.493, 0.46, 0.42), (0.673, 0.62, 0.58)
 DIST_CPIC_SHEAR = (-1.2, 0.5)  # below, above the box's middle height
 WATER_WHEEL_FRAMES = 3
 WATER_WHEEL_FRAME_DT = 2e-3  # the runner's --frame-dt: 40 substeps of the script's 5e-5 s
+WATER_WHEEL_DROP = 0.3  # the snapshot's water moved down this far, onto the paddles
 
 
 def dist_cpic_scene(solver, device):
@@ -3522,180 +3620,82 @@ def dist_cpic_scene(solver, device):
     return sim
 
 
+# the shift check's scene: a free plate and 3,000 water particles all in
+# x in [0.5, 0.9375) at res 64, so that the slab frame's shift by
+# world_off (-4 cells, -1/16) is exact in float32 for every particle,
+# boundary particle and node it moves (x and x + 1/16 in one binade)
+EXACT_SHIFT_RES = 64
+EXACT_SHIFT_PARTICLES = 3_000
+
+
+def exact_shift_scene(solver, device):
+    """``dist_cpic_check``'s scene for the shift: 3,000 water particles in
+    [0.58, 0.82] x [0.41, 0.49] x [0.4, 0.6] falling at 1 m/s onto a plate
+    (half size 0.1, normal y, free to turn) at (0.66, 0.4, 0.5), res
+    EXACT_SHIFT_RES, dt 1e-4, penalty 1e3, frames of DIST_SUBSTEPS; ids
+    tagged."""
+    from taichi_mpm_torch.rigid.mesh import plate_mesh
+
+    n = EXACT_SHIFT_PARTICLES
+    rng = np.random.default_rng(11)
+    sim = solver(res=(EXACT_SHIFT_RES,) * 3, base_delta_t=1e-4, gravity=(0, -10.0, 0),
+                 penalty=1e3, device=device)
+    sim.frame_dt = DIST_SUBSTEPS * sim.cfg.base_dt
+    pos = (rng.uniform(0.0, 1.0, (n, 3)) * [0.24, 0.08, 0.2] + [0.58, 0.41, 0.4]).astype(
+        np.float32)
+    sim.add_particles("water", pos=pos, vel=(0.0, -1.0, 0.0), density=1000)
+    sim.add_particles("rigid", mesh=plate_mesh(half_u=0.1, half_v=0.1, axis=1),
+                      scripted_position=lambda t: (0.66, 0.4, 0.5), codimensional=True,
+                      friction=0.2)
+    sim._pending[0]["params"][:, ID_ROW_PARAM] = np.arange(n, dtype=np.float32)
+    return sim
+
+
+def resort_and_shift(ref_dir, nccl, exact, failures):
+    """What parts one NCCL rank's CPIC frames from MPM's. The slab frame
+    re-sorts at each frame's start (MPM's carry on drift only) and shifts
+    positions into its slab's frame by world_off (-4 cells). Held apart:
+    MPM re-sorted at each frame's start against MPM (the re-sort alone);
+    on ``exact_shift_scene``, whose shift is exact, the one rank against
+    the re-sorted MPM, which must be equal in bits (nothing else
+    differs); on the wheel (res 96: the shift, 1/24, rounds) the one rank
+    against the re-sorted MPM, the shift's part."""
+    resort_errs, resort_bits = held_to(load_ref(ref_path(ref_dir, "cpic", True)),
+                                       load_ref(ref_path(ref_dir, "cpic", True, True)),
+                                       "re-sorted MPM", CPIC_BOUNDS, [])
+    dist_failures("nccl cpic_exact", exact, EXACT_SHIFT_PARTICLES, DIST_FRAMES * DIST_SUBSTEPS,
+                  failures)
+    if not exact["resorted_bits"]:
+        failures.append("cpic_exact: one NCCL rank differs from MPM re-sorted at each frame's "
+                        f"start: {exact['vs_resorted']}")
+    if exact["n_near"] == 0 or exact["omega_max"] == 0.0:
+        failures.append("cpic_exact: the water did not reach the plate")
+
+    def split(r):
+        return {k: r[k] for k in ("errors", "mpm_bits", "vs_resorted", "resorted_bits")}
+
+    return dict(resorted_mpm_vs_mpm=resort_errs, resorted_mpm_bits=resort_bits,
+                wheel={k: split(r) for k, r in nccl.items() if "vs_resorted" in r},
+                exact_shift=dict(split(exact), n_near=exact["n_near"],
+                                 omega_max=exact["omega_max"]))
+
+
+DIST_KINDS = {"plain": (dist_cube, DIST_ROUTES, FRAME_BOUNDS),
+              "cpic": (dist_cpic_scene, DIST_CPIC_ROUTES, CPIC_BOUNDS),
+              "cpic_exact": (exact_shift_scene, {"fused_balanced": (True, True)}, CPIC_BOUNDS)}
+
+
 def bodies_sha(sim):
     return hashlib.sha256(b"".join(getattr(sim.bodies, k).cpu().numpy().tobytes()
                                    for k in ("pos", "vel", "rot", "omega"))).hexdigest()
 
 
-def dist_cpic_routes(ref_dir, runs, device=DIST_DEVICE):
-    """On every rank of the current group: for each (route, repeat) of
-    `runs`, dist_cpic_scene on DistributedMPM over DIST_FRAMES frames, every
-    launch count set to 0 before. Each rank hashes its bodies after every
-    frame; rank 0 holds the gathered particles and the bodies to the
-    one-device frames saved in `ref_dir` (the CPIC bounds) and checks that
-    every particle stays finite and in the domain. Returns per run: this
-    rank's launches, slab events and body hashes, and on rank 0 the errors,
-    whether they are 0 (MPM's bits), the failures and the SHA-256 of the
-    gathered state."""
-    import functools
-
-    import torch
-
-    from taichi_mpm_torch.parallel.driver import DistributedMPM
-    from taichi_mpm_torch.utils import HostSyncs
-
-    out = {}
-    for name, rep in runs:
-        fused, balanced = DIST_CPIC_ROUTES[name]
-        solver = functools.partial(DistributedMPM, balanced=balanced)
-        sim = on_route(fused, lambda: dist_cpic_scene(solver, device))
-        sim._ensure_finalized()
-        zero_counts()
-        syncs = HostSyncs.count
-        shas = []
-        for _ in range(DIST_FRAMES):
-            sim.step()
-            shas.append(bodies_sha(sim))
-        if device != "cpu":
-            torch.cuda.synchronize()
-        syncs = HostSyncs.count - syncs
-        launches = read_counts()
-        g = sim._gather()
-        st = sim.slab_stats
-        res = dict(launches=launches, fused=sim.fused, balanced=sim.slabs.balanced,
-                   substeps=st.substeps, resorts=st.resorts, sent=(st.sent_left, st.sent_right),
-                   arrived=st.arrived, bounds=st.bounds[:1] + st.bounds[-1:],
-                   bounds_moved=len(set(st.bounds)) > 1, count=sim.particle_count(),
-                   n_near=st.n_near, n_coarse=st.n_coarse, body_sha=shas,
-                   wheel_omega_z=float(sim.bodies.omega[2, 2]),
-                   host_syncs_per_substep=syncs / st.substeps)
-        if sim.rank == 0:
-            failures = []
-            got = tagged(g)
-            with np.load(os.path.join(ref_dir, f"cpic_ref_fused{int(fused)}.npz")) as ref:
-                ref = dict(ref)
-            errs = tagged_errors(ref, got, name, failures, CPIC_BOUNDS)
-            for k, bound in BODY_BOUNDS:
-                errs["body_" + k] = float(np.abs(ref["body_" + k].astype(np.float64)
-                                                 - getattr(sim.bodies, k).cpu().numpy()).max())
-                if not errs["body_" + k] <= bound:
-                    failures.append(f"{name}: body {k} differs by {errs['body_' + k]} > {bound}")
-            res["errors"] = errs
-            res["mpm_bits"] = all(v == 0.0 for v in errs.values()) and all(
-                np.array_equal(ref[k], got[k]) for k in ("x", "v", "F", "C", "states", "near_b"))
-            x = got["x"]
-            hi = sim.cfg.res[0] * sim.cfg.dx
-            if not (np.isfinite(x).all() and x.min() >= 0.0 and x.max() <= hi):
-                failures.append(f"{name}: positions not finite or outside the domain")
-            res["failures"] = failures
-            res["sha256"] = hashlib.sha256(b"".join(
-                np.ascontiguousarray(v).tobytes() for v in got.values())).hexdigest()
-        out[f"{name}_{rep}"] = res
-        del sim, g
-    return out
-
-
-def cpic_refs(ref_dir, device):
-    """MPM's CPIC frames of dist_cpic_scene on both routes, saved in
-    `ref_dir` (particles by id, bodies). Returns the particle count."""
-    from taichi_mpm_torch import MPM
-
-    for fused in (True, False):
-        ref = on_route(fused, lambda: dist_cpic_scene(MPM, device))
-        for _ in range(DIST_FRAMES):
-            ref.step()
-        arrays = tagged(ref.particles)
-        arrays.update({"body_" + k: getattr(ref.bodies, k).cpu().numpy()
-                       for k in ("pos", "vel", "rot", "omega")})
-        np.savez(os.path.join(ref_dir, f"cpic_ref_fused{int(fused)}.npz"), **arrays)
-        n = ref.particle_count()
-        del ref
-    return n
-
-
-def dist_cpic_failures(label, res, n_expected, substeps, failures):
-    """The checks of one rank's run of dist_cpic_routes."""
-    kernels = CPIC_KERNELS if res["fused"] else UNFUSED_CPIC_KERNELS
-    failures += [f"{label}: {f}"
-                 for f in route_failures(res["launches"], res["fused"], substeps, kernels)]
-    failures += [f"{label}: {f}" for f in res.get("failures", [])]
-    if res["count"] != n_expected:
-        failures.append(f"{label}: {res['count']} particles, not {n_expected}")
-    if res["substeps"] != substeps:
-        failures.append(f"{label}: {res['substeps']} substeps, not {substeps}")
-
-
-def phase_dist_cpic_check(card):
-    """``dist_cpic_check``: dist_cpic_scene (the 10k CPIC wheel, its water
-    straddling the slab boundary, sheared) on DistributedMPM on each CPIC
-    slab frame (the packed frame on balanced and on uniform bounds, the
-    pytree frame on uniform bounds), DIST_FRAMES frames of DIST_SUBSTEPS:
-    (a) one rank over NCCL in this process; (b) two ranks sharing the card
-    over gloo (spawned; the default route twice). Each run held to MPM's
-    CPIC frames on the card at the CPIC bounds (particles matched by id,
-    bodies), each kernel of its route once per substep per rank and no
-    other, every particle kept, finite and in the domain. On one rank the
-    fused routes' errors are printed beside whether they are 0 (MPM's
-    bits). On two ranks: the bodies equal in bits on both ranks after
-    every frame, migrants both ways, a balanced bound moved, the two
-    default runs equal in bits, both ranks' near sets used. Returns the
-    launches by path."""
-    import tempfile
-
-    from taichi_mpm_torch.parallel import comm
-
-    failures = []
-    n_sub = DIST_FRAMES * DIST_SUBSTEPS
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_cpic_") as d:
-        n_expected = cpic_refs(d, "cuda")
-        runs = [(name, 0) for name in DIST_CPIC_ROUTES]
-        with comm.process_group("nccl", 0, 1, comm.free_port(), timeout_s=DIST_TIMEOUT_S):
-            nccl = dist_cpic_routes(d, runs)
-        gloo = comm.run_ranks(dist_cpic_routes, 2, "gloo",
-                              args=(d, runs + [("fused_balanced", 1)]),
-                              timeout_s=DIST_TIMEOUT_S)
-    for key, res in nccl.items():
-        dist_cpic_failures(f"nccl {key}", res, n_expected, n_sub, failures)
-    for r, ranks in enumerate(gloo):
-        for key, res in ranks.items():
-            dist_cpic_failures(f"gloo rank {r} {key}", res, n_expected, n_sub, failures)
-    for key in gloo[0]:
-        if gloo[0][key]["body_sha"] != gloo[1][key]["body_sha"]:
-            failures.append(f"gloo {key}: the ranks' bodies differ in bits")
-        sent = [gloo[r][key]["sent"] for r in range(2)]
-        if not (sent[0][1] > 0 and sent[1][0] > 0):
-            failures.append(f"gloo {key}: no migrants both ways ({sent})")
-        if gloo[0][key]["balanced"] and not gloo[0][key]["bounds_moved"]:
-            failures.append(f"gloo {key}: no bound moved ({gloo[0][key]['bounds']})")
-        if min(gloo[r][key]["n_near"] for r in range(2)) == 0:
-            failures.append(f"gloo {key}: a rank's near set stayed empty")
-    if gloo[0]["fused_balanced_0"]["sha256"] != gloo[0]["fused_balanced_1"]["sha256"]:
-        failures.append("gloo fused_balanced: two runs not equal in bits")
-    launches = {"dist_cpic_check_nccl": {}, "dist_cpic_check_gloo": {}}
-    for path, runs_of in (("dist_cpic_check_nccl", [nccl]), ("dist_cpic_check_gloo", gloo)):
-        for ranks in runs_of:
-            for res in ranks.values():
-                for k, v in res["launches"].items():
-                    launches[path][k] = launches[path].get(k, 0) + v
-
-    def shown(r):
-        return {k: v for k, v in r.items() if k not in ("launches", "body_sha")}
-
-    emit(dict(phase="dist_cpic_check", card=card, particles=n_expected, substeps_per_run=n_sub,
-              seconds=time.perf_counter() - t0,
-              nccl={k: shown(r) for k, r in nccl.items()},
-              gloo=[{k: shown(r) for k, r in ranks.items()} for ranks in gloo],
-              launches=launches, failures=failures))
-    raise_failures(failures)
-    return launches
-
-
-def dist_cpic_path_rank():
+def dist_cpic_path_rank(wheel_snapshot):
     """On each rank of the shared-card group: the 100k CPIC wheel
     (scenes.cpic_wheel(), res 96) on DistributedMPM, fused and balanced,
-    ``slab_path_frames``, with the bodies' hash and the rigid map's
-    capacity."""
+    from `wheel_snapshot` (``DistributedMPM.load``: every rank restores
+    the bodies), ``slab_path_frames``, with the bodies' hash and the
+    rigid map's capacity."""
     import torch
 
     from taichi_mpm_torch import scenes
@@ -3704,35 +3704,72 @@ def dist_cpic_path_rank():
     t0 = time.perf_counter()
     sim = on_route(True, lambda: scenes.cpic_wheel(device=DIST_DEVICE, solver=DistributedMPM))
     sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
-    sim._ensure_finalized()
+    sim.load(wheel_snapshot)
     torch.cuda.synchronize()
     out = slab_path_frames(sim, time.perf_counter() - t0)
     out.update(body_sha=bodies_sha(sim), Kr=sim.cpic_caps.Kr)
     return out
 
 
-def phase_dist_cpic_path(card):
+def slab_cpic_rank(wheel_snapshot, water_wheel_dir):
+    """On each rank of the shared-card group: ``dist_cpic_path_rank``, then
+    ``water_wheel_rank`` resumed from the snapshot in `water_wheel_dir`
+    (the group, the card and the kernels already warm)."""
+    return dict(path=dist_cpic_path_rank(wheel_snapshot),
+                water_wheel=water_wheel_rank(2, water_wheel_dir))
+
+
+def phase_slab_cpic_paths(card, wheel_snapshot):
+    """The two CPIC slab paths in one spawned group of two ranks sharing
+    the card (gloo), ``slab_cpic_rank``: ``dist_cpic_path`` from
+    `wheel_snapshot`, then ``water_wheel_slabs`` from
+    ``water_wheel_snapshot``. Returns the launches by path and rank."""
+    import shutil
+    import tempfile
+
+    from taichi_mpm_torch.parallel import comm
+    from taichi_mpm_torch.runner import snapshot_path
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_water_wheel_") as d:
+        emitted = water_wheel_snapshot(os.path.join(d, "warm"))
+        for run in ("slabs", "mpm"):
+            os.makedirs(os.path.join(d, run))
+            shutil.copyfile(snapshot_path(os.path.join(d, "warm"), 0),
+                            snapshot_path(os.path.join(d, run), 0))
+        snap_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = comm.run_ranks(slab_cpic_rank, 2, "gloo",
+                               args=(wheel_snapshot, os.path.join(d, "slabs")),
+                               timeout_s=DIST_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        launches = phase_dist_cpic_path(card, wheel_snapshot, [r["path"] for r in ranks], ranks_s)
+        launches.update(phase_water_wheel_slabs(card, [r["water_wheel"] for r in ranks],
+                                                os.path.join(d, "mpm"), emitted, snap_s))
+    return launches
+
+
+def phase_dist_cpic_path(card, wheel_snapshot, ranks, ranks_s):
     """``dist_cpic_path``: the 100k CPIC wheel (scenes.cpic_wheel(), res 96,
-    bench.py's CPIC scene) on two ranks sharing the card (gloo), fused and
-    balanced, 1 + DIST_PATH_TIMED_FRAMES frames of 20 substeps: ms and host
-    syncs per substep per rank (HostSyncs and torch's own count), the
-    exchange's, the impulse all-reduces' and the migration's ms (a synced
-    frame), each kernel once per substep per rank; all 100,000 particles
-    kept, finite and in the domain, the bodies equal in bits on both
-    ranks. Beside it the same frames through MPM's CPIC frame. The two
-    ranks time-share one H100: this is no scaling number. Returns the
-    launches by rank."""
+    bench.py's CPIC scene) from phase cpic_path's state (`wheel_snapshot`:
+    the water on the wheel) on two ranks sharing the card (gloo), fused
+    and balanced, 1 + DIST_PATH_TIMED_FRAMES frames of 20 substeps (each
+    rank's result of ``dist_cpic_path_rank`` in `ranks`, the group's
+    seconds `ranks_s`): ms and host syncs per substep per rank
+    (HostSyncs and torch's own count), the exchange's, the impulse
+    all-reduces' and the migration's ms (a synced frame), each kernel
+    once per substep per rank; all 100,000 particles kept, finite and in
+    the domain, the bodies equal in bits on both ranks, both ranks' near
+    sets used. Beside it the same frames from the same snapshot through
+    MPM's CPIC frame. The two ranks time-share one H100: this is no
+    scaling number. Returns the launches by rank."""
     import torch
 
     from taichi_mpm_torch import scenes
-    from taichi_mpm_torch.parallel import comm
     from taichi_mpm_torch.utils import HostSyncs
 
     failures = []
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = comm.run_ranks(dist_cpic_path_rank, 2, "gloo", timeout_s=DIST_TIMEOUT_S)
-    ranks_s = time.perf_counter() - t0
     n_timed = DIST_PATH_TIMED_FRAMES * SUBSTEPS_PER_FRAME
     for r in ranks:
         failures += [f"rank {r['rank']}: {f}"
@@ -3744,9 +3781,12 @@ def phase_dist_cpic_path(card):
         failures.append("the slabs do not hold 100,000 particles between them")
     if ranks[0]["body_sha"] != ranks[1]["body_sha"]:
         failures.append("the ranks' bodies differ in bits")
+    if min(r["n_near"] for r in ranks) == 0:
+        failures.append(f"a rank's near set stayed empty: {[r['n_near'] for r in ranks]}")
 
     sim = on_route(True, lambda: scenes.cpic_wheel(device="cuda"))
     sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
+    sim.load(wheel_snapshot)
     sim.step()
     sim.sync()
     syncs = HostSyncs.count
@@ -3756,39 +3796,40 @@ def phase_dist_cpic_path(card):
     sim.sync()
     one_ms = (time.perf_counter() - t0) * 1e3 / n_timed
     one_syncs = (HostSyncs.count - syncs) / n_timed
+    one_near = sim.cpic_stats["n_near"]
     del sim
     emit(dict(phase="dist_cpic_path", card=card, what="two processes time-sharing one H100, "
               "not a scaling number", particles=100_000, res=96, timed_substeps=n_timed,
               ranks=[{k: v for k, v in r.items() if k != "body_sha"} for r in ranks],
               one_device_ms_per_substep=one_ms, one_device_host_syncs_per_substep=one_syncs,
-              ranks_s=ranks_s, clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"),
+              one_device_n_near=one_near, ranks_s=ranks_s, clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"),
               failures=failures))
     raise_failures(failures)
     return {f"dist_cpic_path_rank{r['rank']}": r["launches"] for r in ranks}
 
 
-def water_wheel_rank(shards, device=DIST_DEVICE):
+def water_wheel_run(shards, out, argv, device=DIST_DEVICE):
     """scripts/mls-cpic/water_wheel.py through the runner's scene
-    (``runner.SCENES["water_wheel"]``, its source, ``runner.simulate``) for
-    WATER_WHEEL_FRAMES frames of WATER_WHEEL_FRAME_DT at res 64 (the
-    source emits each frame), with SHARDS=`shards`
-    (DistributedMPM on the current group, every rank on `device`; 1: MPM),
-    every launch count set to 0 before. Returns the particle count, the
-    bodies, their hash, the substeps, the seconds and the launches."""
+    (``runner.SCENES["water_wheel"]``, its source, ``runner.simulate``) at
+    res 64 with the runner's arguments `argv` and ``--out`` `out`, with
+    SHARDS=`shards` (DistributedMPM on the current group, every rank on
+    `device`; 1: MPM), every launch count set to 0 before. Returns the
+    particle count, the bodies, their hash, the substeps, the near sets,
+    the seconds and the launches."""
     import torch
 
     from taichi_mpm_torch import runner
 
     os.environ["SHARDS"] = str(shards)
     try:
-        args = runner.parse_args(["water_wheel", "--frames", str(WATER_WHEEL_FRAMES),
-                                  "--frame-dt", str(WATER_WHEEL_FRAME_DT)], scene=True)
+        args = runner.parse_args(["water_wheel", "--out", out, *argv], scene=True)
         args.device = device
         sim, frame_update = on_route(True, lambda: runner.SCENES["water_wheel"](args))
         zero_counts()
         t0 = time.perf_counter()
         runner.simulate(sim, args, frame_update=frame_update)
-        torch.cuda.synchronize()
+        if device != "cpu":
+            torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     finally:
         os.environ.pop("SHARDS", None)
@@ -3796,23 +3837,54 @@ def water_wheel_rank(shards, device=DIST_DEVICE):
     return dict(type=type(sim).__name__, count=sim.particle_count(), seconds=secs,
                 omega=sim.bodies.omega.cpu().numpy(), body_sha=bodies_sha(sim),
                 substeps=None if st is None else st.substeps, launches=read_counts(),
-                n_near=None if st is None else st.n_near)
+                n_near=sim.cpic_stats["n_near"] if st is None else st.n_near)
 
 
-def phase_water_wheel_slabs(card):
+def water_wheel_snapshot(out, device="cuda"):
+    """The water wheel with its water on the paddles, as the runner's
+    snapshot of frame 0 in `out`: MPM through the runner's scene for one
+    frame of WATER_WHEEL_FRAME_DT (the source's first emission, at y 0.81
+    to 0.89), then that water moved down by WATER_WHEEL_DROP, onto the
+    paddle left of the axle (y = 0.5), each particle at the speed of that
+    fall. Returns the particle count."""
+    from taichi_mpm_torch.runner import snapshot_path
+
+    n = water_wheel_run(1, out, ["--frames", "1", "--snapshot-interval", "1",
+                                 "--frame-dt", str(WATER_WHEEL_FRAME_DT)], device)["count"]
+    path = snapshot_path(out, 0)
+    with np.load(path) as data:
+        arrays = dict(data)
+    act = arrays["p.active"]
+    arrays["p.x"][act, 1] -= np.float32(WATER_WHEEL_DROP)
+    vy = arrays["p.v"][act, 1]
+    arrays["p.v"][act, 1] = -np.sqrt(vy * vy + 2.0 * 9.8 * WATER_WHEEL_DROP).astype(np.float32)
+    np.savez_compressed(path, **arrays)
+    return n
+
+
+def water_wheel_rank(shards, out, device=DIST_DEVICE):
+    """``water_wheel_run`` resumed from the snapshot of frame 0 in `out`
+    (the runner's --continue 0) for WATER_WHEEL_FRAMES frames of the
+    snapshot's frame_dt (WATER_WHEEL_FRAME_DT), the source emitting each
+    frame."""
+    return water_wheel_run(shards, out, ["--continue", "0", "--frames",
+                                         str(1 + WATER_WHEEL_FRAMES)], device)
+
+
+def phase_water_wheel_slabs(card, ranks, mpm_dir, emitted, snap_s):
     """``water_wheel_slabs``: scripts/mls-cpic/water_wheel.py's scene
-    through the runner with SHARDS=2 on two ranks sharing the card (gloo),
-    WATER_WHEEL_FRAMES frames of WATER_WHEEL_FRAME_DT, and with SHARDS
-    unset (MPM) on the card: the
-    same particle count, the wheel's omega within the body bounds of MPM's,
-    the bodies equal in bits on both ranks, each CPIC kernel once per
+    through the runner, resumed from ``water_wheel_snapshot`` (its water
+    on the paddles; `emitted` particles, made in `snap_s` s) for
+    WATER_WHEEL_FRAMES frames of WATER_WHEEL_FRAME_DT with SHARDS=2 on two
+    ranks sharing the card (gloo; each rank's ``water_wheel_rank`` in
+    `ranks`), and with SHARDS unset (MPM) on the card from the snapshot's
+    copy in `mpm_dir`: the same particle count, the wheel turning, its
+    omega within the body bounds of MPM's, a near set on a rank, the
+    bodies equal in bits on both ranks, each CPIC kernel once per
     substep per rank. Returns the launches by rank."""
-    from taichi_mpm_torch.parallel import comm
-
     failures = []
     t0 = time.perf_counter()
-    ranks = comm.run_ranks(water_wheel_rank, 2, "gloo", args=(2,), timeout_s=DIST_TIMEOUT_S)
-    ref = water_wheel_rank(1, "cuda")
+    ref = water_wheel_rank(1, mpm_dir, "cuda")
     bound = dict(BODY_BOUNDS)["omega"]
     for r, res in enumerate(ranks):
         if res["type"] != "DistributedMPM":
@@ -3826,19 +3898,26 @@ def phase_water_wheel_slabs(card):
                      route_failures(res["launches"], True, res["substeps"], CPIC_KERNELS)]
     if ranks[0]["body_sha"] != ranks[1]["body_sha"]:
         failures.append("the ranks' bodies differ in bits")
-    if ref["count"] == 0:
-        failures.append("the source emitted nothing")
+    if ref["count"] <= emitted:
+        failures.append("the source emitted nothing after the snapshot")
+    if max(r["n_near"] for r in ranks) == 0 or ref["n_near"] == 0:
+        failures.append("no water reached the paddles: the coupling went untested")
+    if ref["omega"][2, 2] == 0.0:
+        failures.append("the wheel does not turn")
     emit(dict(phase="water_wheel_slabs", card=card, frames=WATER_WHEEL_FRAMES,
-              particles=ref["count"], seconds=time.perf_counter() - t0,
+              particles=ref["count"], snapshot_particles=emitted,
+              mpm_phase_s=time.perf_counter() - t0, snapshot_s=snap_s,
               mpm_seconds=ref["seconds"], ranks_seconds=[r["seconds"] for r in ranks],
               substeps_per_rank=ranks[0]["substeps"], n_near=[r["n_near"] for r in ranks],
-              wheel_omega_z=float(ranks[0]["omega"][2, 2]),
+              mpm_n_near=ref["n_near"], wheel_omega_z=float(ranks[0]["omega"][2, 2]),
               mpm_wheel_omega_z=float(ref["omega"][2, 2]), failures=failures))
     raise_failures(failures)
     return {f"water_wheel_rank{r}": res["launches"] for r, res in enumerate(ranks)}
 
 
 def main():
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3901,10 +3980,14 @@ def main():
     sim, launches["cpic_wheel"], fixed_syncs, cpic_ms = phase_cpic_path(card)
     phase_cpic_breakdown(sim, card)
     phase_profile(sim, card, phase="cpic_profile")
-    t_new = time.perf_counter()
-    launches["cpic_wheel_unfused"] = phase_cpic_unfused_path(card, sim, cpic_ms)
-    new_phases_s += time.perf_counter() - t_new
+    # the wheel's state with the water on it, for the phases that resume it
+    snapshots = tempfile.TemporaryDirectory(prefix="chip_smoke_wheel_")
+    wheel_snapshot = os.path.join(snapshots.name, "wheel.npz")
+    sim.save(wheel_snapshot)
     del sim
+    t_new = time.perf_counter()
+    launches["cpic_wheel_unfused"] = phase_cpic_unfused_path(card, wheel_snapshot, cpic_ms)
+    new_phases_s += time.perf_counter() - t_new
     launches["cpic_wheel_adaptive"] = phase_cpic_adaptive(card, fixed_syncs)
     launches["dense_check"] = phase_dense_check()
     phase_dense_vs_blocked()
@@ -3922,9 +4005,9 @@ def main():
     launches.update(phase_dist_path(card))
     dist_s = time.perf_counter() - t_dist
     t_dist_cpic = time.perf_counter()
-    launches.update(phase_dist_cpic_check(card))
-    launches.update(phase_dist_cpic_path(card))
-    launches.update(phase_water_wheel_slabs(card))
+    launches.update(phase_dist_check(card, "cpic"))
+    launches.update(phase_slab_cpic_paths(card, wheel_snapshot))
+    snapshots.cleanup()
     emit(dict(phase="timing", dense_cpic_phases_s=dense_cpic_s,
               bucketed_and_unfused_cpic_phases_s=new_phases_s, dist_phases_s=dist_s,
               dist_cpic_phases_s=time.perf_counter() - t_dist_cpic,

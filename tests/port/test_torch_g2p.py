@@ -23,6 +23,7 @@ from taichi_mpm_tpu.ops import packed as jpacked
 from taichi_mpm_torch import convert
 from taichi_mpm_torch.ops import blocked as tblocked
 from taichi_mpm_torch.ops import g2p as tg2p
+from taichi_mpm_torch.ops import packed as tpacked
 from taichi_mpm_torch.ops.rows import RACT, RAUX, RC, RF, RV, RX
 
 from port_helpers import configs, jax_particles, max_err, scene_arrays
@@ -120,3 +121,68 @@ def test_g2p_blocked_wrapper_checks_inputs():
         tg2p.g2p_blocked(torch.zeros(100, dtype=torch.int32), st.t().contiguous().t(), win, tcfg)
     out = tg2p.g2p_blocked(torch.full((100,), 4, dtype=torch.int32), st, win, tcfg)
     assert out.shape == (12, 100) and not out.any()  # slot key K gathers zero
+
+
+def _gather_every_lane(keys, st, win, cfg):
+    """The window gather as every lane runs it: a slot-K lane gathers from
+    an appended window of zeros (the form ``g2p._gather_plain`` had before
+    it computed the lanes of live slots only)."""
+    from taichi_mpm_torch.ops.rows import RORG
+    from taichi_mpm_torch.math.kernels import quadratic_weight
+
+    nK = win.shape[0]
+    tile = win.shape[-1]
+    flat = torch.cat([win.reshape(nK, -1), win.new_zeros(1, 3 * tile ** 3)])
+    slot = keys.long().clamp(max=nK)
+    pos = torch.stack([st[RX + a] * cfg.inv_dx - st[RORG + a] for a in range(3)])
+    base = torch.clamp(torch.floor(pos - 0.5), -2.0, 7.0)
+    w = [[quadratic_weight(pos[a] - (base[a] + d)) for d in range(3)] for a in range(3)]
+    tidx = (base + 1).long()
+    acc = [torch.zeros_like(pos[0]) for _ in range(12)]
+    for di in range(3):
+        for dj in range(3):
+            for dk in range(3):
+                ix, iy, iz = tidx[0] + di, tidx[1] + dj, tidx[2] + dk
+                inside = ((ix >= 0) & (ix < tile) & (iy >= 0) & (iy < tile)
+                          & (iz >= 0) & (iz < tile))
+                wn = w[0][di] * w[1][dj] * w[2][dk]
+                node = (ix.clamp(0, tile - 1) * tile + iy.clamp(0, tile - 1)) * tile \
+                    + iz.clamp(0, tile - 1)
+                d = (pos[0] - (ix - 1), pos[1] - (iy - 1), pos[2] - (iz - 1))
+                for c in range(3):
+                    wg = torch.where(inside, wn * flat[slot, c * tile ** 3 + node], 0.0)
+                    acc[c] = acc[c] + wg
+                    for a in range(3):
+                        acc[3 + 3 * c + a] = acc[3 + 3 * c + a] + wg * d[a]
+    return torch.stack(acc)
+
+
+def test_gather_plain_matches_every_lane_gather():
+    """The plain twins' gather computes the lanes of live slots only: on
+    every live lane it gives the every-lane gather's bits (NaN where a
+    lane's position is not finite), and on every free lane (slot key K)
+    zero, as the CUDA kernel's gather does; the every-lane gather gave
+    NaN there where the free lane's position was not finite."""
+    a, mids = scene_arrays(300, seed=37, mats=("jelly",))
+    _, tcfg = configs(mids)
+    st, _, pm, _ = tpacked.pack_carry(convert.particles_from_numpy(a), tcfg, K)
+    keys, n = pm["slot_keys"], int(pm["n_act"])
+    free = keys >= K
+    lanes = torch.arange(keys.shape[0])
+    free_lanes, live_lanes = lanes[free], lanes[~free]
+    assert n > 3 and free_lanes.numel() > 3
+    st[RX, live_lanes[1]] = float("nan")
+    st[RX + 1, free_lanes[0]] = float("nan")
+    st[RX + 2, free_lanes[2]] = float("inf")
+    rng = np.random.default_rng(38)
+    vrec = torch.as_tensor((0.3 * rng.standard_normal((K, 192))).astype(np.float32))
+    win = tblocked.windows(vrec, pm["nbr"])
+
+    got = torch.stack(tg2p._gather_plain(keys, st, win, tcfg))
+    every = _gather_every_lane(keys, st, win, tcfg)
+    torch.testing.assert_close(got[:, ~free], every[:, ~free], rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(got[:, live_lanes[1]]).any()
+    assert not got[:, free].any()
+    ok = torch.isfinite(st[RX:RX + 3, free]).all(0)
+    assert not every[:, free][:, ok].any()
+    assert torch.isnan(every[:, free_lanes[0]]).any() and torch.isnan(every[:, free_lanes[2]]).any()

@@ -188,9 +188,12 @@ def test_save_and_resume_bits(runs):
 
 def test_water_wheel_runner_with_shards(runs):
     """runner.main water_wheel under SHARDS=2: DistributedMPM on two ranks,
-    the source's particles as many as MPM's, the wheel's omega within the
-    body bounds of MPM's, the bodies equal on both ranks, frames and the
-    wheel's meshes written by rank 0."""
+    the source's particles as many as MPM's, the bodies as MPM's and equal
+    on both ranks, frames and the wheel's meshes written by rank 0. In
+    these 4 ms the water does not reach the paddles, so the bodies stay
+    at rest: the coupling on this scene is held to MPM's on the card
+    (chip_smoke.py's water_wheel_slabs, from a state with the water on
+    the paddles)."""
     ref = runs["mpm"]["water_wheel"]
     assert ref["type"] == "MPM" and ref["count"] > 0
     for r in runs["port"]:
