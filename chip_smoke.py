@@ -1047,10 +1047,13 @@ def set_label(names):
     return names[0] if len(names) == 1 else "all" if len(names) == 8 else "+".join(names)
 
 
+MATERIALS25_SUBSTEPS = 3  # the frame's depth: the CPU frames of 125k particles take the time
+
+
 def phase_materials25():
-    """For each set of MATERIAL_SETS25: one 6-substep frame of the 125k
-    cube (benchmark_cube(cells=25), the set's materials dealt over the
-    lattice in turn) on the card, each fused kernel launched once per
+    """For each set of MATERIAL_SETS25: one MATERIALS25_SUBSTEPS-substep
+    frame of the 125k cube (benchmark_cube(cells=25), the set's materials
+    dealt over the lattice in turn) on the card, each fused kernel launched once per
     substep, held to the same frame on the CPU and to the unfused card
     frame at the cube25 bounds, with plastic events equal but for sand's
     knife edges over the CPU frame; then the four kernels against their
@@ -1063,14 +1066,15 @@ def phase_materials25():
         label = set_label(names)
         material = names[0] if len(names) == 1 else names
         t0 = time.perf_counter()
-        card, cpu = cube(25, "cuda", 6, material), cube(25, "cpu", 6, material)
-        unfused = on_route(False, lambda: cube(25, "cuda", 6, material))
+        n = MATERIALS25_SUBSTEPS
+        card, cpu = cube(25, "cuda", n, material), cube(25, "cpu", n, material)
+        unfused = on_route(False, lambda: cube(25, "cuda", n, material))
         zero_counts()
         card.step()
-        f = route_failures(read_counts(), True, 6)
+        f = route_failures(read_counts(), True, n)
         zero_counts()
         unfused.step()
-        f += route_failures(read_counts(), False, 6)
+        f += route_failures(read_counts(), False, n)
         with diagnostics.sand_edges_per_substep() as edges:
             cpu.step()
         slack = sum(edges)
@@ -3915,6 +3919,544 @@ def phase_water_wheel_slabs(card, ranks, mpm_dir, emitted, snap_s):
     return {f"water_wheel_rank{r}": res["launches"] for r, res in enumerate(ranks)}
 
 
+# -- per-block async on slabs: DistributedAsyncMPM ----------------------------------------
+
+DIST_ASYNC_UNIT = 5e-4  # tests/test_async_spatial.py's unit: frames of 64 units
+DIST_ASYNC_FRAMES = 2
+DIST_ASYNC_BOUNDS = (("x", 1e-5), ("v", 5e-4))  # JAX's own, its slab vs one-device frames
+ASYNC_DAM_CHECK_RES = 32
+ASYNC_DAM_CHECK_FRAME_DT = 5e-4
+ASYNC_PATH_RES = 128  # balls.py's 94k particles and water.py's 1,056,758
+
+
+def tag_pending(sim):
+    """Each pending particle's index in params[:, ID_ROW_PARAM]."""
+    first = 0
+    for batch in sim._pending:
+        n = batch["x"].shape[0]
+        batch["params"][:, ID_ROW_PARAM] = np.arange(first, first + n, dtype=np.float32)
+        first += n
+    return sim
+
+
+def async_blobs(solver, device, **kw):
+    """tests/test_async_spatial.py's driver scene: a soft (E 4e3, 1,200
+    particles) and a stiff (E 4e5, 300) elastic blob either side of x =
+    0.5 at res 32, moving slowly, no gravity; frames of 64 units of 5e-4 s."""
+    rng = np.random.default_rng(7)
+    sim = solver(res=(32, 32, 32), base_delta_t=1e-3, frame_dt=DIST_ASYNC_UNIT * 64,
+                 unit_delta_t=DIST_ASYNC_UNIT, gravity=(0.0, 0.0, 0.0), device=device, **kw)
+    soft = rng.uniform((0.15, 0.3, 0.3), (0.49, 0.7, 0.7), (1200, 3)).astype(np.float32)
+    stiff = rng.uniform((0.51, 0.4, 0.4), (0.80, 0.6, 0.6), (300, 3)).astype(np.float32)
+    sim.add_particles("elastic", pos=soft, vel=(0.1, -0.05, 0.02), E=4e3, nu=0.3, density=1000)
+    sim.add_particles("elastic", pos=stiff, vel=(-0.1, 0.05, 0.0), E=4e5, nu=0.3, density=1000)
+    return tag_pending(sim)
+
+
+def async_apart(solver, device, **kw):
+    """``async_blobs`` with the soft blob in x <= 0.40 and the stiff one in x
+    >= 0.60: no grid node takes mass from both slabs, so every boundary
+    record is one rank's sum plus the other's zeros."""
+    rng = np.random.default_rng(7)
+    sim = solver(res=(32, 32, 32), base_delta_t=1e-3, frame_dt=DIST_ASYNC_UNIT * 64,
+                 unit_delta_t=DIST_ASYNC_UNIT, gravity=(0.0, 0.0, 0.0), device=device, **kw)
+    soft = rng.uniform((0.15, 0.3, 0.3), (0.40, 0.7, 0.7), (1200, 3)).astype(np.float32)
+    stiff = rng.uniform((0.60, 0.4, 0.4), (0.80, 0.6, 0.6), (300, 3)).astype(np.float32)
+    sim.add_particles("elastic", pos=soft, vel=(0.1, -0.05, 0.02), E=4e3, nu=0.3, density=1000)
+    sim.add_particles("elastic", pos=stiff, vel=(-0.1, 0.05, 0.0), E=4e5, nu=0.3, density=1000)
+    return tag_pending(sim)
+
+
+def async_crossing(solver, device, **kw):
+    """tests/test_async_spatial.py:110-139's scene: 1,200 elastic particles
+    in [0.30, 0.55] x [0.3, 0.7]^2 moving at 1 m/s along x: each frame
+    re-sorts, and particles cross x = 0.5."""
+    pos = np.random.default_rng(0).uniform((0.30, 0.3, 0.3), (0.55, 0.7, 0.7),
+                                           (1200, 3)).astype(np.float32)
+    sim = solver(res=(32, 32, 32), base_delta_t=1e-3, frame_dt=DIST_ASYNC_UNIT * 64,
+                 unit_delta_t=DIST_ASYNC_UNIT, gravity=(0.0, 0.0, 0.0), device=device, **kw)
+    sim.add_particles("elastic", pos=pos, vel=(1.0, 0.0, 0.0), E=4e3, nu=0.3, density=1000)
+    return tag_pending(sim)
+
+
+def async_dam(solver, device, **kw):
+    """scripts/async/water.py at res 32 (all its water in x < 0.35, so the
+    right slab starts empty), frames of 5e-4 s."""
+    from taichi_mpm_torch import scenes
+
+    sim = scenes.water_script(ASYNC_DAM_CHECK_RES, device=device, solver=solver, **kw)
+    sim.frame_dt = ASYNC_DAM_CHECK_FRAME_DT
+    return tag_pending(sim)
+
+
+ASYNC_SCENES = {"blobs": async_blobs, "apart": async_apart, "crossing": async_crossing,
+                "dam": async_dam}
+# where two gloo ranks must give one device's bits: no node sums two ranks' halves
+ASYNC_ONE_SIDED = ("apart", "dam")
+
+
+def async_run(sim, frames):
+    """Frames of a per-block scene (AsyncMPM or DistributedAsyncMPM), every
+    launch count set to 0 before: per frame the updates, the schedule,
+    the sorts and this rank's level histograms; the kernel advances, the
+    launches, and the state by id tag (gathered on slabs)."""
+    sim._ensure_finalized()
+    local = int(sim.particles.active.sum())
+    zero_counts()
+    out = dict(updates=[], schedule=[], sorts=[], level_hist=[], empty=0, kernel_advances=0)
+    for _ in range(frames):
+        n0 = sim.update_counter
+        sim.step()
+        st = sim.last_frame_stats
+        out["updates"].append(sim.update_counter - n0)
+        out["schedule"].append(st.schedule)
+        out["sorts"].append(st.sorts)
+        out["level_hist"].append(st.level_hist)
+        out["empty"] += st.empty_advances
+        out["kernel_advances"] += st.n_substeps - st.empty_advances
+    out["launches"] = read_counts()
+    slabs = getattr(sim, "slab_stats", None)
+    if slabs is not None:
+        out.update(sent=(slabs.sent_left, slabs.sent_right), arrived=slabs.arrived,
+                   local_start=local, rank=sim.rank)
+    out["state"] = tagged(sim._gather() if slabs is not None else sim.particles)
+    out["count"] = sim.particle_count()
+    out["t"] = float(sim.t)
+    out["sha256"] = hashlib.sha256(b"".join(
+        np.ascontiguousarray(v).tobytes() for v in out["state"].values())).hexdigest()
+    return out
+
+
+def dist_async_runs(runs, device=DIST_DEVICE):
+    """On every rank of the current group: each (scene, repeat) of `runs`
+    on DistributedAsyncMPM for DIST_ASYNC_FRAMES frames (``async_run``)."""
+    from taichi_mpm_torch.parallel.driver import DistributedAsyncMPM
+
+    return {f"{name}_{rep}": async_run(ASYNC_SCENES[name](DistributedAsyncMPM, device),
+                                       DIST_ASYNC_FRAMES)
+            for name, rep in runs}
+
+
+def async_failures(label, res, ref, hist, failures):
+    """One rank's run held to one device's: the updates, schedule and
+    sorts of every frame, the level histograms summed over the ranks
+    (`hist`), every particle kept, x and v within DIST_ASYNC_BOUNDS, each
+    fused kernel once per advance with a context and no other kernel."""
+    for key in ("updates", "schedule", "sorts"):
+        if res[key] != ref[key]:
+            failures.append(f"{label}: {key} differ from one device's")
+    if hist != ref["level_hist"]:
+        failures.append(f"{label}: level histograms {hist} vs {ref['level_hist']}")
+    if res["count"] != ref["count"]:
+        failures.append(f"{label}: {res['count']} particles, one device {ref['count']}")
+    failures += [f"{label}: {f}"
+                 for f in route_failures(res["launches"], True, res["kernel_advances"])]
+    return tagged_errors(ref["state"], res["state"], label, failures, DIST_ASYNC_BOUNDS)
+
+
+def phase_dist_async_check(card):
+    """``dist_async_check``: DistributedAsyncMPM against AsyncMPM(per_block=
+    True) on the card, DIST_ASYNC_FRAMES frames of each scene of
+    ASYNC_SCENES, (a) on one rank over NCCL in this process, (b) on two
+    ranks sharing the card over gloo (spawned; the dam twice): the
+    updates, the schedule of (tick, level), the sorts and the level
+    histograms of every sort (summed over the ranks) equal, x within 1e-5
+    and v within 5e-4 (JAX's bounds between these two paths; the errors
+    printed, and whether the bits are one device's), every particle
+    kept, each fused kernel once per advance with a context; the crossing
+    blob re-sorts and migrates; on the dam the right slab starts empty,
+    its frames end on both ranks, and the second run has the first's
+    bits. One NCCL rank gives one device's bits, and so do two gloo ranks
+    on the scenes of ASYNC_ONE_SIDED, where no node takes mass from both
+    slabs: what parts the others is the sum of a boundary node's two
+    halves. Returns the launches by path."""
+    from taichi_mpm_torch.core.adaptive import AsyncMPM
+    from taichi_mpm_torch.parallel import comm
+
+    failures = []
+    t0 = time.perf_counter()
+    refs = {name: async_run(make(AsyncMPM, "cuda", per_block=True), DIST_ASYNC_FRAMES)
+            for name, make in ASYNC_SCENES.items()}
+    runs = [(name, 0) for name in ASYNC_SCENES]
+    with comm.process_group("nccl", 0, 1, comm.free_port(), timeout_s=DIST_TIMEOUT_S):
+        nccl = dist_async_runs(runs)
+    gloo = comm.run_ranks(dist_async_runs, 2, "gloo", args=(runs + [("dam", 1)],),
+                          timeout_s=DIST_TIMEOUT_S)
+    shown = {}
+    for key, res in nccl.items():
+        ref = refs[key[:-2]]
+        errs = async_failures(f"nccl {key}", res, ref, res["level_hist"], failures)
+        shown[f"nccl_{key}"] = dict(errors=errs, bits=res["sha256"] == ref["sha256"],
+                                    updates=res["updates"])
+        if not shown[f"nccl_{key}"]["bits"]:
+            failures.append(f"nccl {key}: not one device's bits")
+    for key in gloo[0]:
+        ref = refs[key[:-2]]
+        hist = [[[x + y for x, y in zip(a, b)] for a, b in zip(f0, f1)]
+                for f0, f1 in zip(gloo[0][key]["level_hist"], gloo[1][key]["level_hist"])]
+        for r in range(2):
+            errs = async_failures(f"gloo rank {r} {key}", gloo[r][key], ref, hist, failures)
+        g = gloo[0][key]
+        shown[f"gloo_{key}"] = dict(
+            errors=errs, bits=g["sha256"] == ref["sha256"], updates=g["updates"],
+            sorts=g["sorts"], sent=[gloo[r][key]["sent"] for r in range(2)],
+            local_start=[gloo[r][key]["local_start"] for r in range(2)],
+            empty_advances=[gloo[r][key]["empty"] for r in range(2)], level_hist=hist)
+        if key[:-2] in ASYNC_ONE_SIDED and not shown[f"gloo_{key}"]["bits"]:
+            failures.append(f"gloo {key}: not one device's bits, though no node has two halves")
+    crossing = gloo[0]["crossing_0"]
+    if max(crossing["sorts"]) < 2 or crossing["sent"][1] == 0:
+        failures.append(f"crossing: sorts {crossing['sorts']}, sent {crossing['sent']}: "
+                        "no re-sort or no migrant")
+    dam = [gloo[r]["dam_0"] for r in range(2)]
+    if dam[1]["local_start"] != 0 or dam[1]["empty"] == 0:
+        failures.append(f"dam: the right slab started with {dam[1]['local_start']} particles")
+    if gloo[0]["dam_0"]["sha256"] != gloo[0]["dam_1"]["sha256"]:
+        failures.append("dam: a second run on the card differs in bits")
+    launches = {"dist_async_check_nccl": {}, "dist_async_check_gloo": {}}
+    for path, ranks in (("dist_async_check_nccl", [nccl]), ("dist_async_check_gloo", gloo)):
+        for by_run in ranks:
+            for res in by_run.values():
+                for k, v in res["launches"].items():
+                    launches[path][k] = launches[path].get(k, 0) + v
+    emit(dict(phase="dist_async_check", card=card, frames=DIST_ASYNC_FRAMES,
+              particles={k: r["count"] for k, r in refs.items()},
+              one_device_updates={k: r["updates"] for k, r in refs.items()},
+              one_device_sorts={k: r["sorts"] for k, r in refs.items()},
+              runs=shown, seconds=time.perf_counter() - t0, launches=launches,
+              failures=failures))
+    raise_failures(failures)
+    return launches
+
+
+def async_path_scene(name, solver, device, **kw):
+    from taichi_mpm_torch import scenes
+
+    make = scenes.async_balls if name == "balls" else scenes.water_script
+    return make(res=ASYNC_PATH_RES, device=device, solver=solver, **kw)
+
+
+def async_path_frames(sim):
+    """A warm-up frame under torch's sync debug mode (the synchronizing
+    calls torch reports, per advance), then one timed frame (host clock,
+    fenced): ms per frame and per advance, advances, host syncs per
+    advance, updates of both frames, launches of the timed frame."""
+    import warnings
+
+    import torch
+
+    from taichi_mpm_torch.utils import HostSyncs
+
+    sim._ensure_finalized()
+    n = sim.particle_count()
+    torch.cuda.synchronize()
+    n0 = sim.update_counter
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sim.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    warm = sim.last_frame_stats
+    torch_syncs = sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+    warm_updates = sim.update_counter - n0
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    if hasattr(sim, "slab_stats"):
+        from taichi_mpm_torch.parallel import comm
+
+        comm.all_max(torch.zeros((), device=sim.device))  # the ranks start the clock together
+    syncs, n0 = HostSyncs.count, sim.update_counter
+    t0 = time.perf_counter()
+    sim.step()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    st = sim.last_frame_stats
+    adv = st.n_substeps
+    p = sim.particles
+    x = p.x[p.active]
+    hi = sim.cfg.res[0] * sim.cfg.dx
+    bad = int((~(torch.isfinite(x).all(-1) & (x >= 0).all(-1) & (x <= hi).all(-1))).sum())
+    return dict(particles=n, ms_per_frame=secs * 1e3, ms_per_advance=secs * 1e3 / adv,
+                advances_per_level=st.advances, empty_advances=st.empty_advances,
+                kernel_advances=adv - st.empty_advances, sorts=st.sorts,
+                host_syncs_per_advance=(HostSyncs.count - syncs) / adv,
+                torch_syncs_per_advance=torch_syncs / warm.n_substeps,
+                warm_updates=warm_updates, updates=sim.update_counter - n0,
+                launches=read_counts(), local_particles=int(p.active.sum()),
+                count=sim.particle_count(), outside_or_nan=bad,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def dist_async_path_rank():
+    """On each rank of the shared-card group: balls.py and water.py's dam at
+    ASYNC_PATH_RES on DistributedAsyncMPM, ``async_path_frames`` each, and
+    the migrants."""
+    import torch
+
+    from taichi_mpm_torch.parallel.driver import DistributedAsyncMPM
+
+    out = {}
+    for name in ("balls", "dam"):
+        t0 = time.perf_counter()
+        sim = async_path_scene(name, DistributedAsyncMPM, DIST_DEVICE)
+        sim._ensure_finalized()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        res = async_path_frames(sim)
+        st = sim.slab_stats
+        res.update(rank=sim.rank, setup_s=setup_s, sent=(st.sent_left, st.sent_right),
+                   arrived=st.arrived, grown=st.grown)
+        out[name] = res
+        del sim
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dist_async_path(card):
+    """``dist_async_path``: scripts/async/balls.py (94k particles, the stiff
+    ball crossing the slab boundary into the soft one) and
+    scripts/async/water.py's dam (1,056,758 particles) at res 128 through
+    DistributedAsyncMPM on two ranks sharing the card (gloo), a warm-up
+    frame and a timed frame each (``async_path_frames``), beside
+    AsyncMPM(per_block=True) on the card: ms per frame and per advance,
+    advances per level, host syncs per advance (HostSyncs and torch's
+    count), migrants and updates per rank. Gates: the warm-up frame's
+    updates equal one device's (the same input; the timed frame's are
+    printed: its input differs by the slabs' rounding); every particle
+    kept, finite and in the domain; each fused kernel once per advance
+    with a context on each rank. The two ranks time-share one H100: this
+    is no scaling number. Returns the launches by scene and rank."""
+    import torch
+
+    from taichi_mpm_torch.core.adaptive import AsyncMPM
+    from taichi_mpm_torch.parallel import comm
+
+    failures = []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = comm.run_ranks(dist_async_path_rank, 2, "gloo", timeout_s=DIST_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    one = {}
+    for name in ("balls", "dam"):
+        sim = async_path_scene(name, AsyncMPM, "cuda", per_block=True)
+        one[name] = async_path_frames(sim)
+        del sim
+        torch.cuda.empty_cache()
+        for r in ranks:
+            res = r[name]
+            label = f"{name} rank {res['rank']}"
+            failures += [f"{label}: {f}"
+                         for f in route_failures(res["launches"], True, res["kernel_advances"])]
+            if res["count"] != one[name]["count"] or res["outside_or_nan"]:
+                failures.append(f"{label}: {res['count']} particles (one device "
+                                f"{one[name]['count']}), {res['outside_or_nan']} outside the "
+                                "domain or not finite")
+            if res["warm_updates"] != one[name]["warm_updates"]:
+                failures.append(f"{label}: {res['warm_updates']} updates in the first frame, "
+                                f"one device {one[name]['warm_updates']}")
+        if sum(r[name]["local_particles"] for r in ranks) != one[name]["count"]:
+            failures.append(f"{name}: the slabs do not hold every particle between them")
+    emit(dict(phase="dist_async_path", card=card, what="two processes time-sharing one H100, "
+              "not a scaling number", res=ASYNC_PATH_RES,
+              ranks=[{n: {k: v for k, v in r[n].items() if k != "launches"} for n in r}
+                     for r in ranks],
+              one_device={n: {k: v for k, v in o.items() if k != "launches"}
+                          for n, o in one.items()},
+              ranks_s=ranks_s, clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"),
+              failures=failures))
+    raise_failures(failures)
+    return {f"dist_async_path_{name}_rank{r[name]['rank']}": r[name]["launches"]
+            for r in ranks for name in r}
+
+
+# -- the dense slab frames: parallel.spatial and parallel.sharding --------------------
+
+DENSE_STRIP_FRAMES = 4  # of DENSE_STRIP_SUBSTEPS, tests/test_spatial.py's
+DENSE_STRIP_SUBSTEPS = 10
+DENSE_CUBE_SUBSTEPS = 5  # tests/test_sharding.py's
+DENSE_SLAB_TIMED_SUBSTEPS = 10  # colliding balls at res 100, after one warm-up substep
+DENSE_SLAB_BOUNDS = FRAME_BOUNDS[:3]  # x, v, F
+
+
+def dense_strip(device):
+    """tests/test_spatial.py's 2-D strip: 400 jelly particles on a 40 x 10
+    lattice in [0.1, 0.9] x [0.5, 0.7] moving at 1 m/s along x, res 64,
+    dt 2e-4, gravity -10; each particle's index tagged."""
+    from taichi_mpm_torch import MPM
+
+    sim = MPM(res=(64, 64), base_delta_t=2e-4, frame_dt=2e-3, gravity=(0, -10.0), device=device)
+    pos = np.stack(np.meshgrid(np.linspace(0.1, 0.9, 40), np.linspace(0.5, 0.7, 10)),
+                   -1).reshape(-1, 2)
+    vel = np.zeros_like(pos)
+    vel[:, 0] = 1.0
+    sim.add_particles("jelly", pos=pos, vel=vel, E=1e4, nu=0.3)
+    tag_pending(sim)
+    sim._ensure_finalized()
+    return sim
+
+
+def dense_cube(device):
+    """tests/test_sharding.py's cube: benchmark_cube(cells=4, res=16), 512
+    jelly particles in a sticky box; each particle's index tagged."""
+    from taichi_mpm_torch import scenes
+
+    sim = scenes.benchmark_cube(cells=4, res=16, material="jelly", E=2e4, nu=0.35,
+                                device=device)
+    tag_pending(sim)
+    sim._finalize(capacity=512)
+    return sim
+
+
+def dense_balls(device):
+    """colliding_balls_energy.py at its res 100 (67,044 particles), with an
+    even capacity (the data-parallel frame halves it)."""
+    from taichi_mpm_torch import scenes
+
+    sim = scenes.colliding_balls_energy(res=DENSE_PATH_RES, device=device)
+    sim._finalize(capacity=67_044)
+    return sim
+
+
+def dense_slab_runs(device=DIST_DEVICE, timed=False):
+    """On every rank of the current group: the dense slab frame
+    (``parallel.spatial``) on the strip, DENSE_STRIP_FRAMES frames, and the
+    data-parallel frame (``parallel.sharding``) on the cube,
+    DENSE_CUBE_SUBSTEPS substeps, from the same global particles; each
+    returns the global state by id tag, the count and the launches. With
+    `timed`, both frames on colliding balls at res 100: ms per substep on
+    this rank (host clock, fenced), after a warm-up substep."""
+    import torch
+
+    from taichi_mpm_torch.parallel import comm, sharding, spatial
+
+    s, n = comm.rank(), comm.world()
+    out = {}
+    zero_counts()
+    sim = dense_strip(device)
+    local, _ = spatial.shard_spatially(sim.particles, sim.cfg, n, s, slack=2.0)
+    frame = spatial.build_spatial_frame(sim.cfg, (), DENSE_STRIP_SUBSTEPS)
+    t = np.float32(0.0)
+    for _ in range(DENSE_STRIP_FRAMES):
+        local, t, dropped = frame(local, t)
+    out["strip"] = dict(state=tagged(_gathered(local)), t=float(t), dropped=dropped,
+                        local=int(local.active.sum()))
+    sim = dense_cube(device)
+    p = sharding.shard_particles(sim.particles, n, s)
+    p, t = sharding.build_sharded_frame(sim.cfg, tuple(sim.colliders), DENSE_CUBE_SUBSTEPS)(
+        p, np.float32(0.0))
+    out["cube"] = dict(state=tagged(_gathered(p)), t=float(t))
+    out["launches"] = read_counts()
+    if timed:
+        sim = dense_balls(device)
+        cfg, colls = sim.cfg, tuple(sim.colliders)
+        for name in ("spatial", "sharded"):
+            if name == "spatial":
+                q, _ = spatial.shard_spatially(sim.particles, cfg, n, s, slack=2.0)
+                one = spatial.build_spatial_frame(cfg, colls, 1)
+                step = lambda q, t: one(q, t)[:2]  # noqa: E731
+            else:
+                q = sharding.shard_particles(sim.particles, n, s)
+                step = sharding.build_sharded_frame(cfg, colls, 1)
+            q, t = step(q, np.float32(0.0))
+            torch.cuda.synchronize()
+            comm.all_max(torch.zeros((), device=device))  # the ranks start the clock together
+            t0 = time.perf_counter()
+            for _ in range(DENSE_SLAB_TIMED_SUBSTEPS):
+                q, t = step(q, t)
+            torch.cuda.synchronize()
+            out[f"balls_{name}"] = dict(
+                ms_per_substep=(time.perf_counter() - t0) * 1e3 / DENSE_SLAB_TIMED_SUBSTEPS,
+                local=int(q.active.sum()),
+                count=int(comm.all_sum(q.active.sum(dtype=torch.int64))))
+    return out
+
+
+def _gathered(p):
+    """A rank's particle set gathered over the ranks, in rank order."""
+    from taichi_mpm_torch.core.state import Particles
+    from taichi_mpm_torch.parallel import comm, spatial
+
+    return Particles(**spatial.from_lane_rows(comm.all_gather_rows(spatial.lane_rows(p)), p))
+
+
+def phase_dist_dense_check(card):
+    """``dist_dense_check``: the two dense slab frames that no driver
+    reaches, ``dense_slab_runs``, (a) on one rank over NCCL in this
+    process, (b) on two ranks sharing the card over gloo (spawned),
+    against the port's dense ``frame_fn`` on the card from the same
+    particles: the strip within the frame bounds (x, v, F), the cube
+    within tests/test_sharding.py's (x 1e-6, v 1e-5, F 1e-5), whether
+    each gives one device's bits, every particle kept, nothing dropped,
+    no kernel of the port launched (the dense path has none). Then
+    colliding_balls_energy.py at res 100 through both frames on the two
+    ranks: ms per substep per rank beside one device's ``frame_fn``. The
+    two ranks time-share one H100: this is no scaling number. Returns
+    the launches by path."""
+    import torch
+
+    from taichi_mpm_torch.core import transfer
+    from taichi_mpm_torch.core.solver import frame_fn
+    from taichi_mpm_torch.parallel import comm
+
+    failures = []
+    t0 = time.perf_counter()
+    sim = dense_strip("cuda")
+    p, t = sim.particles, np.float32(0.0)
+    for _ in range(DENSE_STRIP_FRAMES):
+        p, t, _ = frame_fn(p, t, sim.cfg, (), sim.cfg.base_dt, DENSE_STRIP_SUBSTEPS)
+    ref = dict(strip=(tagged(p), float(t)))
+    sim = dense_cube("cuda")
+    xg = transfer.node_positions(sim.cfg, sim.device)
+    p, t, _ = frame_fn(sim.particles, np.float32(0.0), sim.cfg, tuple(sim.colliders),
+                       sim.cfg.base_dt, DENSE_CUBE_SUBSTEPS, xg)
+    ref["cube"] = (tagged(p), float(t))
+    sim = dense_balls("cuda")
+    p, t, _ = frame_fn(sim.particles, np.float32(0.0), sim.cfg, (), sim.cfg.base_dt, 1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    p, t, _ = frame_fn(p, t, sim.cfg, (), sim.cfg.base_dt, DENSE_SLAB_TIMED_SUBSTEPS)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t1) * 1e3 / DENSE_SLAB_TIMED_SUBSTEPS
+    n_balls = sim.particle_count()
+    del sim, p
+    with comm.process_group("nccl", 0, 1, comm.free_port(), timeout_s=DIST_TIMEOUT_S):
+        nccl = dense_slab_runs()
+    gloo = comm.run_ranks(dense_slab_runs, 2, "gloo", args=(DIST_DEVICE, True),
+                          timeout_s=DIST_TIMEOUT_S)
+    bounds = dict(strip=DENSE_SLAB_BOUNDS, cube=(("x", 1e-6), ("v", 1e-5), ("F", 1e-5)))
+    shown = {}
+    for label, res in [("nccl", nccl)] + [(f"gloo rank {r}", g) for r, g in enumerate(gloo)]:
+        failures += [f"{label}: {f}" for f in no_launches(res["launches"])]
+        for name in ("strip", "cube"):
+            want, t_want = ref[name]
+            got = res[name]["state"]
+            errs = tagged_errors(want, got, f"{label} {name}", failures, bounds[name])
+            shown[f"{label} {name}"] = dict(
+                errors=errs, bits=all(np.array_equal(want[k], got[k]) for k in want),
+                count=len(got["x"]), local=res[name].get("local"))
+            if res[name]["t"] != t_want:
+                failures.append(f"{label} {name}: t {res[name]['t']} vs {t_want}")
+        if res["strip"]["dropped"] or len(res["strip"]["state"]["x"]) != 400:
+            failures.append(f"{label} strip: {len(res['strip']['state']['x'])} particles kept")
+    balls = {}
+    for name in ("spatial", "sharded"):
+        balls[name] = [g[f"balls_{name}"] for g in gloo]
+        for r, b in enumerate(balls[name]):
+            if b["count"] != n_balls:
+                failures.append(f"balls {name} rank {r}: {b['count']} particles, not {n_balls}")
+    emit(dict(phase="dist_dense_check", card=card, runs=shown, balls_particles=n_balls,
+              balls_ms_per_substep=balls, one_device_balls_ms_per_substep=one_ms,
+              what="two processes time-sharing one H100, not a scaling number",
+              seconds=time.perf_counter() - t0, failures=failures))
+    raise_failures(failures)
+    return {"dist_dense_check_nccl": nccl["launches"],
+            "dist_dense_check_gloo": {k: sum(g["launches"][k] for g in gloo)
+                                      for k in nccl["launches"]}}
+
+
 def main():
     import tempfile
 
@@ -4008,9 +4550,15 @@ def main():
     launches.update(phase_dist_check(card, "cpic"))
     launches.update(phase_slab_cpic_paths(card, wheel_snapshot))
     snapshots.cleanup()
+    dist_cpic_s = time.perf_counter() - t_dist_cpic
+    t_dist_async = time.perf_counter()
+    launches.update(phase_dist_async_check(card))
+    launches.update(phase_dist_async_path(card))
+    launches.update(phase_dist_dense_check(card))
     emit(dict(phase="timing", dense_cpic_phases_s=dense_cpic_s,
               bucketed_and_unfused_cpic_phases_s=new_phases_s, dist_phases_s=dist_s,
-              dist_cpic_phases_s=time.perf_counter() - t_dist_cpic,
+              dist_cpic_phases_s=dist_cpic_s,
+              dist_async_and_dense_phases_s=time.perf_counter() - t_dist_async,
               script_s=time.perf_counter() - t_start))
     emit({"kernels": kernels_line(measured, launches, dam_ms, by_material)})
     print(card, flush=True)

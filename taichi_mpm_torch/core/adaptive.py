@@ -40,7 +40,7 @@ from taichi_mpm_torch.core.solver import MPM, substep
 from taichi_mpm_torch.core.state import Particles
 from taichi_mpm_torch.materials import models as materials
 from taichi_mpm_torch.ops import async_bucketed, packed
-from taichi_mpm_torch.ops.async_bucketed import LN_2, LOG2_E, MAXLEV
+from taichi_mpm_torch.ops.async_bucketed import LN_2, LOG2_E
 from taichi_mpm_torch.ops.rows import RACT, RX
 from taichi_mpm_torch.rigid import cpic, cpic_packed
 from taichi_mpm_torch.utils import host_read
@@ -182,9 +182,7 @@ class AsyncMPM(MPM):
     def bucket_unit(self, frame_dt: Optional[float] = None) -> float:
         """The per-block scheduler's unit: unit_delta_t snapped so that
         frame_dt = m * unit * 2^MAXLEV (m >= 1)."""
-        fdt = frame_dt or self.frame_dt
-        m = max(1, round(fdt / (self.unit_delta_t * (1 << MAXLEV))))
-        return fdt / (m * (1 << MAXLEV))
+        return async_bucketed.snapped_unit(frame_dt or self.frame_dt, self.unit_delta_t)
 
     def step(self, frame_dt: Optional[float] = None):
         """Advance one frame of frame_dt (default self.frame_dt) at

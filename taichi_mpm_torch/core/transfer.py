@@ -12,7 +12,10 @@ with invD = 6 - order, force = -vol P F^T (``materials.models``).
 
 Any B-spline order (1, 2, 3) and dimension (2, 3). The scatter and the
 gathers are torch ops, as the reference's are XLA ops: no Pallas kernel
-stands behind them. The grid holds res + 2 nodes per axis.
+stands behind them. The grid holds res + 2 nodes per axis; the dense
+slab frame (``parallel.spatial``) runs the same transfers on a node
+window of it, `window` = (x_start, nodes): the global node column of the
+window's column 0 and the window's node counts.
 
 Scalars follow the JAX package's arithmetic: a dt given as a Python
 float folds with the other constants in double precision and is rounded
@@ -56,19 +59,29 @@ def _ravel(idx, nodes):
     return lin
 
 
-def _stencil(cfg: SimConfig, pos, base, w):
+def _stencil(cfg: SimConfig, pos, base, w, window=None):
     """Every stencil offset of every particle at once, offsets first (K
     offsets in the JAX package's order, N particles): (offset from the
     node dpos (K, N, d), tensor-product weight (K, N), in-grid mask
     (K, N), linear node index (K, N) int64, 0 where out of the grid). The
     same elementwise arithmetic as the JAX package's loop over offsets,
-    which these ops run in fewer, larger launches."""
+    which these ops run in fewer, larger launches. On a node `window`
+    the indices are the window's and the mask holds the window and the
+    grid's x extent (the JAX package's ``spatial.p2g_local``)."""
     d = cfg.dim
+    nodes = cfg.grid_nodes if window is None else window[1]
     offs = const(stencil_offsets(d, cfg.kernel_order), torch.int32, pos.device)  # (K, d)
+    if window is not None:
+        base = base - const((window[0],) + (0,) * (d - 1), torch.int32, pos.device)
     idx = base[None] + offs[:, None, :]
-    inb = torch.all((idx >= 0) & (idx < const(cfg.grid_nodes, torch.int32, pos.device)), -1)
-    lin = torch.where(inb, _ravel(idx, cfg.grid_nodes), 0).to(torch.int64)
+    inb = torch.all((idx >= 0) & (idx < const(nodes, torch.int32, pos.device)), -1)
+    if window is not None:
+        gx = idx[..., 0] + window[0]
+        inb = inb & (gx >= 0) & (gx < cfg.grid_nodes[0])
+    lin = torch.where(inb, _ravel(idx, nodes), 0).to(torch.int64)
     dpos = pos[None] - idx.to(pos.dtype)
+    if window is not None:
+        dpos[..., 0] = dpos[..., 0] - float(window[0])
     # prod_k w[:, k, off_k], multiplied in axis order
     wo = w[:, 0, offs[:, 0].long()].T
     for k in range(1, d):
@@ -89,9 +102,9 @@ def _folded(*factors):
     return out
 
 
-def p2g(p: Particles, cfg: SimConfig, dt) -> torch.Tensor:
+def p2g(p: Particles, cfg: SimConfig, dt, window=None) -> torch.Tensor:
     """Particle-to-grid scatter of (momentum, mass): a tensor of shape
-    cfg.grid_nodes + (d + 1,).
+    cfg.grid_nodes + (d + 1,), or the node `window`'s nodes + (d + 1,).
 
     The values of all stencil offsets go to the grid in one ordered
     scatter (``utils.index_add_ordered``), offset-major and particles in
@@ -99,7 +112,7 @@ def p2g(p: Particles, cfg: SimConfig, dt) -> torch.Tensor:
     order of the JAX package's scatter per offset, and the sum has the
     same bits on every run on the card."""
     d = cfg.dim
-    nodes = cfg.grid_nodes
+    nodes = cfg.grid_nodes if window is None else window[1]
     invD = inv_D(cfg.kernel_order)
     pos, base, w = _weights(cfg, p.x)
 
@@ -116,7 +129,7 @@ def p2g(p: Particles, cfg: SimConfig, dt) -> torch.Tensor:
     mass = torch.where(p.active, p.mass, 0.0)
     mvel = mass[:, None] * vel
 
-    dpos, wo, inb, lin = _stencil(cfg, pos, base, w)
+    dpos, wo, inb, lin = _stencil(cfg, pos, base, w, window)
     wo = wo * p.active
     mom = mvel + mv(affine, dpos)  # (K, N, d)
     val = torch.cat([mom, mass[:, None].expand(mom.shape[:-1] + (1,))], -1) * wo[..., None]
@@ -126,11 +139,15 @@ def p2g(p: Particles, cfg: SimConfig, dt) -> torch.Tensor:
     return flat.reshape(tuple(nodes) + (d + 1,))
 
 
-def node_positions(cfg: SimConfig, device) -> torch.Tensor:
-    """Physical positions of all grid nodes, shape nodes + (d,). A scene
-    builds them once and passes them to every ``grid_update``."""
-    axes = [torch.arange(n, dtype=torch.float32, device=device) * cfg.dx
-            for n in cfg.grid_nodes]
+def node_positions(cfg: SimConfig, device, window=None) -> torch.Tensor:
+    """Physical positions of all grid nodes, shape nodes + (d,), or of a
+    node `window`'s. A scene builds them once and passes them to every
+    ``grid_update``."""
+    nodes = cfg.grid_nodes if window is None else window[1]
+    axes = [torch.arange(n, dtype=torch.float32, device=device) for n in nodes]
+    if window is not None:
+        axes[0] = axes[0] + float(window[0])
+    axes = [a * cfg.dx for a in axes]
     return torch.stack(torch.meshgrid(*axes, indexing="ij"), -1)
 
 
@@ -185,18 +202,19 @@ def particle_collision_resolution(p: Particles, cfg: SimConfig, colliders, t) ->
     return dataclasses.replace(p, x=x, v=v)
 
 
-def g2p(p: Particles, grid_v, cfg: SimConfig, dt, return_count: bool = False):
+def g2p(p: Particles, grid_v, cfg: SimConfig, dt, return_count: bool = False, window=None):
     """Grid-to-particle gather of v and APIC B, then ``g2p_finish``."""
-    v_new, b_new = gather(p, grid_v, cfg)
+    v_new, b_new = gather(p, grid_v, cfg, window)
     return g2p_finish(p, v_new, b_new, cfg, dt, return_count=return_count)
 
 
-def gather(p: Particles, grid_v, cfg: SimConfig):
+def gather(p: Particles, grid_v, cfg: SimConfig, window=None):
     """(v (N, d), APIC B (N, d, d)) of each particle from the node
-    velocities `grid_v`, offset by offset in the stencil's order."""
+    velocities `grid_v` (of the grid, or of a node `window`), offset by
+    offset in the stencil's order."""
     d = cfg.dim
     pos, base, w = _weights(cfg, p.x)
-    dpos, wo, inb, lin = _stencil(cfg, pos, base, w)
+    dpos, wo, inb, lin = _stencil(cfg, pos, base, w, window)
     gv = grid_v.reshape(-1, d).index_select(0, lin.reshape(-1)).reshape(lin.shape + (d,))
     gv = torch.where(inb[..., None], gv, 0.0)  # (K, N, d)
     wgv = wo[..., None] * gv

@@ -51,6 +51,16 @@ Both routes: ``fused=True`` runs ``p2g_fused`` and ``g2p_fused`` on the
 mini-state, ``fused=False`` (``TMT_FUSED=0``) ``p2g_blocked`` and
 ``g2p_blocked``; each bucket advance with a non-empty context launches
 its route's two kernels once.
+
+The slab hooks (``parallel.async_spatial``, the JAX module's ``lcfg``,
+``grid_colliders``, ``exchange_fn`` and ``ctx_extend_fn``): the plans
+take the slab's local grid config as their `cfg` and a context
+extension (the local edge blocks next to a neighbour rank's in-bucket
+blocks, all levels in one exchange per sort); ``advance_bucket`` takes
+the local config, the shifted colliders and the record exchange of the
+fused substep; ``tick_loop`` runs the frame with the sort, the advance
+and the two reductions of a ``OneDevice`` or of the slab frame's steps.
+Without them the frame is the one-device frame it was.
 """
 
 from __future__ import annotations
@@ -135,9 +145,17 @@ def slot_levels(st, pm, cfg: SimConfig, unit_dt: float, strength_dt_mul=1.0,
     return lev
 
 
-def context_slots(lev, pm, L: int, cfg: SimConfig):
-    """The level-L bucket (lev == L) dilated by its 27-neighbourhood, live
-    slots only: (in_bucket, ctx), both (K,) bool."""
+def snapped_unit(frame_dt: float, unit_delta_t: float) -> float:
+    """The scheduler's unit: unit_delta_t snapped so that frame_dt = m *
+    unit * 2^MAXLEV (m >= 1), as the JAX drivers snap it."""
+    m = max(1, round(frame_dt / (unit_delta_t * (1 << MAXLEV))))
+    return frame_dt / (m * (1 << MAXLEV))
+
+
+def context_slots(lev, pm, L: int, cfg: SimConfig, extend=None):
+    """The level-L bucket (lev == L) dilated by its 27-neighbourhood, or
+    by `extend` (a (K,) bool of slots to add: the slab hook), live slots
+    only: (in_bucket, ctx), both (K,) bool."""
     K = lev.shape[0]
     in_bucket = lev == L
     ext = torch.cat([in_bucket, in_bucket.new_zeros(1)])
@@ -147,6 +165,8 @@ def context_slots(lev, pm, L: int, cfg: SimConfig):
             for oz in range(3):
                 if (ox, oy, oz) != (1, 1, 1):
                     ctx |= ext[torch.clamp(nbr_at(pm["nbr"], ox, oy, oz), max=K).long()]
+    if extend is not None:
+        ctx |= extend
     return in_bucket, ctx & (pm["ids"] < blocked.total_blocks_padded(cfg))
 
 
@@ -184,14 +204,22 @@ class BucketPlan:
         return self.idx.shape[0]
 
 
-def plan_buckets(keys, pm, lev, levels, cfg: SimConfig):
+def plan_buckets(keys, pm, lev, levels, cfg: SimConfig, ctx_extend=None):
     """The plans of the given levels: each bucket's context, lanes and
-    mini page map (sized to its dilated occupancy). Two host reads for
-    all levels together: the context sizes, then the mini page maps'
+    mini page map (sized to its dilated occupancy). `cfg` is the grid
+    config of the keys and the page map (a slab's local one on slabs);
+    `ctx_extend(in_buckets)`, where given, maps the levels' in-bucket
+    masks (n_levels, K) to the slots each context adds (the JAX module's
+    ``ctx_extend_fn``, for all levels at once). Two host reads for all
+    levels together: the context sizes, then the mini page maps'
     occupancies."""
     K = lev.shape[0]
     levels = sorted(levels)
-    sel = {L: context_slots(lev, pm, L, cfg) for L in levels}
+    extend = dict.fromkeys(levels)
+    if ctx_extend is not None and levels:
+        ext = ctx_extend(torch.stack([lev == L for L in levels]))
+        extend = {L: ext[i] for i, L in enumerate(levels)}
+    sel = {L: context_slots(lev, pm, L, cfg, extend[L]) for L in levels}
     sizes = torch.stack([torch.where(sel[L][1], pm["e_arr"] - pm["s_arr"], 0).sum()
                          for L in levels]).tolist()
     plans, mini = {}, {}
@@ -222,20 +250,33 @@ def plan_bucket(keys, pm, lev, L: int, cfg: SimConfig) -> BucketPlan:
 
 
 def advance_bucket(st, backup, plan: BucketPlan, t, cfg: SimConfig, colliders, dt,
-                   fused: bool = True):
+                   fused: bool = True, lcfg: SimConfig = None, grid_colliders=None,
+                   exchange_fn=None):
     """One advance of the planned bucket by dt, in place on `st` and
     `backup`: gather the mini-state (slower neighbours from the backup),
     write the committing lanes' pre-advance state to the backup, run the
     packed substep on the mini-state and commit the bucket's lanes.
     Returns (n_updates, vmax) as 0-d device tensors: the committed active
-    lanes, and max |v| over the committed lanes active after it."""
+    lanes, and max |v| over the committed lanes active after it.
+
+    The slab hooks of ``packed.fused_substep_presorted``: `lcfg` the
+    slab's local config, `grid_colliders` the colliders shifted into it,
+    `exchange_fn(rec, mini page map)` the boundary record exchange. Slabs
+    run the fused route only, as the JAX module asserts."""
     mini = st[:, plan.idx]
     if plan.bpos.numel():
         mini[:, plan.bpos] = backup[:, plan.bidx]
     n_up = ((mini[RACT] > 0.5) & plan.commit).sum()
     backup[:, plan.cidx] = mini[:, plan.cpos]
-    (mini, _), _, _, _ = packed.packed_substep_presorted(mini, plan.pm, t, cfg, colliders,
-                                                         dt, fused=fused)
+    if exchange_fn is None:
+        (mini, _), _, _, _ = packed.packed_substep_presorted(mini, plan.pm, t, cfg, colliders,
+                                                             dt, fused=fused)
+    else:
+        if not fused:
+            raise ValueError("the slab bucketed frame runs the fused substep only")
+        (mini, _), _, _, _ = packed.fused_substep_presorted(
+            mini, plan.pm, t, cfg, colliders, dt, gcfg=lcfg, grid_colliders=grid_colliders,
+            exchange_fn=lambda rec: exchange_fn(rec, plan.pm))
     st[:, plan.cidx] = mini[:, plan.cpos]
     done = (mini[RACT] > 0.5) & plan.commit
     vmax = torch.amax(torch.where(done, torch.abs(mini[RV:RV + 3]), 0.0))
@@ -290,30 +331,129 @@ class FrameStats:
         return self.sorts - 1
 
 
-class _Sorted:
-    """The state at a sort: keys, page map, levels (on the device and on
-    the host) and the plans of the levels that exist. Three host reads:
-    the levels with the occupancy, then two in ``plan_buckets``."""
+class Sorted:
+    """The state at a sort: the sorted state, keys, page map and levels,
+    what the tick loop takes its branches from (the levels that exist,
+    the largest occupied level, the smallest level) and the plans of the
+    levels that exist. `gcfg` is the grid config of the keys (a slab's
+    local one on slabs); `all_max`, where given, reduces the branch
+    values over the ranks, one all-reduce, so that every rank takes the
+    same branches; `ctx_extend` is ``plan_buckets``'s. Three host reads:
+    the branch values with this sort's level histogram, then two in
+    ``plan_buckets``."""
 
-    def __init__(self, st, cfg: SimConfig, K: int, level_fn, tz: int, stats: FrameStats):
-        st, keys, pm = packed.sort_and_map(st, cfg, K)
-        lev = torch.clamp(level_fn(st, pm), max=tz).to(torch.int32)
+    def __init__(self, st, keys, pm, lev, gcfg: SimConfig, stats: FrameStats, all_max=None,
+                 ctx_extend=None):
         self.st, self.keys, self.pm, self.lev = st, keys, pm, lev
-        total = blocked.total_blocks_padded(cfg)
-        occ = (pm["e_arr"] > pm["s_arr"]) & (pm["ids"] < total)
-        lev_h, occ = np.asarray(torch.stack([lev, occ.to(torch.int32)]).tolist())
-        occ = occ.astype(bool)
-        self.lmax_occ = int(lev_h[occ].max()) if occ.any() else 0
-        self.min_lev = int(lev_h.min())
-        self.levels = set(lev_h.tolist())
-        stats.level_hist.append(np.bincount(lev_h[occ], minlength=MAXLEV + 1).tolist())
-        self.plans = plan_buckets(keys, pm, lev, self.levels, cfg)
+        total = blocked.total_blocks_padded(gcfg)
+        occ = ((pm["e_arr"] > pm["s_arr"]) & (pm["ids"] < total)).long()
+        lev64 = lev.long()
+        n = MAXLEV + 1
+        has = torch.zeros((n,), dtype=torch.int64, device=lev.device).index_add_(
+            0, lev64, torch.ones_like(lev64)).clamp(max=1)
+        hist = torch.zeros_like(has).index_add_(0, lev64, occ)
+        branch = torch.cat([has, torch.where(occ > 0, lev64, 0).amax()[None],
+                            -lev64.amin()[None]])
+        if all_max is not None:
+            branch = all_max(branch)
+        got = host_read(torch.cat([branch, hist]))
+        self.levels = {L for L in range(n) if got[L]}
+        self.lmax_occ, self.min_lev = got[n], -got[n + 1]
+        stats.level_hist.append(got[n + 2:])
+        self.plans = plan_buckets(keys, pm, lev, self.levels, gcfg, ctx_extend)
         stats.sorts += 1
         stats.sort_reads += 3
         for plan in self.plans.values():
             stats.max_lanes = max(stats.max_lanes, plan.n_sel)
             if plan.pm is not None:
                 stats.max_slots = max(stats.max_slots, plan.pm["ids"].shape[0])
+
+
+class OneDevice:
+    """The device steps of a bucketed frame on one device: the sort (with
+    the levels of `level_fn(st, pm)`), the advance, and the reductions
+    over the ranks, which one device does not need. The slab frame's
+    steps (``parallel.async_spatial.SlabSteps``) replace them."""
+
+    def __init__(self, cfg: SimConfig, colliders, level_fn, fused: bool = True):
+        self.cfg, self.colliders, self.level_fn, self.fused = cfg, colliders, level_fn, fused
+
+    def sort(self, st, K: int, tz: int, stats: FrameStats) -> Sorted:
+        """Sort, page map (capacity K or more) and levels clamped to tz."""
+        st, keys, pm = packed.sort_and_map(st, self.cfg, K)
+        lev = torch.clamp(self.level_fn(st, pm), max=tz).to(torch.int32)
+        return Sorted(st, keys, pm, lev, self.cfg, stats)
+
+    def advance(self, st, backup, plan: BucketPlan, t, dt):
+        """``advance_bucket``; None where the bucket's context is empty."""
+        if plan.pm is None:
+            return None
+        return advance_bucket(st, backup, plan, t, self.cfg, self.colliders, dt, self.fused)
+
+    def all_max(self, x):
+        return x
+
+    def all_sum(self, x):
+        return x
+
+
+def tick_loop(st, t, cfg: SimConfig, frame_dt, unit_dt, K: int, steps):
+    """The tick loop of one bucketed frame on the packed state `st`, with
+    the device steps `steps` (``OneDevice``, or the slab frame's). Each
+    advance's max |v| waits on the device until the next aligned tick,
+    where they are reduced together (``steps.all_max``) and added to the
+    drifts in advance order, as the JAX frame adds them one by one.
+    Returns (Sorted of the last sort, state, t, n_updates (a 0-d tensor,
+    reduced by ``steps.all_sum``), drift (host), FrameStats)."""
+    stats = FrameStats(advances=[0] * (MAXLEV + 1))
+    n_units = int(round(frame_dt / unit_dt))
+    if n_units % (1 << MAXLEV):
+        raise ValueError(f"frame_dt must be a multiple of unit_dt * 2^{MAXLEV}")
+    cur = steps.sort(st, K, MAXLEV, stats)
+    st = cur.st
+    backup = st.clone()
+    dev = st.device
+    drifts = torch.zeros((MAXLEV + 1,), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    n_up = torch.zeros((), dtype=torch.int64, device=dev)
+    pending = []  # (level, vmax) of the advances since the last aligned tick
+
+    def add_drifts():
+        if pending:
+            vmax = steps.all_max(torch.stack([v for _, v in pending]))
+            for i, (L, _) in enumerate(pending):
+                drifts[L] += vmax[i] * float(np.float32(unit_dt * (1 << L) * cfg.inv_dx))
+            pending.clear()
+
+    unit32 = np.float32(unit_dt)
+    t = np.float32(t)
+    tick = 0
+    while tick < n_units:
+        if tick > 0 and tick % (1 << cur.lmax_occ) == 0:
+            stats.host_reads += 1
+            add_drifts()
+            if float(host_read(drifts.max())) >= packed.DRIFT_BOUND:
+                cur = steps.sort(st, cur.pm["ids"].shape[0], _trailing_zeros(tick), stats)
+                st = cur.st
+                backup = st.clone()
+                drifts.zero_()
+        for L in range(MAXLEV, -1, -1):
+            if tick % (1 << L) or L not in cur.levels:
+                continue
+            stats.advances[L] += 1
+            stats.schedule.append((tick, L))
+            out = steps.advance(st, backup, cur.plans[L], t, unit_dt * (1 << L))
+            if out is None:
+                stats.empty_advances += 1
+                pending.append((L, zero))
+                continue
+            n_up += out[0]
+            pending.append((L, out[1]))
+        step = 1 << cur.min_lev
+        tick += step
+        t = np.float32(t + unit32 * np.float32(step))
+    add_drifts()
+    return cur, st, t, steps.all_sum(n_up), drifts.max(), stats
 
 
 def bucketed_frame_carry(st, t, cfg: SimConfig, colliders, frame_dt, unit_dt, K: int,
@@ -326,52 +466,16 @@ def bucketed_frame_carry(st, t, cfg: SimConfig, colliders, frame_dt, unit_dt, K:
     FrameStats): keys and page map of the last sort (capacity K or more,
     grown at a sort that overflows it), the largest level drift since.
     Every frame starts with a sort, whatever the carry's drift."""
-    stats = FrameStats(advances=[0] * (MAXLEV + 1))
-    n_units = int(round(frame_dt / unit_dt))
-    if n_units % (1 << MAXLEV):
-        raise ValueError(f"frame_dt must be a multiple of unit_dt * 2^{MAXLEV}")
 
     def level_fn(st_s, pm):
         if lev_fn is not None:
             return lev_fn(pm)
         return slot_levels(st_s, pm, cfg, unit_dt, strength_dt_mul, cfl_dt_mul)
 
-    cur = _Sorted(st, cfg, K, level_fn, MAXLEV, stats)
-    st = cur.st
-    backup = st.clone()
-    dev = st.device
-    drifts = torch.zeros((MAXLEV + 1,), dtype=torch.float32, device=dev)
-    n_up = torch.zeros((), dtype=torch.int64, device=dev)
-    unit32 = np.float32(unit_dt)
-    t = np.float32(t)
-    tick = 0
-    while tick < n_units:
-        if tick > 0 and tick % (1 << cur.lmax_occ) == 0:
-            stats.host_reads += 1
-            if float(host_read(drifts.max())) >= packed.DRIFT_BOUND:
-                cur = _Sorted(st, cfg, cur.pm["ids"].shape[0], level_fn,
-                              _trailing_zeros(tick), stats)
-                st = cur.st
-                backup = st.clone()
-                drifts.zero_()
-        for L in range(MAXLEV, -1, -1):
-            if tick % (1 << L) or L not in cur.levels:
-                continue
-            stats.advances[L] += 1
-            stats.schedule.append((tick, L))
-            plan = cur.plans[L]
-            if plan.pm is None:
-                stats.empty_advances += 1
-                continue
-            dt_L = unit_dt * (1 << L)
-            n, vmax = advance_bucket(st, backup, plan, t, cfg, colliders, dt_L, fused)
-            n_up += n
-            drifts[L] += vmax * float(np.float32(dt_L * cfg.inv_dx))
-        step = 1 << cur.min_lev
-        tick += step
-        t = np.float32(t + unit32 * np.float32(step))
+    cur, st, t, n_up, drift, stats = tick_loop(st, t, cfg, frame_dt, unit_dt, K,
+                                               OneDevice(cfg, colliders, level_fn, fused))
     stats.host_reads += 1
-    drift, n = host_read(torch.stack([drifts.max().double(), n_up.double()]))
+    drift, n = host_read(torch.stack([drift.double(), n_up.double()]))
     stats.n_updates = int(n)
     return (st, cur.keys, cur.pm, np.float32(drift)), t, stats.n_updates, stats
 

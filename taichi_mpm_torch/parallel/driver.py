@@ -16,9 +16,10 @@ them replicated: every rank builds them, runs the host's rigid solves on
 its copy and applies the impulses summed over the ranks, so the copies
 stay equal in bits. Its frames route as the JAX driver's do: the fused
 route on uniform or balanced bounds (the packed CPIC frame), the unfused
-route on uniform bounds only (the pytree CPIC frame). Still to come
-(ROADMAP.md queue 1, 'multi-gpu'): ``DistributedAsyncMPM`` and the 2-D
-pencil mesh (``mesh_shape``).
+route on uniform bounds only (the pytree CPIC frame).
+``DistributedAsyncMPM`` runs the per-block bucketed scheduler on uniform
+slabs (``parallel.async_spatial``). Still to come (ROADMAP.md queue 1,
+'multi-gpu'): the 2-D pencil mesh (``mesh_shape``).
 """
 
 from __future__ import annotations
@@ -33,9 +34,9 @@ import torch.distributed as dist
 
 from taichi_mpm_torch.core.solver import MPM, mechanical_energy
 from taichi_mpm_torch.core.state import FIELDS, Particles
-from taichi_mpm_torch.ops import blocked, packed
+from taichi_mpm_torch.ops import async_bucketed, blocked, packed
 from taichi_mpm_torch.ops.rows import RACT
-from taichi_mpm_torch.parallel import comm
+from taichi_mpm_torch.parallel import async_spatial, comm
 from taichi_mpm_torch.parallel import spatial_blocked as sb
 from taichi_mpm_torch.parallel.spatial import shard_spatially
 from taichi_mpm_torch.rigid import cpic_packed
@@ -270,9 +271,68 @@ class DistributedMPM(MPM):
 
 
 class DistributedAsyncMPM(DistributedMPM):
-    """The per-block adaptive scheduler over slabs, not ported yet."""
+    """The per-block bucketed scheduler (``AsyncMPM(per_block=True)``) over
+    uniform x-slabs of the ranks of the current process group
+    (``parallel.async_spatial``): a power-of-two dt level per grid block,
+    with neighbour monotonicity across the slab boundaries, and the tick
+    loop in lockstep on every rank, the fused route's kernels on each
+    rank's mini-states.
 
-    def __init__(self, *a, **kw):
-        raise NotImplementedError(
-            "DistributedAsyncMPM is not ported yet (ROADMAP.md queue 1, 'multi-gpu'); "
-            "use DistributedMPM at fixed dt, or AsyncMPM on one device")
+    Plain 3-D scenes on uniform slabs (``res[0]`` a multiple of 4 x the
+    ranks); base_delta_t is the largest dt and unit_delta_t the
+    power-of-two unit, snapped so that frame_dt = m * unit * 2^MAXLEV, as
+    ``AsyncMPM`` snaps it. The JAX driver's `budgets` and `K_ctx` are
+    accepted, so that scene code stays the same, and ignored: the sizes
+    here follow the counts and no frame is re-run. ``update_counter`` sums
+    the committed particle advances over the ranks and frames;
+    ``last_frame_stats`` is this rank's ``async_bucketed.FrameStats`` of
+    the newest frame (its level histograms this rank's, the schedule the
+    same on every rank) and ``slab_stats`` counts the migrations.
+    """
+
+    def __init__(self, res, *args, unit_delta_t: float = 1e-6, strength_dt_mul: float = 1.0,
+                 cfl_dt_mul: float = 1.0, budgets=None, K_ctx: Optional[int] = None, **kw):
+        kw.setdefault("balanced", False)
+        if kw["balanced"]:
+            raise ValueError("bucketed async runs on uniform slabs (balanced bounds are a "
+                             "uniform-dt frame feature so far)")
+        if kw.get("mesh_shape") is not None:
+            raise ValueError("bucketed async is slab-mesh (1-D) only")
+        super().__init__(res, *args, **kw)
+        self.unit_delta_t = unit_delta_t
+        self.strength_dt_mul = strength_dt_mul
+        self.cfl_dt_mul = cfl_dt_mul
+        self.update_counter = 0
+        self.last_substeps = 0
+        self.last_dt_range = None
+        self.last_frame_stats = None
+
+    def bucket_unit(self) -> float:
+        return async_bucketed.snapped_unit(self.frame_dt, self.unit_delta_t)
+
+    def step(self, frame_dt: Optional[float] = None):
+        """One bucketed frame on every rank (``bucketed_slab_frame``, which
+        migrates and sorts first). Returns this rank's particles."""
+        if frame_dt is not None and frame_dt != self.frame_dt:
+            raise ValueError("frame_dt is baked into the bucketed tick loop")
+        if (self._particles is None and self._pcarry is None) or self._pending:
+            self._finalize()
+        if self.bodies is not None:
+            raise ValueError("adaptive dt + CPIC not supported yet")
+        if self._pcarry is None:
+            state, K = packed.pack_particles(self.particles), self._initial_K()
+        else:
+            state, K = self._pcarry[0], self._pcarry[1].K
+        unit = self.bucket_unit()
+        st, K, t, n_up, stats = async_spatial.bucketed_slab_frame(
+            state, self.t, self.slabs, tuple(self.colliders), self.frame_dt, unit, K,
+            self.strength_dt_mul, self.cfl_dt_mul, self.slab_stats)
+        self._cap_p = st.shape[1]
+        self._end_frame((st, sb.SlabCarry(st, None, None, K)), t, stats.sorts, 0)
+        self.update_counter += n_up
+        self.last_substeps = stats.n_substeps
+        used = [L for L, n in enumerate(stats.advances) if n]
+        self.last_dt_range = ((unit * (1 << used[0]), unit * (1 << used[-1])) if used
+                              else None)
+        self.last_frame_stats = stats
+        return self.particles

@@ -156,6 +156,17 @@ def exchange_boundary_records(rec, pm, lcfg: SimConfig, Wb: int):
     return _add_planes(rec, pm, lcfg, hi_cols, from_right)
 
 
+def exchange_nothing(lcfg: SimConfig, device):
+    """The record exchange of a rank that has no records this time (a
+    bucket advance whose context is empty on this rank): zero planes sent
+    both ways and what arrives dropped, so the neighbours' exchanges pair
+    up and add zeros, as the JAX package's empty mini-state sends."""
+    _, nby, nbz = blocked.num_blocks_padded(lcfg)
+    zeros = torch.zeros((2, nby, nbz, 4 * blocked.BLOCK ** 3), dtype=torch.float32,
+                        device=device)
+    comm.neighbour_exchange(zeros, zeros)
+
+
 def zero_domain_edge_ghosts(rec, pm, lcfg: SimConfig, s: int):
     """Rank 0's low ghost column lies outside the domain, where one device
     has no nodes: its records become 0 (NaN where not finite, as the JAX
@@ -383,9 +394,9 @@ def pack_with_origins(p: Particles, keys, off_cells, lcfg: SimConfig, K: int):
     return st, _page_map(packed.build_page_map_packed, keys, lcfg, K)
 
 
-def _resort(carry: SlabCarry, slabs: Slabs, fused: bool, stats: SlabStats):
+def resort(carry: SlabCarry, slabs: Slabs, fused: bool, stats: SlabStats):
     """Rebalance (balanced slabs), migrate, local keys, sort, page map.
-    Returns (state, pm, bounds, hist)."""
+    Returns (state, local keys, pm, bounds, hist)."""
     cfg, lcfg = slabs.cfg, slabs.lcfg
     state, bounds, hist = carry.state, carry.bounds, carry.hist
     p = packed.unpack_particles(state, state.shape[1]) if fused else state
@@ -413,10 +424,10 @@ def _resort(carry: SlabCarry, slabs: Slabs, fused: bool, stats: SlabStats):
         stats.bounds.append(tuple(int(b) for b in bounds))
     stats.resorts += 1
     stats.resort_after.append(stats.substeps)
-    return state, pm, bounds, hist
+    return state, keys, pm, bounds, hist
 
 
-def _exchange_fn(pm, slabs: Slabs, bounds, stats: SlabStats):
+def record_exchange(pm, slabs: Slabs, bounds, stats: SlabStats):
     """The substep's boundary hook: the record exchange, then rank 0's
     out-of-domain ghosts zeroed."""
     Wb = slabs.width(bounds)
@@ -450,7 +461,7 @@ def spatial_blocked_substep_presorted(p: Particles, pm, t, slabs: Slabs, bounds,
     del pdata
     rec = blocked.merge_tiles(tiles, pm["nbr"])
     del tiles
-    rec = _exchange_fn(pm, slabs, bounds, stats)(rec)
+    rec = record_exchange(pm, slabs, bounds, stats)(rec)
     vrec = grid_update_flat(rec, pm["ids"], lcfg, shifted_colliders(colliders, slabs.xoff(bounds)),
                             t, dt)
     win = blocked.windows(vrec, pm["nbr"])
@@ -496,7 +507,7 @@ def cpic_slab_substep(carry: SlabCarry, state, pm, t, slabs: Slabs, dt, fused: b
     xoff = slabs.xoff(bounds)
     hooks = dict(lcfg=slabs.lcfg, world_off=const((xoff, 0.0, 0.0), torch.float32, pm["ids"].device),
                  grid_colliders=shifted_colliders(scene.colliders, xoff),
-                 exchange_fn=_exchange_fn(pm, slabs, bounds, stats), sum_fn=_impulse_sum(stats))
+                 exchange_fn=record_exchange(pm, slabs, bounds, stats), sum_fn=_impulse_sum(stats))
     if fused:
         out = cpic_packed_substep_presorted(state, pm, carry.bodies, t, slabs.cfg, scene, dt, caps,
                                             **hooks)
@@ -531,7 +542,7 @@ def slab_frame(carry: SlabCarry, t, slabs: Slabs, colliders, dt, n_substeps: int
     set's sizes, the rigid map's occupancy, the bodies for the host's
     solves) are per rank and decide no collective."""
     stats = SlabStats() if stats is None else stats
-    state, pm, bounds, hist = _resort(carry, slabs, fused, stats)
+    state, _, pm, bounds, hist = resort(carry, slabs, fused, stats)
     carry = SlabCarry(state, bounds, hist, pm["ids"].shape[0], carry.bodies)
     dev = state.device
     step = np.float32(dt * slabs.cfg.inv_dx)
@@ -549,7 +560,7 @@ def slab_frame(carry: SlabCarry, t, slabs: Slabs, colliders, dt, n_substeps: int
                 gcolls = shifted_colliders(colliders, slabs.xoff(bounds))
                 (state, t), _, vmax, dplast = packed.fused_substep_presorted(
                     state, pm, t, slabs.cfg, colliders, dt, gcfg=slabs.lcfg,
-                    grid_colliders=gcolls, exchange_fn=_exchange_fn(pm, slabs, bounds, stats))
+                    grid_colliders=gcolls, exchange_fn=record_exchange(pm, slabs, bounds, stats))
             else:
                 state, t, vmax, dplast = spatial_blocked_substep_presorted(
                     state, pm, t, slabs, bounds, colliders, dt, stats)
@@ -563,7 +574,7 @@ def slab_frame(carry: SlabCarry, t, slabs: Slabs, colliders, dt, n_substeps: int
             stats.substeps += 1
         if drift >= packed.DRIFT_BOUND:
             carry.state = state
-            state, pm, bounds, hist = _resort(carry, slabs, fused, stats)
+            state, _, pm, bounds, hist = resort(carry, slabs, fused, stats)
             carry = SlabCarry(state, bounds, hist, pm["ids"].shape[0], carry.bodies)
             drift = np.float32(0.0)
             local = torch.zeros_like(local)

@@ -197,33 +197,42 @@ def sand_column_collapse(res: int = 64, base_dt: float = 1e-4, device=None) -> M
     return sim
 
 
-def water_script(res: int = 64, device=None, per_block: bool = False) -> AsyncMPM:
+def _async_solver(solver, per_block: bool, solver_kw: dict) -> dict:
+    """The keywords of an async script's solver: AsyncMPM's `per_block`
+    where it is set (``DistributedAsyncMPM`` is per block and has none)."""
+    return dict(solver_kw, per_block=True) if per_block else solver_kw
+
+
+def water_script(res: int = 64, device=None, per_block: bool = False, solver=AsyncMPM,
+                 **solver_kw) -> AsyncMPM:
     """``scripts/async/water.py`` line for line: AsyncMPM(res^3,
     base_delta_t=1e-3, frame_dt=0.01, unit_delta_t=1e-6), a frictionless
     floor at y = 0.08, and water (density 1000) seeded by Poisson disks
     from the texture box((0.1, 0.08, 0.1), (0.35, 0.5, 0.9)) * 6
     (1,056,758 particles at res 128). `per_block` is AsyncMPM's (the
-    per-block bucketed scheduler). Runs on the card unless `device` names
-    another."""
-    sim = AsyncMPM(res=(res, res, res), base_delta_t=1e-3, frame_dt=0.01,
-                   unit_delta_t=1e-6, per_block=per_block, device=device)
+    per-block bucketed scheduler); `solver` is the class (AsyncMPM, or
+    DistributedAsyncMPM with its keywords in `solver_kw`). Runs on the
+    card unless `device` names another."""
+    sim = solver(res=(res, res, res), base_delta_t=1e-3, frame_dt=0.01, unit_delta_t=1e-6,
+                 device=device, **_async_solver(solver, per_block, solver_kw))
     sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 1] - 0.08, friction=0.0))
     dam = texture.box((0.1, 0.08, 0.1), (0.35, 0.5, 0.9)) * 6
     sim.add_particles("water", density=1000, density_tex=dam)
     return sim
 
 
-def async_balls(res: int = 64, device=None, per_block: bool = False) -> AsyncMPM:
+def async_balls(res: int = 64, device=None, per_block: bool = False, solver=AsyncMPM,
+                **solver_kw) -> AsyncMPM:
     """``scripts/async/balls.py`` line for line, the script's
     CFL-heterogeneous scene: AsyncMPM(res^3, base_delta_t=1e-3,
     frame_dt=0.005, unit_delta_t=1e-6, no gravity), a stiff elastic ball
     (E 1e5, nu 0.3, density 400) seeded by Poisson disks from
     sphere((0.25, 0.5, 0.5), 0.07) * 8 moving at 3 m/s along x into a soft
     one (E 1e4) from sphere((0.65, 0.5, 0.5), 0.1) * 8 at rest.
-    `per_block` is AsyncMPM's. Runs on the card unless `device` names
-    another."""
-    sim = AsyncMPM(res=(res, res, res), base_delta_t=1e-3, frame_dt=0.005,
-                   unit_delta_t=1e-6, gravity=(0, 0, 0), per_block=per_block, device=device)
+    `per_block` and `solver` as ``water_script``'s. Runs on the card
+    unless `device` names another."""
+    sim = solver(res=(res, res, res), base_delta_t=1e-3, frame_dt=0.005, unit_delta_t=1e-6,
+                 gravity=(0, 0, 0), device=device, **_async_solver(solver, per_block, solver_kw))
     t1 = texture.sphere((0.25, 0.5, 0.5), 0.07) * 8
     sim.add_particles("elastic", density=400, density_tex=t1, vel=(3.0, 0, 0), E=1e5, nu=0.3)
     t2 = texture.sphere((0.65, 0.5, 0.5), 0.1) * 8

@@ -376,3 +376,169 @@ def cpic_scenes(out_dir):
     _route(True)
     res["mpm"] = mpm
     return res
+
+
+# -- per-block async on slabs (tests/port/test_torch_async_mpm.py) --------------------
+
+BLOBS = dict(res=(32, 32, 32), base_delta_t=1e-3, frame_dt=6.4e-3, unit_delta_t=1e-4,
+             gravity=(0, 0, 0))  # tests/test_adaptive.py::TestPerBlockDriver's scene
+CROSSING_UNIT = 5e-4  # tests/test_async_spatial.py's unit; a frame of 64 units
+
+
+def add_blobs(sim):
+    """900 soft (E 4e3) and 300 stiff (E 4e5) elastic particles, one blob
+    each side of x = 0.5 (either package's scene)."""
+    rng = np.random.default_rng(0)
+    pos = np.concatenate([
+        rng.uniform([0.15, 0.3, 0.3], [0.4, 0.6, 0.6], (900, 3)),
+        rng.uniform([0.6, 0.4, 0.4], [0.8, 0.6, 0.6], (300, 3)),
+    ]).astype(np.float32)
+    sim.add_particles("elastic", pos=pos[:900], E=4e3, nu=0.3)
+    sim.add_particles("elastic", pos=pos[900:], E=4e5, nu=0.3)
+    return sim
+
+
+def crossing_blob(cls, **kw):
+    """tests/test_async_spatial.py:110-139's scene: 1,200 elastic
+    particles (E 4e3) in [0.30, 0.55] x [0.3, 0.7]^2 moving at 1 m/s along
+    x, res 32, no gravity, a frame of 64 units of 5e-4 s: the frame
+    re-sorts and particles cross x = 0.5. Ids tagged."""
+    pos = np.random.default_rng(0).uniform((0.30, 0.3, 0.3), (0.55, 0.7, 0.7),
+                                           (1200, 3)).astype(np.float32)
+    sim = cls(res=(32, 32, 32), base_delta_t=1e-3, frame_dt=CROSSING_UNIT * 64,
+              unit_delta_t=CROSSING_UNIT, gravity=(0.0, 0.0, 0.0), device="cpu", **kw)
+    sim.add_particles("elastic", pos=pos, vel=(1.0, 0.0, 0.0), E=4e3, nu=0.3, density=1000)
+    tag_pending(sim)
+    return sim
+
+
+def dam_scene(cls, **kw):
+    """scripts/async/water.py at res 16 (2,081 particles, all in x < 0.35:
+    the right slab starts empty), a frame of 5e-4 s. Ids tagged."""
+    from taichi_mpm_torch import scenes
+
+    sim = scenes.water_script(16, device="cpu", solver=cls, **kw)
+    sim.frame_dt = 5e-4
+    tag_pending(sim)
+    return sim
+
+
+def _set_global(sim, arrays, t=None):
+    """Replace a slab scene's particles by the global set `arrays` (the
+    same on every rank), split again."""
+    sim._ensure_finalized()
+    sim._set_particles(convert.particles_from_numpy(arrays))
+    sim._shard()
+    if t is not None:
+        sim.t = np.float32(t)
+
+
+def owned_levels(sim):
+    """The sharded levels of this rank's slab sorted afresh, on the blocks
+    it owns: global (bx, by, bz), level, occupied."""
+    from taichi_mpm_torch.ops import packed
+    from taichi_mpm_torch.parallel import async_spatial
+
+    slabs, s = sim.slabs, comm.rank()
+    Wb = slabs.width(None)
+    st = packed.pack_particles(sim.particles)
+    st, _, pm, _, _ = sb.resort(sb.SlabCarry(st, None, None, 256), slabs, True, sb.SlabStats())
+    lev = async_spatial.slot_levels_sharded(st, pm, sim.cfg, slabs.lcfg, sim.bucket_unit(), Wb)
+    bx, by, bz, valid = blocked._decode_ids(pm["ids"], slabs.lcfg)
+    own = valid & (bx >= 1) & (bx <= Wb)
+    block = torch.stack([bx + s * Wb - 1, by, bz], -1)
+    return dict(block=block[own].numpy(), lev=lev[own].numpy(),
+                occ=(pm["e_arr"] > pm["s_arr"])[own].numpy())
+
+
+def _async_run(sim, frames=1):
+    sim._ensure_finalized()
+    n0 = sim.particles.active.sum().item()
+    before = sim.update_counter
+    for _ in range(frames):
+        sim.step()
+    fs, ss = sim.last_frame_stats, sim.slab_stats
+    return dict(convert.particles_to_numpy(sim._gather()), nup=sim.update_counter - before,
+                t=float(sim.t), local_start=n0, count=sim.particle_count(),
+                level_hist=fs.level_hist, schedule=fs.schedule, sorts=fs.sorts,
+                empty=fs.empty_advances, sent=(ss.sent_left, ss.sent_right), arrived=ss.arrived)
+
+
+def async_slabs(a0, fast, t_fast):
+    """The slice on this rank: ``DistributedAsyncMPM`` over the blobs for two
+    frames from the global set `a0`, then one frame from `fast` at
+    `t_fast`; the sharded levels of `a0` and of `fast`; the crossing blob
+    and the dam one frame each. Returns a dict of numpy results."""
+    from taichi_mpm_torch.parallel.driver import DistributedAsyncMPM
+
+    torch.set_num_threads(1)
+    sim = add_blobs(DistributedAsyncMPM(**BLOBS, device="cpu"))
+    _set_global(sim, a0)
+    res = dict(levels=[owned_levels(sim)])
+    res["frames"] = [_async_run(sim) for _ in range(2)]
+    _set_global(sim, fast, t_fast)
+    res["levels"].append(owned_levels(sim))
+    _set_global(sim, fast, t_fast)
+    res["third"] = _async_run(sim)
+    res["crossing"] = _async_run(crossing_blob(DistributedAsyncMPM))
+    res["dam"] = _async_run(dam_scene(DistributedAsyncMPM))
+    return res
+
+
+# -- the dense slab frames (tests/port/test_torch_slabs_dense.py) ---------------------
+
+
+def strip_scene(cls, vel_x=1.0, **kw):
+    """tests/test_spatial.py's 2-D scene: 400 jelly particles on a 40 x 10
+    lattice in [0.1, 0.9] x [0.5, 0.7] moving at vel_x, res 64, dt 2e-4,
+    gravity -10 (either package's)."""
+    sim = cls(res=(64, 64), base_delta_t=2e-4, frame_dt=2e-3, gravity=(0, -10.0), **kw)
+    pos = np.stack(np.meshgrid(np.linspace(0.1, 0.9, 40), np.linspace(0.5, 0.7, 10)),
+                   -1).reshape(-1, 2)
+    vel = np.zeros_like(pos)
+    vel[:, 0] = vel_x
+    sim.add_particles("jelly", pos=pos, vel=vel, E=1e4, nu=0.3)
+    return sim
+
+
+def cube_scene():
+    """tests/test_sharding.py's scene on the port: benchmark_cube(cells=4,
+    res=16), 512 jelly particles in a sticky box."""
+    from taichi_mpm_torch import scenes
+
+    return scenes.benchmark_cube(cells=4, res=16, material="jelly", E=2e4, nu=0.35,
+                                 device="cpu")
+
+
+def _strip_frames(arrays, frames, slack):
+    from taichi_mpm_torch.core.solver import MPM
+    from taichi_mpm_torch.parallel import spatial
+
+    sim = strip_scene(MPM, device="cpu")
+    sim._finalize()
+    local, _ = spatial.shard_spatially(convert.particles_from_numpy(arrays), sim.cfg, 2,
+                                       comm.rank(), slack)
+    frame = spatial.build_spatial_frame(sim.cfg, (), 10)
+    t, dropped = np.float32(0.0), 0
+    for _ in range(frames):
+        local, t, d = frame(local, t)
+        dropped += d
+    return dict(convert.particles_to_numpy(local), t=float(t), dropped=dropped)
+
+
+def dense_slabs(strip, fast, cube):
+    """The dense slab frame on the strip (4 frames of 10 substeps, slack 2)
+    and the fast strip (10 frames, slack 3), both from global sets, and
+    the data-parallel frame on the cube's lanes `cube` (5 substeps).
+    Returns this rank's particles of each, numpy."""
+    from taichi_mpm_torch.parallel import sharding
+
+    torch.set_num_threads(1)
+    res = dict(strip=_strip_frames(strip, 4, 2.0), fast=_strip_frames(fast, 10, 3.0))
+    sim = cube_scene()
+    sim._finalize(capacity=cube["x"].shape[0])
+    p = sharding.shard_particles(convert.particles_from_numpy(cube), 2, comm.rank())
+    frame = sharding.build_sharded_frame(sim.cfg, tuple(sim.colliders), 5)
+    p, t = frame(p, np.float32(0.0))
+    res["cube"] = dict(convert.particles_to_numpy(p), t=float(t))
+    return res

@@ -21,9 +21,25 @@ capacity has pad lanes (1,200 of 1,536), see test_torch_async_bucketed.py.
 tests/test_adaptive.py::TestSchedulerVisualize's scene; and the
 per-block scheduler's refusals (2-D scenes, rigid bodies), which the
 JAX package asserts.
+
+``DistributedAsyncMPM`` on two gloo ranks (one spawned group,
+``slab_ranks.async_slabs``) against the same JAX frames, the third
+frame's re-sort included: JAX's own contract between its
+``DistributedAsyncMPM`` and ``AsyncMPM(per_block=True)``
+(parallel/async_spatial.py:31-33, tests/test_async_spatial.py:141-174):
+the update counter equal, x within 1e-5 and v within 5e-4, no particle
+lost. No JAX slab frame runs here (one compiles for minutes on the
+CPU). Besides: the sharded levels equal the one-device levels integer
+for integer; the schedule and the level histograms equal the port's
+one-device frame's; a blob crossing x = 0.5 (re-sorts and migrants) and
+the dam with its right slab empty against the port's ``AsyncMPM``; the
+one-device frame run through the slab hooks, made trivial, keeps its
+bits; and ``DistributedAsyncMPM``'s refusals, with JAX's messages.
 """
 
 import dataclasses
+import threading
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -39,24 +55,17 @@ from taichi_mpm_tpu.ops import packed as jpacked
 from taichi_mpm_torch import convert
 from taichi_mpm_torch.core.adaptive import AsyncMPM
 from taichi_mpm_torch.ops import async_bucketed as tab
+from taichi_mpm_torch.ops import blocked, packed
+from taichi_mpm_torch.parallel import comm
 
 from port_helpers import ID_SLOT, assert_close_by_id, tag_ids
+from slab_ranks import BLOBS, add_blobs, async_slabs, crossing_blob, dam_scene
 
 torch.set_num_threads(1)
 
-KW = dict(res=(32, 32, 32), base_delta_t=1e-3, frame_dt=6.4e-3, unit_delta_t=1e-4,
-          per_block=True, gravity=(0, 0, 0))
-
-
-def _add_blobs(sim):
-    rng = np.random.default_rng(0)
-    pos = np.concatenate([
-        rng.uniform([0.15, 0.3, 0.3], [0.4, 0.6, 0.6], (900, 3)),
-        rng.uniform([0.6, 0.4, 0.4], [0.8, 0.6, 0.6], (300, 3)),
-    ]).astype(np.float32)
-    sim.add_particles("elastic", pos=pos[:900], E=4e3, nu=0.3)
-    sim.add_particles("elastic", pos=pos[900:], E=4e5, nu=0.3)
-    return sim
+KW = dict(BLOBS, per_block=True)
+SLAB_BOUNDS = dict(x=1e-5, v=5e-4)  # tests/test_async_spatial.py's, slabs vs one device
+_add_blobs = add_blobs
 
 
 def _numpy_of_jax(p):
@@ -200,3 +209,221 @@ def test_per_block_refusals():
         rigid(JAsyncMPM, jplate).step()
     with pytest.raises(ValueError, match="CPIC not supported"):
         rigid(AsyncMPM, plate_mesh, device="cpu").step()
+
+
+# -- DistributedAsyncMPM on two gloo ranks ---------------------------------------------
+
+
+def _one_device_frame(arrays, t, cfg, frame_dt, unit):
+    """The port's one-device bucketed frame from the global set `arrays`."""
+    carry, t, n_up, stats = tab.bucketed_frame_carry(
+        packed.pack_particles(convert.particles_from_numpy(arrays)), np.float32(t), cfg, (),
+        frame_dt, unit, 256)
+    return dict(convert.particles_to_numpy(packed.unpack_particles(carry[0], 1200)), t=t,
+                nup=n_up, stats=stats)
+
+
+def _async_run(sim):
+    sim.step()
+    fs = sim.last_frame_stats
+    return dict(convert.particles_to_numpy(sim.particles), nup=sim.update_counter,
+                count=sim.particle_count(), schedule=fs.schedule, level_hist=fs.level_hist,
+                sorts=fs.sorts)
+
+
+@pytest.fixture(scope="module")
+def slabs(jax_frames):
+    """The ranks' results (``slab_ranks.async_slabs``) and, made while the
+    ranks work, the port's one-device references: the bucketed frame
+    from the JAX frames' inputs, the crossing blob and the dam."""
+    third = jax_frames["third"]
+    out = {}
+
+    def ranks():
+        try:
+            out["ranks"] = comm.run_ranks(async_slabs, 2, "gloo",
+                                          args=(jax_frames["a0"], third["a"], float(third["t"])),
+                                          timeout_s=240)
+        except Exception as e:  # re-raised below, in the test's thread
+            out["error"] = e
+
+    th = threading.Thread(target=ranks)
+    th.start()
+    cfg = convert.config_from_dict(dataclasses.asdict(jax_frames["sim"].cfg))
+    args = (cfg, jax_frames["sim"].frame_dt, jax_frames["unit"])
+    one = dict(first=_one_device_frame(jax_frames["a0"], 0.0, *args),
+               third=_one_device_frame(third["a"], third["t"], *args),
+               crossing=_async_run(crossing_blob(AsyncMPM, per_block=True)),
+               dam=_async_run(dam_scene(AsyncMPM, per_block=True)), cfg=cfg)
+    th.join(timeout=300)
+    assert not th.is_alive(), "the ranks outlived their timeout"
+    if "error" in out:
+        raise out["error"]
+    return dict(ranks=out["ranks"], one=one)
+
+
+def _close(a, b, bounds=SLAB_BOUNDS):
+    assert_close_by_id(SimpleNamespace(**a), SimpleNamespace(**b), bounds)
+
+
+@pytest.mark.parametrize("frame", ["first", "second", "resort"])
+def test_distributed_async_matches_jax(jax_frames, slabs, frame):
+    """DistributedAsyncMPM's frames against JAX's AsyncMPM(per_block=True)
+    frames: the update count, t, every particle kept, x and v within
+    JAX's bounds between its slab and one-device frames; the third frame
+    re-sorts mid-frame as JAX's does. Both ranks gather the same set."""
+    r0, r1 = slabs["ranks"]
+    if frame == "resort":
+        got, want = (r0["third"], r1["third"]), jax_frames["third"]
+        assert want["n_resorts"] >= 1 and got[0]["sorts"] == want["n_resorts"] + 1
+        t_want = want["t_end"]
+    else:
+        i = ("first", "second").index(frame)
+        got, want = (r0["frames"][i], r1["frames"][i]), jax_frames["frames"][i]
+        t_want = want["t"]
+    assert got[0]["nup"] == got[1]["nup"] == want["nup"]
+    assert got[0]["t"] == float(np.float32(t_want))
+    assert got[0]["count"] == 1200
+    _close(got[0], _numpy_of_jax(want["p"]))
+    for k in ("x", "v", "F", "C", "active", "params"):
+        assert np.array_equal(got[0][k], got[1][k]), k
+
+
+@pytest.mark.parametrize("state", ["a0", "fast"])
+def test_sharded_levels_match_one_device(jax_frames, slabs, state):
+    """The levels of the slabs (MAXLEV sweeps, each after a boundary plane
+    exchange) equal the port's one-device slot_levels, integer for
+    integer, on every block both page maps hold, every occupied block
+    among them."""
+    arrays = jax_frames["a0"] if state == "a0" else jax_frames["third"]["a"]
+    cfg = slabs["one"]["cfg"]
+    st, _, pm = packed.sort_and_map(packed.pack_particles(convert.particles_from_numpy(arrays)),
+                                    cfg, 256)
+    lev = tab.slot_levels(st, pm, cfg, jax_frames["unit"])
+    bx, by, bz, valid = blocked._decode_ids(pm["ids"], cfg)
+    one = {(int(x), int(y), int(z)): int(v)
+           for x, y, z, v, ok in zip(bx, by, bz, lev, valid) if ok}
+    compared = 0
+    for r in slabs["ranks"]:
+        got = r["levels"][("a0", "fast").index(state)]
+        for block, level, occ in zip(map(tuple, got["block"].tolist()), got["lev"], got["occ"]):
+            if occ:
+                assert block in one, block
+            if block in one:
+                assert level == one[block], (block, level, one[block])
+                compared += 1
+    assert compared >= sum(r["levels"][0]["occ"].sum() for r in slabs["ranks"])
+
+
+@pytest.mark.parametrize("frame", ["first", "resort"])
+def test_slab_schedule_matches_one_device(slabs, frame):
+    """The schedule of (tick, level), the re-sorts and the level histogram
+    of each sort (summed over the ranks) equal the port's one-device
+    frame's from the same input."""
+    r0, r1 = slabs["ranks"]
+    key = "frames" if frame == "first" else "third"
+    g0, g1 = (r[key][0] if frame == "first" else r[key] for r in (r0, r1))
+    one = slabs["one"]["first" if frame == "first" else "third"]
+    assert g0["schedule"] == g1["schedule"] == one["stats"].schedule
+    assert g0["sorts"] == one["stats"].sorts
+    hist = (np.asarray(g0["level_hist"]) + np.asarray(g1["level_hist"])).tolist()
+    assert hist == one["stats"].level_hist
+    assert g0["nup"] == one["nup"]
+    _close(g0, one)
+
+
+def test_slab_crossing_matches_one_device(slabs):
+    """A blob crossing x = 0.5 at 1 m/s: the slab frame re-sorts, particles
+    migrate, and it matches AsyncMPM(per_block=True): the update count,
+    the re-sorts, every particle kept, x and v within the slab bounds."""
+    r0, r1 = slabs["ranks"]
+    one = slabs["one"]["crossing"]
+    g = r0["crossing"]
+    assert g["sorts"] == one["sorts"] >= 2
+    assert r0["crossing"]["sent"][1] > 0 and r1["crossing"]["arrived"] > 0
+    assert g["nup"] == r1["crossing"]["nup"] == one["nup"]
+    assert g["count"] == one["count"] == 1200
+    assert g["schedule"] == one["schedule"]
+    _close(g, one)
+
+
+def test_slab_empty_rank(slabs):
+    """The dam of scripts/async/water.py at res 16: the right slab starts
+    empty, still joins every advance (its record exchanges carry zeros),
+    and the frame ends on both ranks with the one-device counts."""
+    r0, r1 = (r["dam"] for r in slabs["ranks"])
+    one = slabs["one"]["dam"]
+    assert r1["local_start"] == 0 and r0["local_start"] == one["count"]
+    assert r1["empty"] == sum(1 for _ in r1["schedule"]) and r0["empty"] == 0
+    assert r0["nup"] == r1["nup"] == one["nup"] > 0
+    assert r0["count"] == one["count"]
+    assert r0["schedule"] == one["schedule"]
+    _close(r0, one)
+
+
+class _TrivialHooks(tab.OneDevice):
+    """One device through the slab hooks, each made trivial: the branch
+    values reduced by a copy, an empty context extension, the local
+    config and colliders of one device, an exchange that returns the
+    records."""
+
+    def sort(self, st, K, tz, stats):
+        st, keys, pm = packed.sort_and_map(st, self.cfg, K)
+        lev = torch.clamp(self.level_fn(st, pm), max=tz).to(torch.int32)
+        return tab.Sorted(st, keys, pm, lev, self.cfg, stats, all_max=torch.clone,
+                          ctx_extend=torch.zeros_like)
+
+    def advance(self, st, backup, plan, t, dt):
+        if plan.pm is None:
+            return None
+        return tab.advance_bucket(st, backup, plan, t, self.cfg, self.colliders, dt, True,
+                                  lcfg=self.cfg, grid_colliders=self.colliders,
+                                  exchange_fn=lambda rec, pm: rec)
+
+
+def test_hooks_absent_keep_bits(jax_frames, slabs):
+    """The one-device frame (held to JAX's bits in
+    test_torch_async_bucketed.py) and the same frame through trivial slab
+    hooks give the same bits, the re-sorting third frame's input."""
+    cfg, unit = slabs["one"]["cfg"], jax_frames["unit"]
+    third = jax_frames["third"]
+    st = packed.pack_particles(convert.particles_from_numpy(third["a"]))
+    plain = tab.bucketed_frame_carry(st.clone(), third["t"], cfg, (), jax_frames["sim"].frame_dt,
+                                     unit, 256)
+    level_fn = lambda s, pm: tab.slot_levels(s, pm, cfg, unit)  # noqa: E731
+    cur, st2, t, n_up, _, stats = tab.tick_loop(st.clone(), third["t"], cfg,
+                                                jax_frames["sim"].frame_dt, unit, 256,
+                                                _TrivialHooks(cfg, (), level_fn))
+    assert stats.n_resorts >= 1
+    assert int(n_up) == plain[2] and t == plain[1]
+    assert torch.equal(st2, plain[0][0])
+
+
+@pytest.mark.parametrize("case", ["balanced", "mesh_shape", "rigid", "frame_dt"])
+def test_distributed_async_refusals(case):
+    """DistributedAsyncMPM refuses what JAX's asserts against, with its
+    messages (taichi_mpm_tpu/parallel/driver.py:393-501)."""
+    from taichi_mpm_torch.parallel.driver import DistributedAsyncMPM
+    from taichi_mpm_torch.rigid.mesh import plate_mesh
+
+    kw = dict(res=(16, 16, 16), device="cpu")
+    if case == "balanced":
+        with pytest.raises(ValueError, match="bucketed async runs on uniform slabs"):
+            DistributedAsyncMPM(balanced=True, **kw)
+        return
+    if case == "mesh_shape":
+        with pytest.raises(ValueError, match=r"bucketed async is slab-mesh \(1-D\) only"):
+            DistributedAsyncMPM(mesh_shape=(1, 1), **kw)
+        return
+    with comm.process_group("gloo", 0, 1, comm.free_port(), timeout_s=60):
+        sim = DistributedAsyncMPM(**kw)
+        sim.add_particles("jelly", pos=np.full((4, 3), 0.5, np.float32))
+        if case == "rigid":
+            sim.add_particles("rigid", mesh=plate_mesh(half_u=0.25, half_v=0.25, axis=1),
+                              scripted_position=lambda t: (0.5, 0.45, 0.5),
+                              scripted_rotation=lambda t: (0.0, 0.0, 0.0), codimensional=True)
+            with pytest.raises(ValueError, match="adaptive dt \\+ CPIC not supported yet"):
+                sim.step()
+        else:
+            with pytest.raises(ValueError, match="frame_dt is baked into the bucketed tick loop"):
+                sim.step(2 * sim.frame_dt)

@@ -68,8 +68,9 @@ def test_mpm_without_device_needs_cuda():
 def test_unported_paths_raise(monkeypatch):
     """2-D scenes, kernel order 3 and 2-D rigid bodies run on the dense
     path; the per-block scheduler refuses a 2-D scene, as the JAX package
-    does; the multi-device driver needs a process group, and what stays
-    unported of it raises: the pencil mesh and DistributedAsyncMPM."""
+    does; the multi-device drivers need a process group, and what stays
+    unported of them raises: the pencil mesh (DistributedAsyncMPM refuses
+    it with the JAX package's message)."""
     from taichi_mpm_torch import MPM, runner
     from taichi_mpm_torch.core.adaptive import AsyncMPM
 
@@ -95,8 +96,10 @@ def test_unported_paths_raise(monkeypatch):
 
     with pytest.raises(NotImplementedError, match="multi-gpu"):
         DistributedMPM(res=(16, 16, 16), mesh_shape=(2, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-gpu"):
-        DistributedAsyncMPM(res=(16, 16, 16), device="cpu")
+    with pytest.raises(ValueError, match="slab-mesh"):
+        DistributedAsyncMPM(res=(16, 16, 16), mesh_shape=(2, 2), device="cpu")
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node N"):
+        DistributedAsyncMPM(res=(16, 16, 16), device="cpu")  # no process group
 
 
 def test_rigid_surface_rejects_misuse():
