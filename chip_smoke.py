@@ -1047,13 +1047,10 @@ def set_label(names):
     return names[0] if len(names) == 1 else "all" if len(names) == 8 else "+".join(names)
 
 
-MATERIALS25_SUBSTEPS = 3  # the frame's depth: the CPU frames of 125k particles take the time
-
-
 def phase_materials25():
-    """For each set of MATERIAL_SETS25: one MATERIALS25_SUBSTEPS-substep
-    frame of the 125k cube (benchmark_cube(cells=25), the set's materials
-    dealt over the lattice in turn) on the card, each fused kernel launched once per
+    """For each set of MATERIAL_SETS25: one 6-substep frame of the 125k
+    cube (benchmark_cube(cells=25), the set's materials dealt over the
+    lattice in turn) on the card, each fused kernel launched once per
     substep, held to the same frame on the CPU and to the unfused card
     frame at the cube25 bounds, with plastic events equal but for sand's
     knife edges over the CPU frame; then the four kernels against their
@@ -1066,15 +1063,14 @@ def phase_materials25():
         label = set_label(names)
         material = names[0] if len(names) == 1 else names
         t0 = time.perf_counter()
-        n = MATERIALS25_SUBSTEPS
-        card, cpu = cube(25, "cuda", n, material), cube(25, "cpu", n, material)
-        unfused = on_route(False, lambda: cube(25, "cuda", n, material))
+        card, cpu = cube(25, "cuda", 6, material), cube(25, "cpu", 6, material)
+        unfused = on_route(False, lambda: cube(25, "cuda", 6, material))
         zero_counts()
         card.step()
-        f = route_failures(read_counts(), True, n)
+        f = route_failures(read_counts(), True, 6)
         zero_counts()
         unfused.step()
-        f += route_failures(read_counts(), False, n)
+        f += route_failures(read_counts(), False, 6)
         with diagnostics.sand_edges_per_substep() as edges:
             cpu.step()
         slack = sum(edges)
@@ -3921,76 +3917,51 @@ def phase_water_wheel_slabs(card, ranks, mpm_dir, emitted, snap_s):
 
 # -- per-block async on slabs: DistributedAsyncMPM ----------------------------------------
 
-DIST_ASYNC_UNIT = 5e-4  # tests/test_async_spatial.py's unit: frames of 64 units
 DIST_ASYNC_FRAMES = 2
 DIST_ASYNC_BOUNDS = (("x", 1e-5), ("v", 5e-4))  # JAX's own, its slab vs one-device frames
 ASYNC_DAM_CHECK_RES = 32
-ASYNC_DAM_CHECK_FRAME_DT = 5e-4
 ASYNC_PATH_RES = 128  # balls.py's 94k particles and water.py's 1,056,758
+BALLS_RESUME_FRAMES = 12  # 0.06 s at 3 m/s: the stiff ball's front reaches x = 0.5
 
 
-def tag_pending(sim):
-    """Each pending particle's index in params[:, ID_ROW_PARAM]."""
-    first = 0
-    for batch in sim._pending:
-        n = batch["x"].shape[0]
-        batch["params"][:, ID_ROW_PARAM] = np.arange(first, first + n, dtype=np.float32)
-        first += n
-    return sim
-
-
-def async_blobs(solver, device, **kw):
+def async_blobs(solver, device, soft_x=(0.15, 0.49), stiff_x=(0.51, 0.80), **kw):
     """tests/test_async_spatial.py's driver scene: a soft (E 4e3, 1,200
-    particles) and a stiff (E 4e5, 300) elastic blob either side of x =
-    0.5 at res 32, moving slowly, no gravity; frames of 64 units of 5e-4 s."""
-    rng = np.random.default_rng(7)
-    sim = solver(res=(32, 32, 32), base_delta_t=1e-3, frame_dt=DIST_ASYNC_UNIT * 64,
-                 unit_delta_t=DIST_ASYNC_UNIT, gravity=(0.0, 0.0, 0.0), device=device, **kw)
-    soft = rng.uniform((0.15, 0.3, 0.3), (0.49, 0.7, 0.7), (1200, 3)).astype(np.float32)
-    stiff = rng.uniform((0.51, 0.4, 0.4), (0.80, 0.6, 0.6), (300, 3)).astype(np.float32)
-    sim.add_particles("elastic", pos=soft, vel=(0.1, -0.05, 0.02), E=4e3, nu=0.3, density=1000)
-    sim.add_particles("elastic", pos=stiff, vel=(-0.1, 0.05, 0.0), E=4e5, nu=0.3, density=1000)
-    return tag_pending(sim)
-
-
-def async_apart(solver, device, **kw):
-    """``async_blobs`` with the soft blob in x <= 0.40 and the stiff one in x
-    >= 0.60: no grid node takes mass from both slabs, so every boundary
-    record is one rank's sum plus the other's zeros."""
-    rng = np.random.default_rng(7)
-    sim = solver(res=(32, 32, 32), base_delta_t=1e-3, frame_dt=DIST_ASYNC_UNIT * 64,
-                 unit_delta_t=DIST_ASYNC_UNIT, gravity=(0.0, 0.0, 0.0), device=device, **kw)
-    soft = rng.uniform((0.15, 0.3, 0.3), (0.40, 0.7, 0.7), (1200, 3)).astype(np.float32)
-    stiff = rng.uniform((0.60, 0.4, 0.4), (0.80, 0.6, 0.6), (300, 3)).astype(np.float32)
-    sim.add_particles("elastic", pos=soft, vel=(0.1, -0.05, 0.02), E=4e3, nu=0.3, density=1000)
-    sim.add_particles("elastic", pos=stiff, vel=(-0.1, 0.05, 0.0), E=4e5, nu=0.3, density=1000)
-    return tag_pending(sim)
-
-
-def async_crossing(solver, device, **kw):
-    """tests/test_async_spatial.py:110-139's scene: 1,200 elastic particles
-    in [0.30, 0.55] x [0.3, 0.7]^2 moving at 1 m/s along x: each frame
-    re-sorts, and particles cross x = 0.5."""
-    pos = np.random.default_rng(0).uniform((0.30, 0.3, 0.3), (0.55, 0.7, 0.7),
-                                           (1200, 3)).astype(np.float32)
-    sim = solver(res=(32, 32, 32), base_delta_t=1e-3, frame_dt=DIST_ASYNC_UNIT * 64,
-                 unit_delta_t=DIST_ASYNC_UNIT, gravity=(0.0, 0.0, 0.0), device=device, **kw)
-    sim.add_particles("elastic", pos=pos, vel=(1.0, 0.0, 0.0), E=4e3, nu=0.3, density=1000)
-    return tag_pending(sim)
-
-
-def async_dam(solver, device, **kw):
-    """scripts/async/water.py at res 32 (all its water in x < 0.35, so the
-    right slab starts empty), frames of 5e-4 s."""
+    particles, x in `soft_x`) and a stiff (E 4e5, 300, x in `stiff_x`)
+    elastic blob either side of x = 0.5 at res 32, moving slowly, no
+    gravity; frames of 64 units of 5e-4 s."""
     from taichi_mpm_torch import scenes
 
-    sim = scenes.water_script(ASYNC_DAM_CHECK_RES, device=device, solver=solver, **kw)
-    sim.frame_dt = ASYNC_DAM_CHECK_FRAME_DT
-    return tag_pending(sim)
+    rng = np.random.default_rng(7)
+    sim = solver(res=(32, 32, 32), base_delta_t=1e-3, frame_dt=scenes.SLAB_UNIT * 64,
+                 unit_delta_t=scenes.SLAB_UNIT, gravity=(0.0, 0.0, 0.0), device=device, **kw)
+    soft = rng.uniform((soft_x[0], 0.3, 0.3), (soft_x[1], 0.7, 0.7),
+                       (1200, 3)).astype(np.float32)
+    stiff = rng.uniform((stiff_x[0], 0.4, 0.4), (stiff_x[1], 0.6, 0.6),
+                        (300, 3)).astype(np.float32)
+    sim.add_particles("elastic", pos=soft, vel=(0.1, -0.05, 0.02), E=4e3, nu=0.3, density=1000)
+    sim.add_particles("elastic", pos=stiff, vel=(-0.1, 0.05, 0.0), E=4e5, nu=0.3, density=1000)
+    return scenes.tag_pending(sim)
 
 
-ASYNC_SCENES = {"blobs": async_blobs, "apart": async_apart, "crossing": async_crossing,
-                "dam": async_dam}
+def async_scene(name, solver, device, **kw):
+    """A scene of ASYNC_SCENES: the blobs; the blobs apart (the soft one
+    in x <= 0.40, the stiff one in x >= 0.60: no grid node takes mass from
+    both slabs, so every boundary record is one rank's sum plus the
+    other's zeros); the crossing blob (tests/test_async_spatial.py:110-139:
+    re-sorts, and particles cross x = 0.5); scripts/async/water.py's dam
+    at res 32 (the right slab starts empty), frames of 5e-4 s."""
+    from taichi_mpm_torch import scenes
+
+    if name == "blobs":
+        return async_blobs(solver, device, **kw)
+    if name == "apart":
+        return async_blobs(solver, device, (0.15, 0.40), (0.60, 0.80), **kw)
+    if name == "crossing":
+        return scenes.crossing_blob(solver, device, **kw)
+    return scenes.dam_frame(ASYNC_DAM_CHECK_RES, solver, device, **kw)
+
+
+ASYNC_SCENES = ("blobs", "apart", "crossing", "dam")
 # where two gloo ranks must give one device's bits: no node sums two ranks' halves
 ASYNC_ONE_SIDED = ("apart", "dam")
 
@@ -4032,7 +4003,7 @@ def dist_async_runs(runs, device=DIST_DEVICE):
     on DistributedAsyncMPM for DIST_ASYNC_FRAMES frames (``async_run``)."""
     from taichi_mpm_torch.parallel.driver import DistributedAsyncMPM
 
-    return {f"{name}_{rep}": async_run(ASYNC_SCENES[name](DistributedAsyncMPM, device),
+    return {f"{name}_{rep}": async_run(async_scene(name, DistributedAsyncMPM, device),
                                        DIST_ASYNC_FRAMES)
             for name, rep in runs}
 
@@ -4054,6 +4025,17 @@ def async_failures(label, res, ref, hist, failures):
     return tagged_errors(ref["state"], res["state"], label, failures, DIST_ASYNC_BOUNDS)
 
 
+def plain_errors(label, res, plain, bounds, failures):
+    """A run held to the same frames on the CPU (AsyncMPM(per_block=True),
+    the kernels' plain twins): the updates, schedule and sorts of every
+    frame equal, every particle kept, the fields within `bounds`. Returns
+    the errors."""
+    for key in ("updates", "schedule", "sorts"):
+        if res[key] != plain[key]:
+            failures.append(f"{label}: {key} differ from the CPU frames'")
+    return tagged_errors(plain["state"], res["state"], f"{label} vs CPU", failures, bounds)
+
+
 def phase_dist_async_check(card):
     """``dist_async_check``: DistributedAsyncMPM against AsyncMPM(per_block=
     True) on the card, DIST_ASYNC_FRAMES frames of each scene of
@@ -4069,14 +4051,22 @@ def phase_dist_async_check(card):
     bits. One NCCL rank gives one device's bits, and so do two gloo ranks
     on the scenes of ASYNC_ONE_SIDED, where no node takes mass from both
     slabs: what parts the others is the sum of a boundary node's two
-    halves. Returns the launches by path."""
+    halves. Since one device's card frame launches the same kernels, every
+    run is also held to AsyncMPM(per_block=True) on the CPU, where the
+    kernels' plain twins run: the updates, schedule and sorts equal, the
+    NCCL run within the frame bounds (FRAME_BOUNDS), the gloo runs within
+    x 1e-5 and v 5e-4. Returns the launches by path."""
     from taichi_mpm_torch.core.adaptive import AsyncMPM
     from taichi_mpm_torch.parallel import comm
 
     failures = []
     t0 = time.perf_counter()
-    refs = {name: async_run(make(AsyncMPM, "cuda", per_block=True), DIST_ASYNC_FRAMES)
-            for name, make in ASYNC_SCENES.items()}
+    refs = {name: async_run(async_scene(name, AsyncMPM, "cuda", per_block=True),
+                            DIST_ASYNC_FRAMES) for name in ASYNC_SCENES}
+    t_plain = time.perf_counter()
+    plain = {name: async_run(async_scene(name, AsyncMPM, "cpu", per_block=True),
+                             DIST_ASYNC_FRAMES) for name in ASYNC_SCENES}
+    plain_s = time.perf_counter() - t_plain
     runs = [(name, 0) for name in ASYNC_SCENES]
     with comm.process_group("nccl", 0, 1, comm.free_port(), timeout_s=DIST_TIMEOUT_S):
         nccl = dist_async_runs(runs)
@@ -4086,8 +4076,9 @@ def phase_dist_async_check(card):
     for key, res in nccl.items():
         ref = refs[key[:-2]]
         errs = async_failures(f"nccl {key}", res, ref, res["level_hist"], failures)
-        shown[f"nccl_{key}"] = dict(errors=errs, bits=res["sha256"] == ref["sha256"],
-                                    updates=res["updates"])
+        shown[f"nccl_{key}"] = dict(
+            errors=errs, bits=res["sha256"] == ref["sha256"], updates=res["updates"],
+            vs_plain=plain_errors(f"nccl {key}", res, plain[key[:-2]], FRAME_BOUNDS, failures))
         if not shown[f"nccl_{key}"]["bits"]:
             failures.append(f"nccl {key}: not one device's bits")
     for key in gloo[0]:
@@ -4096,9 +4087,12 @@ def phase_dist_async_check(card):
                 for f0, f1 in zip(gloo[0][key]["level_hist"], gloo[1][key]["level_hist"])]
         for r in range(2):
             errs = async_failures(f"gloo rank {r} {key}", gloo[r][key], ref, hist, failures)
+            vs_plain = plain_errors(f"gloo rank {r} {key}", gloo[r][key], plain[key[:-2]],
+                                    DIST_ASYNC_BOUNDS, failures)
         g = gloo[0][key]
         shown[f"gloo_{key}"] = dict(
-            errors=errs, bits=g["sha256"] == ref["sha256"], updates=g["updates"],
+            errors=errs, vs_plain=vs_plain, bits=g["sha256"] == ref["sha256"],
+            updates=g["updates"],
             sorts=g["sorts"], sent=[gloo[r][key]["sent"] for r in range(2)],
             local_start=[gloo[r][key]["local_start"] for r in range(2)],
             empty_advances=[gloo[r][key]["empty"] for r in range(2)], level_hist=hist)
@@ -4123,17 +4117,40 @@ def phase_dist_async_check(card):
               particles={k: r["count"] for k, r in refs.items()},
               one_device_updates={k: r["updates"] for k, r in refs.items()},
               one_device_sorts={k: r["sorts"] for k, r in refs.items()},
-              runs=shown, seconds=time.perf_counter() - t0, launches=launches,
-              failures=failures))
+              runs=shown, plain_seconds=plain_s, seconds=time.perf_counter() - t0,
+              launches=launches, failures=failures))
     raise_failures(failures)
     return launches
 
 
-def async_path_scene(name, solver, device, **kw):
+def async_path_scene(name, solver, device, balls_snapshot, **kw):
+    """balls.py resumed from `balls_snapshot`, or water.py's dam, at
+    ASYNC_PATH_RES."""
     from taichi_mpm_torch import scenes
 
-    make = scenes.async_balls if name == "balls" else scenes.water_script
-    return make(res=ASYNC_PATH_RES, device=device, solver=solver, **kw)
+    if name == "dam":
+        return scenes.water_script(res=ASYNC_PATH_RES, device=device, solver=solver, **kw)
+    sim = scenes.async_balls(res=ASYNC_PATH_RES, device=device, solver=solver, **kw)
+    sim.load(balls_snapshot)
+    return sim
+
+
+def balls_snapshot(path):
+    """balls.py at ASYNC_PATH_RES after BALLS_RESUME_FRAMES frames of
+    AsyncMPM(per_block=True) on the card, saved to `path`: the stiff
+    ball's front at the slab boundary x = 0.5, so that the frames after it
+    migrate particles and sum boundary nodes from both slabs. Returns the
+    stiff ball's largest x and the seconds taken."""
+    from taichi_mpm_torch import scenes
+
+    t0 = time.perf_counter()
+    sim = scenes.async_balls(res=ASYNC_PATH_RES, device="cuda", per_block=True)
+    for _ in range(BALLS_RESUME_FRAMES):
+        sim.step()
+    sim.save(path)
+    p = sim.particles
+    front = float(p.x[p.active & (p.v[:, 0] > 1.5), 0].max())
+    return front, time.perf_counter() - t0
 
 
 def async_path_frames(sim):
@@ -4168,6 +4185,8 @@ def async_path_frames(sim):
         from taichi_mpm_torch.parallel import comm
 
         comm.all_max(torch.zeros((), device=sim.device))  # the ranks start the clock together
+    slabs = getattr(sim, "slab_stats", None)
+    sent0 = 0 if slabs is None else slabs.sent_left + slabs.sent_right
     syncs, n0 = HostSyncs.count, sim.update_counter
     t0 = time.perf_counter()
     sim.step()
@@ -4185,15 +4204,16 @@ def async_path_frames(sim):
                 host_syncs_per_advance=(HostSyncs.count - syncs) / adv,
                 torch_syncs_per_advance=torch_syncs / warm.n_substeps,
                 warm_updates=warm_updates, updates=sim.update_counter - n0,
+                migrants=None if slabs is None else slabs.sent_left + slabs.sent_right - sent0,
                 launches=read_counts(), local_particles=int(p.active.sum()),
                 count=sim.particle_count(), outside_or_nan=bad,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
-def dist_async_path_rank():
-    """On each rank of the shared-card group: balls.py and water.py's dam at
-    ASYNC_PATH_RES on DistributedAsyncMPM, ``async_path_frames`` each, and
-    the migrants."""
+def dist_async_path_rank(snapshot):
+    """On each rank of the shared-card group: balls.py (resumed from
+    `snapshot`) and water.py's dam at ASYNC_PATH_RES on
+    DistributedAsyncMPM, ``async_path_frames`` each, and the migrants."""
     import torch
 
     from taichi_mpm_torch.parallel.driver import DistributedAsyncMPM
@@ -4201,7 +4221,7 @@ def dist_async_path_rank():
     out = {}
     for name in ("balls", "dam"):
         t0 = time.perf_counter()
-        sim = async_path_scene(name, DistributedAsyncMPM, DIST_DEVICE)
+        sim = async_path_scene(name, DistributedAsyncMPM, DIST_DEVICE, snapshot)
         sim._ensure_finalized()
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
@@ -4216,9 +4236,10 @@ def dist_async_path_rank():
 
 
 def phase_dist_async_path(card):
-    """``dist_async_path``: scripts/async/balls.py (94k particles, the stiff
-    ball crossing the slab boundary into the soft one) and
-    scripts/async/water.py's dam (1,056,758 particles) at res 128 through
+    """``dist_async_path``: scripts/async/balls.py (94k particles) resumed
+    where the stiff ball's front reaches the slab boundary
+    (``balls_snapshot``: it crosses into the right slab in both frames)
+    and scripts/async/water.py's dam (1,056,758 particles) at res 128 through
     DistributedAsyncMPM on two ranks sharing the card (gloo), a warm-up
     frame and a timed frame each (``async_path_frames``), beside
     AsyncMPM(per_block=True) on the card: ms per frame and per advance,
@@ -4227,21 +4248,28 @@ def phase_dist_async_path(card):
     updates equal one device's (the same input; the timed frame's are
     printed: its input differs by the slabs' rounding); every particle
     kept, finite and in the domain; each fused kernel once per advance
-    with a context on each rank. The two ranks time-share one H100: this
-    is no scaling number. Returns the launches by scene and rank."""
+    with a context on each rank; balls: particles migrate in the timed
+    frame. The two ranks time-share one H100: this is no scaling number.
+    Returns the launches by scene and rank."""
+    import tempfile
+
     import torch
 
     from taichi_mpm_torch.core.adaptive import AsyncMPM
     from taichi_mpm_torch.parallel import comm
 
     failures = []
+    snapshots = tempfile.TemporaryDirectory(prefix="chip_smoke_balls_")
+    snapshot = os.path.join(snapshots.name, "balls.npz")
+    front, snapshot_s = balls_snapshot(snapshot)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = comm.run_ranks(dist_async_path_rank, 2, "gloo", timeout_s=DIST_TIMEOUT_S)
+    ranks = comm.run_ranks(dist_async_path_rank, 2, "gloo", args=(snapshot,),
+                           timeout_s=DIST_TIMEOUT_S)
     ranks_s = time.perf_counter() - t0
     one = {}
     for name in ("balls", "dam"):
-        sim = async_path_scene(name, AsyncMPM, "cuda", per_block=True)
+        sim = async_path_scene(name, AsyncMPM, "cuda", snapshot, per_block=True)
         one[name] = async_path_frames(sim)
         del sim
         torch.cuda.empty_cache()
@@ -4259,14 +4287,19 @@ def phase_dist_async_path(card):
                                 f"one device {one[name]['warm_updates']}")
         if sum(r[name]["local_particles"] for r in ranks) != one[name]["count"]:
             failures.append(f"{name}: the slabs do not hold every particle between them")
+    if sum(r["balls"]["migrants"] for r in ranks) == 0:
+        failures.append(f"balls: no particle migrated in the timed frame (the stiff ball's "
+                        f"front at x = {front} after the snapshot's frames)")
     emit(dict(phase="dist_async_path", card=card, what="two processes time-sharing one H100, "
               "not a scaling number", res=ASYNC_PATH_RES,
               ranks=[{n: {k: v for k, v in r[n].items() if k != "launches"} for n in r}
                      for r in ranks],
               one_device={n: {k: v for k, v in o.items() if k != "launches"}
                           for n, o in one.items()},
-              ranks_s=ranks_s, clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"),
-              failures=failures))
+              balls_resume_frames=BALLS_RESUME_FRAMES, balls_front_x=front,
+              balls_snapshot_s=snapshot_s, ranks_s=ranks_s,
+              clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"), failures=failures))
+    snapshots.cleanup()
     raise_failures(failures)
     return {f"dist_async_path_{name}_rank{r[name]['rank']}": r[name]["launches"]
             for r in ranks for name in r}
@@ -4282,30 +4315,22 @@ DENSE_SLAB_BOUNDS = FRAME_BOUNDS[:3]  # x, v, F
 
 
 def dense_strip(device):
-    """tests/test_spatial.py's 2-D strip: 400 jelly particles on a 40 x 10
-    lattice in [0.1, 0.9] x [0.5, 0.7] moving at 1 m/s along x, res 64,
-    dt 2e-4, gravity -10; each particle's index tagged."""
-    from taichi_mpm_torch import MPM
+    """tests/test_spatial.py's 2-D strip (scenes.spatial_strip: 400 jelly
+    particles moving at 1 m/s along x, res 64), each particle's index
+    tagged."""
+    from taichi_mpm_torch import MPM, scenes
 
-    sim = MPM(res=(64, 64), base_delta_t=2e-4, frame_dt=2e-3, gravity=(0, -10.0), device=device)
-    pos = np.stack(np.meshgrid(np.linspace(0.1, 0.9, 40), np.linspace(0.5, 0.7, 10)),
-                   -1).reshape(-1, 2)
-    vel = np.zeros_like(pos)
-    vel[:, 0] = 1.0
-    sim.add_particles("jelly", pos=pos, vel=vel, E=1e4, nu=0.3)
-    tag_pending(sim)
+    sim = scenes.tag_pending(scenes.spatial_strip(MPM, device=device))
     sim._ensure_finalized()
     return sim
 
 
 def dense_cube(device):
-    """tests/test_sharding.py's cube: benchmark_cube(cells=4, res=16), 512
-    jelly particles in a sticky box; each particle's index tagged."""
+    """tests/test_sharding.py's cube (scenes.sharding_cube: 512 jelly
+    particles in a sticky box), each particle's index tagged."""
     from taichi_mpm_torch import scenes
 
-    sim = scenes.benchmark_cube(cells=4, res=16, material="jelly", E=2e4, nu=0.35,
-                                device=device)
-    tag_pending(sim)
+    sim = scenes.tag_pending(scenes.sharding_cube(device))
     sim._finalize(capacity=512)
     return sim
 

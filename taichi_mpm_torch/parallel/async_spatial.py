@@ -177,16 +177,3 @@ def bucketed_slab_frame(st, t, slabs: sb.Slabs, colliders, frame_dt, unit_dt, K:
     fstats.n_updates = int(host_read(n_up))
     return st, cur.pm["ids"].shape[0], t, fstats.n_updates, fstats
 
-
-def run_bucketed_slab_frames(st, t, slabs: sb.Slabs, colliders, frame_dt, unit_dt,
-                             n_frames: int = 1, K: int = 1024, strength_dt_mul=1.0,
-                             cfl_dt_mul=1.0, stats: sb.SlabStats = None):
-    """`n_frames` frames of ``bucketed_slab_frame`` (the JAX module's
-    ``run_bucketed_spatial_frames``, without its grow loop: the sizes
-    follow the counts). Returns (state, K, t, n_updates in all)."""
-    total = 0
-    for _ in range(n_frames):
-        st, K, t, n_up, _ = bucketed_slab_frame(st, t, slabs, colliders, frame_dt, unit_dt, K,
-                                                strength_dt_mul, cfl_dt_mul, stats)
-        total += n_up
-    return st, K, t, total

@@ -27,6 +27,11 @@ for line (``optimized=False``), ``tetris`` the 2-D scene of
 mls-mpm88 oracle test. Its 2-D CPIC scenes: ``sand_wheel_2d``
 (``scripts/mls-cpic/sand_wheel_2D.py``, with its source
 ``sand_wheel_2d_source``) and ``async_wheel`` (``scripts/async/wheel.py``).
+
+The slab frames' small scenes, from the JAX package's tests:
+``crossing_blob`` and ``dam_frame`` (per-block async on slabs),
+``spatial_strip`` and ``sharding_cube`` (the dense slab frames);
+``tag_pending`` tags each particle's index so that runs match by id.
 """
 
 from __future__ import annotations
@@ -472,3 +477,63 @@ def async_wheel(res: int = 128, device=None) -> AsyncMPM:
     sim.add_particles("sand", density=2000, friction_angle=35.0,
                       density_tex=texture.box((0.44, 0.62), (0.56, 0.82)) * 6)
     return sim
+
+
+# -- the slab frames' small scenes: the JAX package's tests' scenes, which the
+# port's tests and chip_smoke.py hold the slab frames to --------------------------------
+
+ID_SLOT = 7  # a params slot no material reads: tag_pending puts each index there
+SLAB_UNIT = 5e-4  # tests/test_async_spatial.py's unit: frames of 64 units
+
+
+def tag_pending(sim):
+    """Each pending particle's index in params[:, ID_SLOT], so that two
+    runs can be matched particle by particle. Returns `sim`."""
+    first = 0
+    for batch in sim._pending:
+        n = batch["x"].shape[0]
+        batch["params"][:, ID_SLOT] = np.arange(first, first + n, dtype=np.float32)
+        first += n
+    return sim
+
+
+def crossing_blob(solver=AsyncMPM, device=None, **solver_kw):
+    """tests/test_async_spatial.py:110-139's scene: 1,200 elastic
+    particles (E 4e3) in [0.30, 0.55] x [0.3, 0.7]^2 moving at 1 m/s along
+    x, res 32, no gravity, a frame of 64 units of 5e-4 s: the frame
+    re-sorts and particles cross x = 0.5. Ids tagged."""
+    pos = np.random.default_rng(0).uniform((0.30, 0.3, 0.3), (0.55, 0.7, 0.7),
+                                           (1200, 3)).astype(np.float32)
+    sim = solver(res=(32, 32, 32), base_delta_t=1e-3, frame_dt=SLAB_UNIT * 64,
+                 unit_delta_t=SLAB_UNIT, gravity=(0.0, 0.0, 0.0), device=device, **solver_kw)
+    sim.add_particles("elastic", pos=pos, vel=(1.0, 0.0, 0.0), E=4e3, nu=0.3, density=1000)
+    return tag_pending(sim)
+
+
+def dam_frame(res: int, solver=AsyncMPM, device=None, **solver_kw):
+    """``water_script`` at `res` with frames of 5e-4 s: all its water lies
+    in x < 0.35, so on two slabs the right one starts empty (2,081
+    particles at res 16). Ids tagged."""
+    sim = water_script(res, device=device, solver=solver, **solver_kw)
+    sim.frame_dt = 5e-4
+    return tag_pending(sim)
+
+
+def spatial_strip(solver=MPM, vel_x: float = 1.0, **solver_kw):
+    """tests/test_spatial.py's 2-D scene: 400 jelly particles on a 40 x 10
+    lattice in [0.1, 0.9] x [0.5, 0.7] moving at vel_x, res 64, dt 2e-4,
+    gravity -10. `solver` is any class with MPM's constructor."""
+    sim = solver(res=(64, 64), base_delta_t=2e-4, frame_dt=2e-3, gravity=(0, -10.0),
+                 **solver_kw)
+    pos = np.stack(np.meshgrid(np.linspace(0.1, 0.9, 40), np.linspace(0.5, 0.7, 10)),
+                   -1).reshape(-1, 2)
+    vel = np.zeros_like(pos)
+    vel[:, 0] = vel_x
+    sim.add_particles("jelly", pos=pos, vel=vel, E=1e4, nu=0.3)
+    return sim
+
+
+def sharding_cube(device=None) -> MPM:
+    """tests/test_sharding.py's scene: benchmark_cube(cells=4, res=16),
+    512 jelly particles in a sticky box."""
+    return benchmark_cube(cells=4, res=16, material="jelly", E=2e4, nu=0.35, device=device)

@@ -19,8 +19,8 @@ from taichi_mpm_torch.ops.substep import build_page_map_full
 from taichi_mpm_torch.parallel import comm
 from taichi_mpm_torch.parallel import spatial_blocked as sb
 from taichi_mpm_torch.parallel.spatial import migrate
-
-ID_SLOT = 7  # port_helpers.ID_SLOT: each particle's index rides in this params slot
+from taichi_mpm_torch.scenes import (crossing_blob, dam_frame, sharding_cube, spatial_strip,
+                                     tag_pending)
 PM_INTS = ("ids", "n_act", "slot_map", "s_arr", "e_arr", "nbr", "slot_keys")
 
 
@@ -93,14 +93,6 @@ def crossing_scene(cls, n=300, speed=8.0, ls=levelset, **kw):
     tag_pending(sim)
     return sim
 
-
-def tag_pending(sim):
-    """Tag each pending particle's index in params[:, ID_SLOT]."""
-    first = 0
-    for batch in sim._pending:
-        n = batch["x"].shape[0]
-        batch["params"][:, ID_SLOT] = np.arange(first, first + n, dtype=np.float32)
-        first += n
 
 
 def _route(fused):
@@ -382,7 +374,6 @@ def cpic_scenes(out_dir):
 
 BLOBS = dict(res=(32, 32, 32), base_delta_t=1e-3, frame_dt=6.4e-3, unit_delta_t=1e-4,
              gravity=(0, 0, 0))  # tests/test_adaptive.py::TestPerBlockDriver's scene
-CROSSING_UNIT = 5e-4  # tests/test_async_spatial.py's unit; a frame of 64 units
 
 
 def add_blobs(sim):
@@ -398,29 +389,6 @@ def add_blobs(sim):
     return sim
 
 
-def crossing_blob(cls, **kw):
-    """tests/test_async_spatial.py:110-139's scene: 1,200 elastic
-    particles (E 4e3) in [0.30, 0.55] x [0.3, 0.7]^2 moving at 1 m/s along
-    x, res 32, no gravity, a frame of 64 units of 5e-4 s: the frame
-    re-sorts and particles cross x = 0.5. Ids tagged."""
-    pos = np.random.default_rng(0).uniform((0.30, 0.3, 0.3), (0.55, 0.7, 0.7),
-                                           (1200, 3)).astype(np.float32)
-    sim = cls(res=(32, 32, 32), base_delta_t=1e-3, frame_dt=CROSSING_UNIT * 64,
-              unit_delta_t=CROSSING_UNIT, gravity=(0.0, 0.0, 0.0), device="cpu", **kw)
-    sim.add_particles("elastic", pos=pos, vel=(1.0, 0.0, 0.0), E=4e3, nu=0.3, density=1000)
-    tag_pending(sim)
-    return sim
-
-
-def dam_scene(cls, **kw):
-    """scripts/async/water.py at res 16 (2,081 particles, all in x < 0.35:
-    the right slab starts empty), a frame of 5e-4 s. Ids tagged."""
-    from taichi_mpm_torch import scenes
-
-    sim = scenes.water_script(16, device="cpu", solver=cls, **kw)
-    sim.frame_dt = 5e-4
-    tag_pending(sim)
-    return sim
 
 
 def _set_global(sim, arrays, t=None):
@@ -480,41 +448,21 @@ def async_slabs(a0, fast, t_fast):
     res["levels"].append(owned_levels(sim))
     _set_global(sim, fast, t_fast)
     res["third"] = _async_run(sim)
-    res["crossing"] = _async_run(crossing_blob(DistributedAsyncMPM))
-    res["dam"] = _async_run(dam_scene(DistributedAsyncMPM))
+    res["crossing"] = _async_run(crossing_blob(DistributedAsyncMPM, "cpu"))
+    res["dam"] = _async_run(dam_frame(16, DistributedAsyncMPM, "cpu"))
     return res
 
 
 # -- the dense slab frames (tests/port/test_torch_slabs_dense.py) ---------------------
 
 
-def strip_scene(cls, vel_x=1.0, **kw):
-    """tests/test_spatial.py's 2-D scene: 400 jelly particles on a 40 x 10
-    lattice in [0.1, 0.9] x [0.5, 0.7] moving at vel_x, res 64, dt 2e-4,
-    gravity -10 (either package's)."""
-    sim = cls(res=(64, 64), base_delta_t=2e-4, frame_dt=2e-3, gravity=(0, -10.0), **kw)
-    pos = np.stack(np.meshgrid(np.linspace(0.1, 0.9, 40), np.linspace(0.5, 0.7, 10)),
-                   -1).reshape(-1, 2)
-    vel = np.zeros_like(pos)
-    vel[:, 0] = vel_x
-    sim.add_particles("jelly", pos=pos, vel=vel, E=1e4, nu=0.3)
-    return sim
-
-
-def cube_scene():
-    """tests/test_sharding.py's scene on the port: benchmark_cube(cells=4,
-    res=16), 512 jelly particles in a sticky box."""
-    from taichi_mpm_torch import scenes
-
-    return scenes.benchmark_cube(cells=4, res=16, material="jelly", E=2e4, nu=0.35,
-                                 device="cpu")
 
 
 def _strip_frames(arrays, frames, slack):
     from taichi_mpm_torch.core.solver import MPM
     from taichi_mpm_torch.parallel import spatial
 
-    sim = strip_scene(MPM, device="cpu")
+    sim = spatial_strip(MPM, device="cpu")
     sim._finalize()
     local, _ = spatial.shard_spatially(convert.particles_from_numpy(arrays), sim.cfg, 2,
                                        comm.rank(), slack)
@@ -535,7 +483,7 @@ def dense_slabs(strip, fast, cube):
 
     torch.set_num_threads(1)
     res = dict(strip=_strip_frames(strip, 4, 2.0), fast=_strip_frames(fast, 10, 3.0))
-    sim = cube_scene()
+    sim = sharding_cube("cpu")
     sim._finalize(capacity=cube["x"].shape[0])
     p = sharding.shard_particles(convert.particles_from_numpy(cube), 2, comm.rank())
     frame = sharding.build_sharded_frame(sim.cfg, tuple(sim.colliders), 5)

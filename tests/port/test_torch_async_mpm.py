@@ -52,14 +52,14 @@ from taichi_mpm_tpu.core.adaptive import AsyncMPM as JAsyncMPM
 from taichi_mpm_tpu.io.bgeo import read_bgeo
 from taichi_mpm_tpu.ops import async_bucketed as jab
 from taichi_mpm_tpu.ops import packed as jpacked
-from taichi_mpm_torch import convert
+from taichi_mpm_torch import convert, scenes
 from taichi_mpm_torch.core.adaptive import AsyncMPM
 from taichi_mpm_torch.ops import async_bucketed as tab
 from taichi_mpm_torch.ops import blocked, packed
 from taichi_mpm_torch.parallel import comm
 
 from port_helpers import ID_SLOT, assert_close_by_id, tag_ids
-from slab_ranks import BLOBS, add_blobs, async_slabs, crossing_blob, dam_scene
+from slab_ranks import BLOBS, add_blobs, async_slabs
 
 torch.set_num_threads(1)
 
@@ -253,8 +253,8 @@ def slabs(jax_frames):
     args = (cfg, jax_frames["sim"].frame_dt, jax_frames["unit"])
     one = dict(first=_one_device_frame(jax_frames["a0"], 0.0, *args),
                third=_one_device_frame(third["a"], third["t"], *args),
-               crossing=_async_run(crossing_blob(AsyncMPM, per_block=True)),
-               dam=_async_run(dam_scene(AsyncMPM, per_block=True)), cfg=cfg)
+               crossing=_async_run(scenes.crossing_blob(AsyncMPM, "cpu", per_block=True)),
+               dam=_async_run(scenes.dam_frame(16, AsyncMPM, "cpu", per_block=True)), cfg=cfg)
     th.join(timeout=300)
     assert not th.is_alive(), "the ranks outlived their timeout"
     if "error" in out:

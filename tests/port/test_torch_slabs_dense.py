@@ -33,8 +33,8 @@ import torch
 from jax.sharding import Mesh
 
 from port_helpers import FRAME_BOUNDS, ID_SLOT, assert_close_by_id, tag_ids
-from slab_ranks import dense_slabs, strip_scene
-from taichi_mpm_torch import convert
+from slab_ranks import dense_slabs
+from taichi_mpm_torch import convert, scenes
 from taichi_mpm_torch.parallel import comm
 from taichi_mpm_tpu.core.solver import MPM as JMPM
 from taichi_mpm_tpu.parallel.sharding import build_sharded_frame, shard_particles
@@ -68,7 +68,7 @@ def runs():
     shard_mesh = Mesh(np.asarray(jax.devices()[:2]), ("shard",))
     strips = {}
     for vel in (1.0, 4.0):
-        sim = strip_scene(JMPM, vel_x=vel)
+        sim = scenes.spatial_strip(JMPM, vel_x=vel)
         sim._finalize()
         strips[vel] = (sim, tag_ids(_numpy(sim.particles)))
     cube = jbenchmark_cube(cells=4, res=16, material="jelly", E=2e4, nu=0.35)
