@@ -257,13 +257,33 @@ Phases, each printed as one JSON line:
    SHARDS=2 on two ranks sharing the card, 3 frames of 2e-3 s with its
    source, against the same through ``MPM``: equal particle counts, the
    water near the paddles, the wheel turning, its omega within 1e-5.
+16. The pencils (``DistributedMPM(mesh_shape=(Sx, Sy))``; four ranks
+   share the one card, so again no scaling number). ``mesh_check``: the
+   scenes of ``MESH_SCENES`` (``driver_jelly`` and ``pencil_drift``, the
+   JAX package's pencil tests' res-32 scenes; ``corner_crossing``, whose
+   blobs reach the diagonal pencil within a re-sort; ``corner_cluster``;
+   the free plate, and one across the four pencils' corner;
+   ``diagonal_pair``, a corner held by two diagonal pencils alone) on
+   every pencil route (four plain, three CPIC; the fourth CPIC row must
+   raise), (a) one rank over NCCL on a (1, 1) mesh and (b) four gloo
+   ranks sharing the card on a (2, 2) mesh: each run held to ``MPM``'s
+   frames on the card and on the CPU at the frame or CPIC bounds, each
+   kernel of its route once per substep per rank, particles migrating on
+   both axes with diagonal migrants, the cluster's bounds off the uniform
+   split on both axes, the bodies equal in bits on all four ranks.
+   ``mesh_path``: the 8M cube at res 128 and ``mesh_cpic_path``: the 100k
+   CPIC wheel from ``cpic_path``'s snapshot, each on four ranks, fused
+   and balanced, as ``dist_path`` and ``dist_cpic_path`` time them (ms,
+   host syncs, exchange, migration and impulse all-reduce ms, migrants
+   per axis, peak memory, near sets per rank).
    Then
    ``timing``: the seconds of these phases and of the whole script.
 
 Then the ``kernels`` line: per kernel its launches on each path (the
-slab phases' per rank: summed over ``dist_check``'s and
-``dist_cpic_check``'s runs, and ``dist_path``'s, ``dist_cpic_path``'s
-timed frames and ``water_wheel_slabs``' frames by rank), its
+slab and pencil phases' per rank: summed over ``dist_check``'s,
+``dist_cpic_check``'s and ``mesh_check``'s runs, and ``dist_path``'s,
+``dist_cpic_path``'s, ``mesh_path``'s and ``mesh_cpic_path``'s timed
+frames and ``water_wheel_slabs``' frames by rank), its
 CUDA-event time at the 8M shapes (and at the dam's), its plain version's
 time, its max abs error against the plain version there (from
 ``kernel_checks``), and its bound (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the
@@ -3508,16 +3528,20 @@ def slab_path_frames(sim, setup_s):
                 migrate_ms_per_substep=split.migrate_s * 1e3 / split.substeps,
                 impulse_sum_ms_per_substep=split.impulse_sum_s * 1e3 / split.substeps,
                 synced_ms_per_substep=split_s * 1e3 / split.substeps, resorts=st.resorts,
-                sent=(st.sent_left, st.sent_right), arrived=st.arrived, grown=st.grown,
+                sent=(st.sent_left, st.sent_right), sent_y=(st.sent_low_y, st.sent_high_y),
+                diagonal=int(st.diagonal), arrived=st.arrived, grown=st.grown,
                 bounds=st.bounds, n_near=st.n_near, local_particles=int(p.active.sum()),
                 count=sim.particle_count(), outside_or_nan=bad, launches=launches,
                 K=int(sim.block_capacity), setup_s=setup_s, fused=sim.fused,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
-def dist_path_rank():
+def dist_path_rank(mesh_shape=None):
     """On each rank of the shared-card group: the 8M jelly cube at res 128
-    on DistributedMPM (fused route, balanced), ``slab_path_frames``."""
+    on DistributedMPM (fused route, balanced; on pencils with
+    `mesh_shape`), ``slab_path_frames``."""
+    import functools
+
     import torch
 
     from taichi_mpm_torch import scenes
@@ -3525,8 +3549,8 @@ def dist_path_rank():
 
     t0 = time.perf_counter()
     sim = on_route(True, lambda: scenes.benchmark_cube(
-        cells=100, res=DIST_PATH_RES, device=DIST_DEVICE, solver=DistributedMPM,
-        **CUBE_KW["jelly"]))
+        cells=100, res=DIST_PATH_RES, device=DIST_DEVICE,
+        solver=functools.partial(DistributedMPM, mesh_shape=mesh_shape), **CUBE_KW["jelly"]))
     sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
     sim._ensure_finalized()
     torch.cuda.synchronize()
@@ -3539,9 +3563,10 @@ def phase_dist_path(card):
     20 substeps (ms and host syncs per substep, re-sorts, migrants and the
     bounds), one frame for torch's count of syncs and one for the
     exchange's and the migration's ms; each kernel once per substep per
-    rank; all 8,000,000 particles kept, finite and in the domain. Beside it the same scene through MPM on the card. The two
-    ranks time-share one H100: this is no scaling number. Returns the
-    launches by rank."""
+    rank; all 8,000,000 particles kept, finite and in the domain. Beside
+    it the same scene through MPM on the card. The two ranks time-share
+    one H100: this is no scaling number. Returns the launches by rank
+    and MPM's ms per substep."""
     import torch
 
     from taichi_mpm_torch import scenes
@@ -3578,7 +3603,7 @@ def phase_dist_path(card):
               ranks_s=ranks_s, clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"),
               failures=failures))
     raise_failures(failures)
-    return {f"dist_path_rank{r['rank']}": r["launches"] for r in ranks}
+    return {f"dist_path_rank{r['rank']}": r["launches"] for r in ranks}, one_ms
 
 
 # -- CPIC on slabs: DistributedMPM with rigid bodies ------------------------------------
@@ -3690,19 +3715,23 @@ def bodies_sha(sim):
                                    for k in ("pos", "vel", "rot", "omega"))).hexdigest()
 
 
-def dist_cpic_path_rank(wheel_snapshot):
+def dist_cpic_path_rank(wheel_snapshot, mesh_shape=None):
     """On each rank of the shared-card group: the 100k CPIC wheel
-    (scenes.cpic_wheel(), res 96) on DistributedMPM, fused and balanced,
-    from `wheel_snapshot` (``DistributedMPM.load``: every rank restores
-    the bodies), ``slab_path_frames``, with the bodies' hash and the
-    rigid map's capacity."""
+    (scenes.cpic_wheel(), res 96) on DistributedMPM, fused and balanced
+    (on pencils with `mesh_shape`), from `wheel_snapshot`
+    (``DistributedMPM.load``: every rank restores the bodies),
+    ``slab_path_frames``, with the bodies' hash and the rigid map's
+    capacity."""
+    import functools
+
     import torch
 
     from taichi_mpm_torch import scenes
     from taichi_mpm_torch.parallel.driver import DistributedMPM
 
     t0 = time.perf_counter()
-    sim = on_route(True, lambda: scenes.cpic_wheel(device=DIST_DEVICE, solver=DistributedMPM))
+    sim = on_route(True, lambda: scenes.cpic_wheel(
+        device=DIST_DEVICE, solver=functools.partial(DistributedMPM, mesh_shape=mesh_shape)))
     sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
     sim.load(wheel_snapshot)
     torch.cuda.synchronize()
@@ -3913,6 +3942,343 @@ def phase_water_wheel_slabs(card, ranks, mpm_dir, emitted, snap_s):
               mpm_wheel_omega_z=float(ref["omega"][2, 2]), failures=failures))
     raise_failures(failures)
     return {f"water_wheel_rank{r}": res["launches"] for r, res in enumerate(ranks)}
+
+
+# -- pencils: DistributedMPM(mesh_shape=(Sx, Sy)) over torch.distributed -------------
+
+MESH_GLOO = (2, 2)  # four ranks sharing the card; one NCCL rank runs (1, 1)
+MESH_CORNER_PLATE = (0.5, 0.49, 0.5)  # the plate across the four pencils' corner
+# scene -> (routes, frames, bounds): the plain routes on the two res-32
+# scenes of the JAX package's pencil tests and on corner_crossing (its
+# particles reach the diagonal pencil within a re-sort), the balanced
+# ones on corner_cluster, the three CPIC pencil frames on the free plate
+# (and one across the four pencils' corner); with the refused fourth,
+# every route of the driver's table. diagonal_pair's corner nodes take
+# mass from two diagonal pencils while the two between hold nothing
+MESH_SCENES = {
+    "driver_jelly": (DIST_ROUTES, 2, FRAME_BOUNDS),
+    "pencil_drift": (DIST_ROUTES, 3, FRAME_BOUNDS),
+    "corner_crossing": (DIST_ROUTES, 2, FRAME_BOUNDS),
+    "corner_cluster": ({k: DIST_ROUTES[k] for k in ("fused_balanced", "unfused_balanced")}, 3,
+                       FRAME_BOUNDS),
+    "plate": (DIST_CPIC_ROUTES, 2, CPIC_BOUNDS),
+    "corner_plate": ({"fused_uniform": (True, False)}, 2, CPIC_BOUNDS),
+    "diagonal_pair": ({k: DIST_ROUTES[k] for k in ("fused_uniform", "unfused_uniform")}, 1,
+                      FRAME_BOUNDS),
+}
+
+
+def mesh_scene(name, solver, device):
+    """A scene of MESH_SCENES built by `solver` on `device` (ids tagged):
+    the free plate of ``scenes.plate_scene`` for "plate" (at
+    MESH_CORNER_PLATE for "corner_plate"), else the scene of that name."""
+    from taichi_mpm_torch import scenes
+    from taichi_mpm_torch.rigid.mesh import plate_mesh
+
+    if name in ("plate", "corner_plate"):
+        center = MESH_CORNER_PLATE if name == "corner_plate" else (0.5, 0.4, 0.5)
+        return scenes.plate_scene(solver, plate_mesh, free=True, center=center, device=device)
+    return getattr(scenes, name)(solver, device=device)
+
+
+def mesh_ref_path(ref_dir, scene, device, fused):
+    return os.path.join(ref_dir, f"{scene}_{device}_fused{int(fused)}.npz")
+
+
+def mesh_refs(ref_dir, device):
+    """MPM's frames of each scene of MESH_SCENES on each route its runs
+    take, on `device` (the CPU runs the kernels' plain twins), saved in
+    `ref_dir` (``state_arrays``). Returns the particle count of each
+    scene."""
+    from taichi_mpm_torch import MPM
+
+    counts = {}
+    for scene, (routes, frames, _) in MESH_SCENES.items():
+        for fused in sorted({f for f, _ in routes.values()}):
+            ref = on_route(fused, lambda: mesh_scene(scene, MPM, device))
+            for _ in range(frames):
+                ref.step()
+            np.savez(mesh_ref_path(ref_dir, scene, device, fused),
+                     **state_arrays(ref, ref.particles))
+            counts[scene] = ref.particle_count()
+    return counts
+
+
+def mesh_routes(ref_dir, runs, device=DIST_DEVICE):
+    """On every rank of the current group, a (1, 1) mesh on one rank and
+    MESH_GLOO on four: each (scene, route) of `runs` on
+    DistributedMPM(mesh_shape=...), every launch count set to 0 before;
+    with bodies each rank hashes them after every frame. Rank 0 holds the
+    gathered state to MPM's frames on the card and on the CPU that
+    ``mesh_refs`` saved (the scene's bounds; ``held_to``); every particle
+    must stay finite and in the domain. Returns per run this rank's
+    launches and events (migrants per axis, diagonal ones, bounds and
+    whether each axis's left the uniform split), and on rank 0 the
+    errors, whether they are 0 and the failures."""
+    import functools
+
+    import torch
+
+    from taichi_mpm_torch.parallel import comm
+    from taichi_mpm_torch.parallel.driver import DistributedMPM
+    from taichi_mpm_torch.utils import HostSyncs
+
+    mesh = (1, 1) if comm.world() == 1 else MESH_GLOO
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // comm.world()))  # ranks share the cores
+    out = {}
+    for scene, route in runs:
+        routes, frames, bounds = MESH_SCENES[scene]
+        fused, balanced = routes[route]
+        solver = functools.partial(DistributedMPM, mesh_shape=mesh, balanced=balanced)
+        sim = on_route(fused, lambda: mesh_scene(scene, solver, device))
+        sim._ensure_finalized()
+        local_start = int(sim.particles.active.sum())
+        zero_counts()
+        syncs = HostSyncs.count
+        shas = []
+        for _ in range(frames):
+            sim.step()
+            if sim.bodies is not None:
+                shas.append(bodies_sha(sim))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        syncs = HostSyncs.count - syncs
+        st = sim.slab_stats
+        res = dict(launches=read_counts(), fused=sim.fused, balanced=sim.balanced,
+                   substeps=st.substeps, resorts=st.resorts, sent_x=(st.sent_left, st.sent_right),
+                   sent_y=(st.sent_low_y, st.sent_high_y), diagonal=int(st.diagonal),
+                   arrived=st.arrived, grown=st.grown, count=sim.particle_count(),
+                   local_start=local_start, host_syncs_per_substep=syncs / st.substeps,
+                   expected_substeps=frames * max(1, round(sim.frame_dt / sim.cfg.base_dt)))
+        if sim.balanced:
+            res.update(bounds=st.bounds[:1] + st.bounds[-1:], off_uniform=[
+                tuple(b) != tuple(int(v) for v in u)
+                for b, u in zip(st.bounds[-1], sim.slabs.uniform)])
+        if sim.bodies is not None:
+            res.update(n_near=st.n_near, body_sha=shas,
+                       omega_max=float(sim.bodies.omega.abs().max()))
+        g = sim._gather()
+        if sim.rank == 0:
+            failures = []
+            got = state_arrays(sim, g)
+            label = f"{scene} {route}"
+            res["errors"], res["mpm_bits"] = held_to(
+                load_ref(mesh_ref_path(ref_dir, scene, "cuda", fused)), got, label, bounds,
+                failures)
+            res["cpu_errors"], res["cpu_bits"] = held_to(
+                load_ref(mesh_ref_path(ref_dir, scene, "cpu", fused)), got, f"{label} vs CPU",
+                bounds, failures)
+            x = got["x"]
+            if not (np.isfinite(x).all() and x.min() >= 0.0
+                    and (x <= np.asarray(sim.cfg.res) * sim.cfg.dx).all()):
+                failures.append(f"{label}: positions not finite or outside the domain")
+            res["failures"] = failures
+        out[f"{scene}_{route}"] = res
+        del sim, g
+    return out
+
+
+def mesh_refused(device=DIST_DEVICE):
+    """The fourth CPIC row: TMT_FUSED=0 on balanced pencils with a body.
+    Returns the ValueError's message, None where the frame ran."""
+    import functools
+
+    from taichi_mpm_torch.parallel.driver import DistributedMPM
+
+    sim = on_route(False, lambda: mesh_scene(
+        "plate", functools.partial(DistributedMPM, mesh_shape=(1, 1)), device))
+    try:
+        sim.step()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def phase_mesh_check(card):
+    """``mesh_check``: each scene of MESH_SCENES on its pencil routes, every
+    route of the driver's table, on DistributedMPM(mesh_shape=...): (a) one
+    rank over NCCL in this process, a (1, 1) mesh; (b) four ranks sharing
+    the card over gloo, spawned, a (2, 2) mesh. Each run held to MPM's
+    frames on the card and on the CPU (the kernels' plain twins) at the
+    frame bounds (plain) or the CPIC and body bounds, each kernel of its
+    route once per substep per rank and no other, every particle kept,
+    finite and in the domain; on four ranks particles migrate along x and
+    along y, with diagonal migrants (corner_crossing), both axes' bounds
+    off the uniform split on corner_cluster, and the bodies equal in bits
+    on all four ranks after every frame; on diagonal_pair the pencils
+    between hold nothing. The refused route raises the JAX driver's
+    ValueError. Whether the one NCCL rank gives MPM's bits is
+    printed per run. Returns the launches by path."""
+    import tempfile
+
+    from taichi_mpm_torch.parallel import comm
+
+    failures = []
+    t0 = time.perf_counter()
+    runs = [(scene, route) for scene, (routes, _, _) in MESH_SCENES.items() for route in routes]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_check_") as d:
+        counts = mesh_refs(d, "cuda")
+        t_cpu = time.perf_counter()
+        mesh_refs(d, "cpu")
+        cpu_s = time.perf_counter() - t_cpu
+        with comm.process_group("nccl", 0, 1, comm.free_port(), timeout_s=DIST_TIMEOUT_S):
+            nccl = mesh_routes(d, runs)
+            refused = mesh_refused()
+        gloo = comm.run_ranks(mesh_routes, 4, "gloo", args=(d, runs), timeout_s=DIST_TIMEOUT_S)
+    if refused is None or not refused.startswith("TMT_FUSED=0 routes CPIC pencil scenes"):
+        failures.append(f"unfused balanced CPIC pencils not refused: {refused}")
+    for label, ranks in [("nccl", [nccl])] + [(f"gloo rank {r}", [g]) for r, g in enumerate(gloo)]:
+        for res_of in ranks:
+            for key, res in res_of.items():
+                scene = next(s for s in MESH_SCENES if key.startswith(s + "_"))
+                dist_failures(f"{label} {key}", res, counts[scene], res["expected_substeps"],
+                              failures)
+    for key in gloo[0]:
+        if "body_sha" in gloo[0][key] and len({tuple(g[key]["body_sha"]) for g in gloo}) != 1:
+            failures.append(f"gloo {key}: the ranks' bodies differ in bits")
+    crossing = [g[k] for g in gloo for k in g if k.startswith("corner_crossing")]
+    moved = dict(x=sum(sum(r["sent_x"]) for r in crossing), y=sum(sum(r["sent_y"]) for r in crossing),
+                 diagonal=sum(r["diagonal"] for r in crossing))
+    if not (moved["x"] and moved["y"] and moved["diagonal"]):
+        failures.append(f"corner_crossing: migrants {moved}, none on an axis or none diagonal")
+    for key in (k for k in gloo[0] if k.startswith("diagonal_pair")):
+        if [g[key]["local_start"] for g in gloo][1:3] != [0, 0]:
+            failures.append(f"gloo {key}: the pencils between the pair hold particles")
+    for key in (k for k in gloo[0] if k.startswith("corner_cluster")):
+        if not all(gloo[0][key]["off_uniform"]):
+            failures.append(f"gloo {key}: bounds {gloo[0][key]['bounds']} left the uniform "
+                            "split on an axis only")
+    launches = {"mesh_check_nccl": {}, "mesh_check_gloo": {}}
+    for path, ranks in (("mesh_check_nccl", [nccl]), ("mesh_check_gloo", gloo)):
+        for res_of in ranks:
+            for res in res_of.values():
+                for k, v in res["launches"].items():
+                    launches[path][k] = launches[path].get(k, 0) + v
+
+    def shown(res_of):
+        return {k: {n: v for n, v in r.items() if n not in ("launches", "body_sha")}
+                for k, r in res_of.items()}
+
+    emit(dict(phase="mesh_check", card=card, particles=counts, seconds=time.perf_counter() - t0,
+              cpu_reference_s=cpu_s, what="a (1, 1) mesh on one NCCL rank and a (2, 2) mesh on "
+              "four gloo ranks sharing one H100, not a scaling number",
+              nccl_mpm_bits={k: r["mpm_bits"] for k, r in nccl.items()},
+              nccl=shown(nccl), gloo=[shown(g) for g in gloo], gloo_migrants=moved,
+              refused=refused, launches=launches, failures=failures))
+    raise_failures(failures)
+    return launches
+
+
+def mesh_path_rank():
+    """``dist_path_rank`` on a MESH_GLOO mesh of pencils, the host's cores
+    shared between the ranks."""
+    import torch
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // 4))
+    return dist_path_rank(MESH_GLOO)
+
+
+def phase_mesh_path(card, one_ms):
+    """``mesh_path``: the 8M jelly cube at res 128 on a (2, 2) mesh, four
+    ranks sharing the card (gloo), fused and balanced, 1 +
+    DIST_PATH_TIMED_FRAMES frames of 20 substeps (``slab_path_frames``:
+    ms and host syncs per substep, HostSyncs and torch's count, the
+    exchange's and the migration's ms in a synced frame, migrants per
+    axis, peak memory), beside one device's ms per substep from
+    ``dist_path`` (`one_ms`); each kernel once per substep per rank; all
+    8,000,000 particles kept, finite and in the domain. The four ranks
+    time-share one H100: this is no scaling number. Returns the launches
+    by rank."""
+    import torch
+
+    from taichi_mpm_torch.parallel import comm
+
+    failures = []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = comm.run_ranks(mesh_path_rank, 4, "gloo", timeout_s=DIST_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    n_timed = DIST_PATH_TIMED_FRAMES * SUBSTEPS_PER_FRAME
+    for r in ranks:
+        failures += [f"rank {r['rank']}: {f}" for f in route_failures(r["launches"], True, n_timed)]
+        if r["count"] != 8_000_000 or r["outside_or_nan"]:
+            failures.append(f"rank {r['rank']}: {r['count']} particles, "
+                            f"{r['outside_or_nan']} outside the domain or not finite")
+    if sum(r["local_particles"] for r in ranks) != 8_000_000:
+        failures.append("the pencils do not hold 8,000,000 particles between them")
+    emit(dict(phase="mesh_path", card=card, what="four processes time-sharing one H100, "
+              "not a scaling number", particles=8_000_000, res=DIST_PATH_RES, mesh=MESH_GLOO,
+              timed_substeps=n_timed, ranks=ranks, one_device_ms_per_substep=one_ms,
+              ranks_s=ranks_s, clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"),
+              failures=failures))
+    raise_failures(failures)
+    return {f"mesh_path_rank{r['rank']}": r["launches"] for r in ranks}
+
+
+def mesh_cpic_path_rank(wheel_snapshot):
+    """``dist_cpic_path_rank`` on a MESH_GLOO mesh of pencils, the host's
+    cores shared between the ranks."""
+    import torch
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // 4))
+    return dist_cpic_path_rank(wheel_snapshot, MESH_GLOO)
+
+
+def phase_mesh_cpic_path(card, wheel_snapshot):
+    """``mesh_cpic_path``: the 100k CPIC wheel (scenes.cpic_wheel(), res 96)
+    from phase cpic_path's state (`wheel_snapshot`: the water on the
+    wheel) on a (2, 2) mesh, four ranks sharing the card (gloo), fused and
+    balanced, 1 + DIST_PATH_TIMED_FRAMES frames of 20 substeps
+    (``slab_path_frames``, with the impulse all-reduces' ms and each
+    rank's near set), beside MPM's CPIC frames from the same snapshot;
+    each CPIC kernel once per substep per rank; all 100,000 particles
+    kept, finite and in the domain; the bodies equal in bits on all four
+    ranks; a near set used. The four ranks time-share one H100: this is
+    no scaling number. Returns the launches by rank."""
+    import torch
+
+    from taichi_mpm_torch import scenes
+    from taichi_mpm_torch.parallel import comm
+
+    failures = []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = comm.run_ranks(mesh_cpic_path_rank, 4, "gloo", args=(wheel_snapshot,),
+                           timeout_s=DIST_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    n_timed = DIST_PATH_TIMED_FRAMES * SUBSTEPS_PER_FRAME
+    for r in ranks:
+        failures += [f"rank {r['rank']}: {f}"
+                     for f in route_failures(r["launches"], True, n_timed, CPIC_KERNELS)]
+        if r["count"] != 100_000 or r["outside_or_nan"]:
+            failures.append(f"rank {r['rank']}: {r['count']} particles, "
+                            f"{r['outside_or_nan']} outside the domain or not finite")
+    if sum(r["local_particles"] for r in ranks) != 100_000:
+        failures.append("the pencils do not hold 100,000 particles between them")
+    if len({r["body_sha"] for r in ranks}) != 1:
+        failures.append("the ranks' bodies differ in bits")
+    if max(r["n_near"] for r in ranks) == 0:
+        failures.append("no rank's near set held a particle")
+
+    sim = on_route(True, lambda: scenes.cpic_wheel(device="cuda"))
+    sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
+    sim.load(wheel_snapshot)
+    sim.step()
+    sim.sync()
+    t1 = time.perf_counter()
+    for _ in range(DIST_PATH_TIMED_FRAMES):
+        sim.step()
+    sim.sync()
+    one_ms = (time.perf_counter() - t1) * 1e3 / n_timed
+    del sim
+    emit(dict(phase="mesh_cpic_path", card=card, what="four processes time-sharing one H100, "
+              "not a scaling number", particles=100_000, res=96, mesh=MESH_GLOO,
+              timed_substeps=n_timed, ranks=[{k: v for k, v in r.items() if k != "body_sha"}
+                                             for r in ranks],
+              one_device_ms_per_substep=one_ms, ranks_s=ranks_s,
+              clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"), failures=failures))
+    raise_failures(failures)
+    return {f"mesh_cpic_path_rank{r['rank']}": r["launches"] for r in ranks}
 
 
 # -- per-block async on slabs: DistributedAsyncMPM ----------------------------------------
@@ -4569,13 +4935,19 @@ def main():
     dense_cpic_s = time.perf_counter() - t_dense_cpic
     t_dist = time.perf_counter()
     launches.update(phase_dist_check(card))
-    launches.update(phase_dist_path(card))
+    dist_launches, one_8m_ms = phase_dist_path(card)
+    launches.update(dist_launches)
     dist_s = time.perf_counter() - t_dist
     t_dist_cpic = time.perf_counter()
     launches.update(phase_dist_check(card, "cpic"))
     launches.update(phase_slab_cpic_paths(card, wheel_snapshot))
-    snapshots.cleanup()
     dist_cpic_s = time.perf_counter() - t_dist_cpic
+    t_mesh = time.perf_counter()
+    launches.update(phase_mesh_check(card))
+    launches.update(phase_mesh_path(card, one_8m_ms))
+    launches.update(phase_mesh_cpic_path(card, wheel_snapshot))
+    snapshots.cleanup()
+    mesh_s = time.perf_counter() - t_mesh
     t_dist_async = time.perf_counter()
     launches.update(phase_dist_async_check(card))
     launches.update(phase_dist_async_path(card))
@@ -4583,6 +4955,7 @@ def main():
     emit(dict(phase="timing", dense_cpic_phases_s=dense_cpic_s,
               bucketed_and_unfused_cpic_phases_s=new_phases_s, dist_phases_s=dist_s,
               dist_cpic_phases_s=dist_cpic_s,
+              mesh_phases_s=mesh_s,
               dist_async_and_dense_phases_s=time.perf_counter() - t_dist_async,
               script_s=time.perf_counter() - t_start))
     emit({"kernels": kernels_line(measured, launches, dam_ms, by_material)})

@@ -5,11 +5,13 @@ under ``shard_map``; the only place the port's slab code talks to
 
 The port is multi-controller (SPMD), as ``torchrun`` launches it: one
 process per rank, every rank running the same scene script. The ranks
-form a chain along x (rank s owns the s-th slab), and the collectives
-of JAX's frames become:
+form a chain along x (rank s owns the s-th slab), or an (Sx, Sy) mesh of
+pencils, pencil (sx, sy) on rank sx * Sy + sy (the JAX package's
+``devices.reshape(Sx, Sy)``), each of whose axes is an ``Axis``. The
+collectives of JAX's frames become:
 
-* ``ppermute`` to a neighbour: ``neighbour_exchange``, one
-  ``dist.batch_isend_irecv`` with the left and the right rank;
+* ``ppermute`` to a neighbour along an axis: ``neighbour_exchange``, one
+  ``dist.batch_isend_irecv`` with the rank before and the rank after;
 * ``pmax``: ``all_max``; ``psum``: ``all_sum`` (``dist.all_reduce``);
 * the read-out's gather of the global state: ``all_gather_rows``.
 
@@ -32,6 +34,7 @@ ends a group, and ``run_ranks`` spawns a group of ranks on this machine
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import os
 import queue
@@ -103,25 +106,44 @@ def all_sum(t: torch.Tensor) -> torch.Tensor:
     return _reduce(t, dist.ReduceOp.SUM)
 
 
-def neighbour_exchange(send_left, send_right, left_shape=None, right_shape=None):
-    """Send `send_left` to rank - 1 and `send_right` to rank + 1 (JAX's
-    ``ppermute`` one step each way). Returns (from_left, from_right): what
-    rank - 1 sent right and what rank + 1 sent left, zeros at an end of
-    the chain (where ``ppermute`` gives zeros). A message travels with
-    the shape its receiver expects: `left_shape` and `right_shape` are
-    the shapes coming from the left and the right, by default those of
-    `send_right` and `send_left` (an exchange whose two sides are the
-    same shape). Empty messages are not sent."""
-    s, n = rank(), world()
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One axis of the rank mesh: the ranks along it are `stride` apart,
+    and this rank is at `index` of `size`."""
+
+    stride: int
+    index: int
+    size: int
+
+
+def chain() -> Axis:
+    """The slabs' one axis: every rank of the group, in rank order."""
+    return Axis(1, rank(), world())
+
+
+def neighbour_exchange(send_left, send_right, left_shape=None, right_shape=None, axis=None):
+    """Send `send_left` to the rank before this one along `axis` (default
+    ``chain()``) and `send_right` to the rank after it (JAX's ``ppermute``
+    one step each way along a mesh axis). Returns (from_left,
+    from_right): what the rank before sent right and what the rank after
+    sent left, zeros at an end of the axis (where ``ppermute`` gives
+    zeros). A message travels with the shape its receiver expects:
+    `left_shape` and `right_shape` are the shapes coming from the left
+    and the right, by default those of `send_right` and `send_left` (an
+    exchange whose two sides are the same shape). Empty messages are not
+    sent."""
+    ax = chain() if axis is None else axis
+    s = rank()
     dev = send_left.device
     from_left = torch.zeros(send_right.shape if left_shape is None else left_shape,
                             dtype=send_right.dtype, device=dev)
     from_right = torch.zeros(send_left.shape if right_shape is None else right_shape,
                              dtype=send_left.dtype, device=dev)
     ops, received = [], []
-    for peer, out, into in ((s - 1, send_left, from_left), (s + 1, send_right, from_right)):
-        if not 0 <= peer < n:
+    for step, out, into in ((-1, send_left, from_left), (1, send_right, from_right)):
+        if not 0 <= ax.index + step < ax.size:
             continue
+        peer = s + step * ax.stride
         if out.numel():
             ops.append(dist.P2POp(dist.isend, _wire(out), peer))
         if into.numel():

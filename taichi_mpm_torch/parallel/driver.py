@@ -1,25 +1,38 @@
-"""DistributedMPM: the MPM scene API over x-slabs, one rank each (torch
-counterpart of ``taichi_mpm_tpu.parallel.driver``'s 1-D slabs).
+"""DistributedMPM: the MPM scene API over x-slabs or the pencils of a 2-D
+mesh, one rank each (torch counterpart of
+``taichi_mpm_tpu.parallel.driver``).
 
 The JAX package drives all devices from one process under ``shard_map``.
 The port is SPMD, as ``torchrun`` launches it: every rank runs the same
 scene script, builds the same particle set from the same seed, keeps the
-particles of its own slab, and steps it with the port's kernels
-(``parallel.spatial_blocked.slab_frame``), meeting the other ranks in
+particles of its own slab or pencil, and steps it with the port's
+kernels (``parallel.spatial_blocked.slab_frame``), meeting the other ranks in
 the collectives of ``parallel.comm``. Every call of the scene API is made
 by every rank; the read-outs return the global answer on every rank,
 and files are written by rank 0.
 
-3-D scenes run on 1-D slabs, on both routes (``TMT_FUSED``), with
+3-D scenes run on 1-D slabs, or with ``mesh_shape=(Sx, Sy)`` on pencils
+(``parallel.spatial_mesh2d``), on both routes (``TMT_FUSED``), with
 load-balanced bounds by default. A scene with rigid bodies (CPIC) keeps
 them replicated: every rank builds them, runs the host's rigid solves on
 its copy and applies the impulses summed over the ranks, so the copies
-stay equal in bits. Its frames route as the JAX driver's do: the fused
-route on uniform or balanced bounds (the packed CPIC frame), the unfused
-route on uniform bounds only (the pytree CPIC frame).
+stay equal in bits. Its frames route as the JAX driver's do
+(``taichi_mpm_tpu/parallel/driver.py:257-322``):
+
+=========  ========  ========  =============================================
+layout     bounds    route     frame
+=========  ========  ========  =============================================
+slabs      either    fused     the packed CPIC frame
+slabs      either    unfused   the pytree CPIC frame on uniform slabs (a
+                               balanced scene falls back to uniform)
+pencils    either    fused     the packed CPIC frame
+pencils    uniform   unfused   the pytree CPIC frame
+pencils    balanced  unfused   refused (ValueError), as in the JAX driver
+=========  ========  ========  =============================================
+
+Plain scenes run every route on every kind of bounds.
 ``DistributedAsyncMPM`` runs the per-block bucketed scheduler on uniform
-slabs (``parallel.async_spatial``). Still to come (ROADMAP.md queue 1,
-'multi-gpu'): the 2-D pencil mesh (``mesh_shape``).
+slabs (``parallel.async_spatial``).
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ from taichi_mpm_torch.ops import async_bucketed, blocked, packed
 from taichi_mpm_torch.ops.rows import RACT
 from taichi_mpm_torch.parallel import async_spatial, comm
 from taichi_mpm_torch.parallel import spatial_blocked as sb
+from taichi_mpm_torch.parallel import spatial_mesh2d as sm
 from taichi_mpm_torch.parallel.spatial import shard_spatially
 from taichi_mpm_torch.rigid import cpic_packed
 
@@ -47,18 +61,26 @@ def _round64(n: int) -> int:
 
 
 class DistributedMPM(MPM):
-    """``MPM`` over x-slabs of the ranks of the current process group.
+    """``MPM`` over x-slabs, or the pencils of a 2-D mesh, of the ranks of
+    the current process group.
 
     Extra keywords:
       n_shards:   the number of slabs; must equal the group's world size
                   (default: the world size)
-      mesh_shape: the 2-D pencil mesh, not ported yet (raises)
+      mesh_shape: (Sx, Sy) for a 2-D pencil mesh instead of 1-D slabs:
+                  Sx * Sy must equal the world size, and pencil (sx, sy)
+                  is rank sx * Sy + sy. Per-axis balanced bounds unless
+                  balanced=False or an axis's grid gives its bounds no
+                  room (r_max < 1), then uniform pencils on both axes
+                  (each res[ax] a multiple of 4 * S). ``mesh2d``, ``rx``
+                  and ``ry`` say what was chosen.
       balanced:   load-balanced slab bounds (default True; uniform slabs
                   where the grid gives the bounds no room, r_max < 1, and
                   on the unfused route of a CPIC scene, as in the JAX
                   driver)
       r:          balance radius in block columns (default: the largest
-                  the grid allows)
+                  the grid allows; on pencils clamped to each axis's
+                  largest)
       slack:      each slab's initial capacity over the largest slab's
                   count (default 2.0). The JAX package's slabs keep that
                   capacity and raise when migration exhausts it; here a
@@ -67,7 +89,9 @@ class DistributedMPM(MPM):
       device:     this rank's device: default cuda:{LOCAL_RANK}
                   (``comm.rank_device``); "cpu" runs on the CPU.
 
-    ``particles`` is this rank's slab (its lanes in its sorted order);
+    ``particles`` is this rank's slab or pencil (its lanes in its sorted
+    order); ``slabs`` its layout (``spatial_blocked.Slabs`` or
+    ``spatial_mesh2d.Pencils``);
     ``positions``, ``velocities``, ``energy`` and ``particle_count`` are
     global. A process group must exist (``torchrun`` and
     ``runner.mpm_class``, or ``comm.process_group``).
@@ -76,10 +100,6 @@ class DistributedMPM(MPM):
     def __init__(self, res: Sequence[int], *args, n_shards: Optional[int] = None,
                  mesh_shape: Optional[tuple] = None, balanced: bool = True,
                  r: Optional[int] = None, slack: float = 2.0, device=None, **kw):
-        if mesh_shape is not None:
-            raise NotImplementedError(
-                "DistributedMPM(mesh_shape=...) is the 2-D pencil mesh, not ported yet "
-                "(ROADMAP.md queue 1, 'multi-gpu'); use 1-D slabs")
         if not dist.is_initialized():
             raise RuntimeError(
                 "DistributedMPM runs one rank per process of a torch.distributed group, "
@@ -91,13 +111,19 @@ class DistributedMPM(MPM):
             torch.cuda.set_device(self.device)  # NCCL's collectives run on the current device
         if self.cfg.dim != 3:
             raise ValueError("DistributedMPM is 3-D only")
+        self.rank = comm.rank()
+        self.slack = slack
+        self.r = self.rx = self.ry = None
+        self.mesh2d = mesh_shape is not None
+        self.slab_stats = sb.SlabStats()
+        self._bounds = self._hist = None  # the bounds and histogram of the split
+        if self.mesh2d:
+            self._init_pencils(mesh_shape, balanced, r)
+            return
         self.n_shards = comm.world() if n_shards is None else int(n_shards)
         if self.n_shards != comm.world():
             raise ValueError(f"n_shards={self.n_shards} must equal the process group's "
                              f"world size {comm.world()}")
-        self.rank = comm.rank()
-        self.slack = slack
-        self.r = None
         if balanced:
             r_max = sb.max_radius(self.cfg, self.n_shards)
             r = r_max if r is None else r
@@ -106,14 +132,48 @@ class DistributedMPM(MPM):
             self.r = int(r) if r >= 1 else None
         self.balanced = self.r is not None
         self.slabs = sb.Slabs(self.cfg, self.n_shards, self.rank, self.r)
-        self.slab_stats = sb.SlabStats()
-        self._bounds = self._hist = None  # the bounds and histogram of the split
+
+    def _init_pencils(self, mesh_shape, balanced: bool, r: Optional[int]):
+        """The pencil mesh, as the JAX driver chooses it
+        (``taichi_mpm_tpu/parallel/driver.py:76-105``): each axis's radius
+        the largest it allows, or `r` clamped to it; balanced only where
+        both axes allow r >= 1, else uniform on both."""
+        Sx, Sy = (int(n) for n in mesh_shape)
+        if Sx * Sy != comm.world():
+            raise ValueError(f"mesh_shape=({Sx}, {Sy}) must hold the process group's "
+                             f"{comm.world()} ranks")
+        self.mesh_shape = (Sx, Sy)
+        self.n_shards = Sx * Sy
+        rs = []
+        for ax, S in ((0, Sx), (1, Sy)):
+            if balanced and self.cfg.res[ax] % 4 == 0:
+                r_max = sb.max_radius(self.cfg, S, ax)
+                rs.append(min(r_max, r) if r is not None else r_max)
+            else:
+                rs.append(0)
+        self.balanced = min(rs) >= 1
+        if self.balanced:
+            self.rx, self.ry = (int(v) for v in rs)
+        else:
+            for ax, S in ((0, Sx), (1, Sy)):
+                if self.cfg.res[ax] % (4 * S):
+                    raise ValueError(f"res[{ax}]={self.cfg.res[ax]} must divide into whole "
+                                     f"blocks per pencil (4*{S})")
+        self.slabs = self._layout()
 
     # -- the slab state: MPM's _pcarry holds (state, SlabCarry) after a frame ------
 
     @property
     def block_capacity(self) -> Optional[int]:
         return None if self._pcarry is None else self._pcarry[1].K
+
+    def _layout(self):
+        """The layout the frames run on: this rank's pencil on a mesh, else
+        its slab with ``_slab_radius``."""
+        if self.mesh2d:
+            r = (self.rx, self.ry) if self.balanced else None
+            return sm.Pencils(self.cfg, self.mesh_shape, self.rank, r)
+        return sb.Slabs(self.cfg, self.n_shards, self.rank, self._slab_radius())
 
     def _slab_radius(self) -> Optional[int]:
         """The balance radius the frames run with: None (uniform slabs) on
@@ -137,10 +197,14 @@ class DistributedMPM(MPM):
 
     def _shard(self):
         """Split the global particle set (self._particles, the same on
-        every rank) into this rank's slab, leaving `slack` headroom."""
+        every rank) into this rank's slab or pencil, leaving `slack`
+        headroom (the JAX driver's ``_shard``)."""
         p = self._particles
         cfg = self.cfg
-        self.slabs = sb.Slabs(cfg, self.n_shards, self.rank, self._slab_radius())
+        self.slabs = self._layout()
+        if self.mesh2d:
+            self._shard_pencils(p)
+            return
         if self.slabs.balanced:
             self._bounds = sb.balanced_bounds_host(p, cfg, self.n_shards, self.r)
             self._hist = torch.zeros((self.slabs.CB,), dtype=torch.int32, device=self.device)
@@ -149,6 +213,17 @@ class DistributedMPM(MPM):
         else:
             self._bounds, self._hist = None, None
             local, _ = shard_spatially(p, cfg, self.n_shards, self.rank, self.slack)
+        self._set_particles(local)
+
+    def _shard_pencils(self, p):
+        cfg, shape = self.cfg, self.mesh_shape
+        if self.balanced:
+            self._bounds = sm.balanced_bounds2d_host(p, cfg, shape, self.rx, self.ry)
+            self._hist = torch.zeros((sum(self.slabs.CB),), dtype=torch.int32, device=self.device)
+            local, _ = sm.shard_pencils_bounds(p, cfg, shape, self.rank, *self._bounds, self.slack)
+        else:
+            self._bounds, self._hist = None, None
+            local, _ = sm.shard_pencils(p, cfg, shape, self.rank, self.slack)
         self._set_particles(local)
 
     def _finalize(self, capacity: Optional[int] = None, allow_empty: bool = False):
@@ -194,11 +269,15 @@ class DistributedMPM(MPM):
 
     def step(self, frame_dt: Optional[float] = None):
         """One frame on every rank (``slab_frame``; the CPIC frame where the
-        scene has rigid bodies). The slab's state stays in its carry;
+        scene has rigid bodies). The rank's state stays in its carry;
         ``particles`` unpacks it when read, and ``bodies`` are this rank's
         copy of the replicated bodies."""
         if (self._particles is None and self._pcarry is None) or self._pending:
             self._finalize()
+        if self.mesh2d and self.bodies is not None and self.balanced and not self.fused:
+            raise ValueError(
+                "TMT_FUSED=0 routes CPIC pencil scenes to the uniform frame; pass "
+                "balanced=False (or re-enable the fused path) for unfused CPIC on a 2-D mesh")
         n_sub = max(1, int(round((frame_dt or self.frame_dt) / self.cfg.base_dt)))
         carry = None if self._pcarry is None else self._pcarry[1]
         if carry is None:

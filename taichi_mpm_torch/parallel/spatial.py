@@ -91,7 +91,7 @@ def _grow(p: Particles, n: int) -> Particles:
     return Particles(**{f: torch.cat([getattr(p, f), getattr(extra, f)]) for f in FIELDS})
 
 
-def migrate(p: Particles, cfg: SimConfig, n_shards: int, dest=None):
+def migrate(p: Particles, cfg: SimConfig, n_shards: int, dest=None, axis=None):
     """Move the active particles whose owner is another rank to the left
     or right neighbour (the JAX package's ``migrate``); `dest` is each
     lane's owner (default: the uniform slab of its cell column), and only
@@ -101,8 +101,13 @@ def migrate(p: Particles, cfg: SimConfig, n_shards: int, dest=None):
     package places them. Each side sends its counts, then buffers of
     that size: the movers' fields as rows (``lane_rows``). `p`'s
     tensors are updated in place unless lanes must be added, which
-    returns a grown set. Returns (p, Migration)."""
-    s = comm.rank()
+    returns a grown set. Returns (p, Migration).
+
+    On a pencil mesh (the JAX package's ``spatial_mesh2d._migrate_axis``)
+    `axis` is the ``comm.Axis`` to move along, `n_shards` its size and
+    `dest` each lane's owner along it; left and right are that axis's
+    neighbours."""
+    s = comm.rank() if axis is None else axis.index
     if dest is None:
         cx = torch.floor(p.x[:, 0] * cfg.inv_dx).to(torch.int32)
         dest = torch.clamp(torch.div(cx, slab_cells(cfg, n_shards), rounding_mode="floor"),
@@ -113,12 +118,12 @@ def migrate(p: Particles, cfg: SimConfig, n_shards: int, dest=None):
     idx_r = torch.nonzero(go_right).flatten()
     counts = torch.tensor([[idx_l.numel()], [idx_r.numel()]], dtype=torch.int64,
                           device=p.device)
-    from_left, from_right = comm.neighbour_exchange(counts[0], counts[1])
+    from_left, from_right = comm.neighbour_exchange(counts[0], counts[1], axis=axis)
     n_from_left, n_from_right = (int(v) for v in torch.cat([from_left, from_right]).tolist())
     buf_l, buf_r = (lane_rows(p.take(i)) for i in (idx_l, idx_r))
     width = buf_l.shape[1]
     recv_l, recv_r = comm.neighbour_exchange(buf_l, buf_r, (n_from_left, width),
-                                             (n_from_right, width))
+                                             (n_from_right, width), axis=axis)
     p.active[idx_l] = False
     p.active[idx_r] = False
 

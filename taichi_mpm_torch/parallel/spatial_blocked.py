@@ -31,7 +31,10 @@ its own x-slab (torch counterpart of the plain-scene parts of
   as in the JAX package's slab frames.
 
 ``slab_frame`` is one host loop for both routes, both kinds of bounds
-and plain or CPIC scenes, with each JAX frame's event sequence: a re-sort at every frame
+and plain or CPIC scenes, on slabs or on the pencils of a 2-D mesh (the
+layout, ``Slabs`` here or ``spatial_mesh2d.Pencils``, supplies the
+migration, the offsets, the exchange and the rebalance), with each JAX
+frame's event sequence: a re-sort at every frame
 start (rebalance, migration, local keys, the sort, the page map), then
 substeps while the drift stays under 0.45 cell, and a re-sort when it
 reaches 0.45, after a frame's last substep too. The fused route (the
@@ -94,53 +97,69 @@ def shard_offset_cells(s: int, cfg: SimConfig, n_shards: int) -> np.float32:
     return np.float32(s * slab_cells(cfg, n_shards) - GHOST_CELLS)
 
 
+def world_offset(off_cells, cfg: SimConfig) -> tuple:
+    """The world position of a local frame's cell 0, three floats:
+    `off_cells` (a slab's x offset, or a pencil's (x, y) pair, in cells)
+    times dx in float32, 0 on the axes it leaves out."""
+    offs = off_cells if isinstance(off_cells, tuple) else (off_cells,)
+    w = tuple(float(np.float32(o) * np.float32(cfg.dx)) for o in offs)
+    return w + (0.0,) * (3 - len(w))
+
+
 def local_keys(p: Particles, off_cells, cfg: SimConfig, lcfg: SimConfig):
     """Local-frame block ids of global positions (the JAX package's
-    ``_local_keys``), the sentinel for inactive lanes."""
-    off = float(np.float32(off_cells) * np.float32(cfg.dx))
-    x_loc = p.x - const((off, 0.0, 0.0), torch.float32, p.device)
+    ``_local_keys``, of slabs and of pencils), the sentinel for inactive
+    lanes; `off_cells` as in ``world_offset``."""
+    x_loc = p.x - const(world_offset(off_cells, cfg), torch.float32, p.device)
     total = blocked.total_blocks_padded(lcfg)
     return torch.where(p.active, blocked.block_id_of(x_loc, lcfg), total)
 
 
-def _column_slots(pm, lcfg: SimConfig, col: int):
-    """(nby, nbz) slots of one local block column (K where inactive)."""
-    _, nby, nbz = blocked.num_blocks_padded(lcfg)
+def _column_slots(pm, lcfg: SimConfig, col: int, dim: int = 0):
+    """The slots of one local block plane across axis `dim` (K where
+    inactive): of block column `col` along x, (nby, nbz), or of block row
+    `col` along y over every x column, ghosts too, (nbx, nbz) (the JAX
+    package's ``spatial_mesh2d._axis_planes``)."""
+    nbx, nby, nbz = blocked.num_blocks_padded(lcfg)
     dev = pm["slot_map"].device
-    by = torch.arange(nby, dtype=torch.int64, device=dev)[:, None]
     bz = torch.arange(nbz, dtype=torch.int64, device=dev)[None, :]
-    return pm["slot_map"][(col * nby + by) * nbz + bz].long()
+    if dim == 0:
+        by = torch.arange(nby, dtype=torch.int64, device=dev)[:, None]
+        return pm["slot_map"][(col * nby + by) * nbz + bz].long()
+    bx = torch.arange(nbx, dtype=torch.int64, device=dev)[:, None]
+    return pm["slot_map"][(bx * nby + col) * nbz + bz].long()
 
 
-def _boundary_planes(rec, pm, lcfg: SimConfig, cols):
-    """The records of local block columns `cols` as dense planes
-    (len(cols), nby, nbz, 256), zeros where a block is inactive."""
+def _boundary_planes(rec, pm, lcfg: SimConfig, cols, dim: int = 0):
+    """The records of the local block planes `cols` across axis `dim` as
+    dense planes (len(cols), ..., 256), zeros where a block is inactive."""
     K = pm["ids"].shape[0]
     planes = []
     for col in cols:
-        slot = _column_slots(pm, lcfg, col)
+        slot = _column_slots(pm, lcfg, col, dim)
         ok = slot < K
         planes.append(torch.where(ok[..., None], rec[torch.clamp(slot, max=K - 1)], 0.0))
     return torch.stack(planes, 0)
 
 
-def _add_to_column(rec, pm, lcfg: SimConfig, col: int, values):
-    """rec[slot] += values at the live blocks of local column `col`, in
-    place and without a host sync: an inactive block adds 0 to slot K - 1
-    (each live block holds one slot, so no two nonzero adds meet)."""
+def _add_to_column(rec, pm, lcfg: SimConfig, col: int, values, dim: int = 0):
+    """rec[slot] += values at the live blocks of local plane `col` across
+    axis `dim`, in place and without a host sync: an inactive block adds
+    0 to slot K - 1 (each live block holds one slot, so no two nonzero
+    adds meet)."""
     K = pm["ids"].shape[0]
-    slot = _column_slots(pm, lcfg, col)
+    slot = _column_slots(pm, lcfg, col, dim)
     ok = (slot < K)[..., None]
     rec.index_add_(0, torch.clamp(slot, max=K - 1).flatten(),
                    torch.where(ok, values, 0.0).reshape(-1, rec.shape[1]))
     return rec
 
 
-def _add_planes(rec, pm, lcfg: SimConfig, cols, planes):
-    """Add incoming planes into the live blocks of columns `cols`, in
-    place."""
+def _add_planes(rec, pm, lcfg: SimConfig, cols, planes, dim: int = 0):
+    """Add incoming planes into the live blocks of planes `cols` across
+    axis `dim`, in place."""
     for i, col in enumerate(cols):
-        rec = _add_to_column(rec, pm, lcfg, col, planes[i])
+        rec = _add_to_column(rec, pm, lcfg, col, planes[i], dim)
     return rec
 
 
@@ -167,19 +186,23 @@ def exchange_nothing(lcfg: SimConfig, device):
     comm.neighbour_exchange(zeros, zeros)
 
 
-def zero_domain_edge_ghosts(rec, pm, lcfg: SimConfig, s: int):
+def zero_domain_edge_ghosts(rec, pm, lcfg: SimConfig, s: int, dim: int = 0):
     """Rank 0's low ghost column lies outside the domain, where one device
     has no nodes: its records become 0 (NaN where not finite, as the JAX
-    package's product with 0 gives), in place, by adding their negation."""
+    package's product with 0 gives), in place, by adding their negation.
+    On a pencil mesh, the low ghost plane across axis `dim` of a pencil
+    at index `s` = 0 along it (``_zero_edge_ghosts``)."""
     if s != 0:
         return rec
-    return _add_to_column(rec, pm, lcfg, 0, -_boundary_planes(rec, pm, lcfg, (0,))[0])
+    return _add_to_column(rec, pm, lcfg, 0, -_boundary_planes(rec, pm, lcfg, (0,), dim)[0], dim)
 
 
-def shifted_colliders(colliders, xoff: float):
-    """Colliders evaluated at x + (xoff, 0, 0): the grid update runs in
-    local node coordinates. Level-set colliders only, as in the JAX
-    package (whose ``shifted_colliders`` fails on a DirichletRegion)."""
+def shifted_colliders(colliders, xoff):
+    """Colliders evaluated at x + (xoff, 0, 0), or x + xoff where `xoff`
+    is a 3-tuple (a pencil's offset): the grid update runs in local node
+    coordinates. Level-set colliders only, as in the JAX package (whose
+    ``shifted_colliders`` fails on a DirichletRegion)."""
+    off = xoff if isinstance(xoff, tuple) else (xoff, 0.0, 0.0)
     out = []
     for c in colliders:
         if isinstance(c, DirichletRegion):
@@ -188,7 +211,7 @@ def shifted_colliders(colliders, xoff: float):
         def shift(fn):
             if fn is None:
                 return None
-            return lambda x, t: fn(x + const((xoff, 0.0, 0.0), x.dtype, x.device), t)
+            return lambda x, t: fn(x + const(off, x.dtype, x.device), t)
 
         out.append(dataclasses.replace(c, sdf=shift(c.sdf), normal_fn=shift(c.normal_fn),
                                        velocity=shift(c.velocity)))
@@ -198,16 +221,18 @@ def shifted_colliders(colliders, xoff: float):
 # -- load-balanced slabs -------------------------------------------------------------
 
 
-def _uniform_bounds(cfg: SimConfig, n_shards: int):
-    return np.round(np.linspace(0.0, cfg.res[0] // 4, n_shards + 1)).astype(np.int32)
+def uniform_bounds(cfg: SimConfig, n_shards: int, dim: int = 0):
+    """The uniform split of the block columns along axis `dim`."""
+    return np.round(np.linspace(0.0, cfg.res[dim] // 4, n_shards + 1)).astype(np.int32)
 
 
-def max_radius(cfg: SimConfig, n_shards: int) -> int:
-    """The largest balance radius the grid allows (< 1: none, uniform
-    slabs only): each slab keeps MINW block columns."""
-    if cfg.res[0] % 4:
+def max_radius(cfg: SimConfig, n_shards: int, dim: int = 0) -> int:
+    """The largest balance radius the grid allows along axis `dim` (< 1:
+    none, uniform slabs only): each slab or pencil keeps MINW block
+    columns."""
+    if cfg.res[dim] % 4:
         return 0
-    gaps = np.diff(_uniform_bounds(cfg, n_shards))
+    gaps = np.diff(uniform_bounds(cfg, n_shards, dim))
     return (int(gaps.min()) - MINW) // 2
 
 
@@ -219,7 +244,7 @@ def balanced_params(cfg: SimConfig, n_shards: int, r: int):
     if not 0 < r <= r_max:
         raise ValueError(f"balance radius r={r} must be in [1, {r_max}] for "
                          f"res[0]={cfg.res[0]}, n_shards={n_shards}")
-    u = _uniform_bounds(cfg, n_shards)
+    u = uniform_bounds(cfg, n_shards)
     maxw = int(np.diff(u).max()) + 2 * r
     lcfg = dataclasses.replace(cfg, res=((maxw + 2) * 4,) + cfg.res[1:])
     return cfg.res[0] // 4, u, lcfg
@@ -256,9 +281,10 @@ def col_hist_from_pm(pm, b0: int, lcfg: SimConfig, CB: int):
     return comm.all_sum(hist)
 
 
-def dest_from_bounds(x, bounds, cfg: SimConfig, n_shards: int):
-    """The owner of each position's block column under `bounds`."""
-    cx = torch.clamp(torch.floor(x[:, 0] * cfg.inv_dx).to(torch.int64), 0, cfg.res[0] - 1)
+def dest_from_bounds(x, bounds, cfg: SimConfig, n_shards: int, dim: int = 0):
+    """The owner of each position's block column under `bounds` (block
+    columns along axis `dim`)."""
+    cx = torch.clamp(torch.floor(x[:, dim] * cfg.inv_dx).to(torch.int64), 0, cfg.res[dim] - 1)
     b = torch.as_tensor(np.asarray(bounds, np.int64), device=x.device)
     col = torch.div(cx, 4, rounding_mode="floor")
     return torch.clamp(torch.searchsorted(b, col, right=True) - 1, 0, n_shards - 1)
@@ -298,7 +324,10 @@ def shard_spatially_bounds(p: Particles, cfg: SimConfig, n_shards: int, rank: in
 class Slabs:
     """The static layout of one rank's slab: uniform (r None) or balanced
     with radius r; ``lcfg`` the local config, ``CB`` the block columns,
-    ``uniform`` the uniform bounds."""
+    ``uniform`` the uniform bounds. The frame loop (``slab_frame``) asks
+    it, or a ``spatial_mesh2d.Pencils``, for the migration, the offsets,
+    the exchange and the rebalance; `bounds` is the host int32 bounds, or
+    None on uniform slabs."""
 
     def __init__(self, cfg: SimConfig, n_shards: int, rank: int, r: Optional[int] = None):
         self.cfg, self.n_shards, self.rank, self.r = cfg, n_shards, rank, r
@@ -327,6 +356,49 @@ class Slabs:
     def xoff(self, bounds) -> float:
         return float(self.off_cells(bounds) * np.float32(self.cfg.dx))
 
+    def world_off(self, bounds) -> tuple:
+        """The world position of local cell 0 (the CPIC hooks' `world_off`)."""
+        return (self.xoff(bounds), 0.0, 0.0)
+
+    def origin_shift(self, bounds) -> tuple:
+        """What the local block origins get to be global, in cells."""
+        return (float(self.off_cells(bounds)), 0.0, 0.0)
+
+    def grid_colliders(self, colliders, bounds):
+        return shifted_colliders(colliders, self.xoff(bounds))
+
+    def rebalance(self, hist, bounds):
+        """The bounds of the next re-sort (balanced slabs), from the
+        histogram of the last."""
+        if not self.balanced:
+            return bounds
+        return rebalance_bounds(host_read(hist), bounds, self.uniform, self.r, self.n_shards)
+
+    def migrate(self, p: Particles, bounds, stats: "SlabStats") -> Particles:
+        """Each particle to its slab's rank (``spatial.migrate``), counted
+        in `stats`."""
+        dest = dest_from_bounds(p.x, bounds, self.cfg, self.n_shards) if self.balanced else None
+        t0 = stats.clock(p.device)
+        p, mig = migrate(p, self.cfg, self.n_shards, dest)
+        stats.migrate_s += stats.clock(p.device) - t0
+        stats.sent_left += mig.sent_left
+        stats.sent_right += mig.sent_right
+        stats.arrived += mig.arrived
+        stats.grown += mig.grown
+        return p
+
+    def hist(self, pm, bounds):
+        """The column histogram summed over the ranks (balanced slabs)."""
+        return col_hist_from_pm(pm, bounds[self.rank], self.lcfg, self.CB)
+
+    def bounds_record(self, bounds) -> tuple:
+        return tuple(int(b) for b in bounds)
+
+    def exchange(self, rec, pm, bounds):
+        """The record exchange, then rank 0's out-of-domain ghosts zeroed."""
+        rec = exchange_boundary_records(rec, pm, self.lcfg, self.width(bounds))
+        return zero_domain_edge_ghosts(rec, pm, self.lcfg, self.rank)
+
 
 @dataclasses.dataclass
 class SlabStats:
@@ -335,7 +407,11 @@ class SlabStats:
     added, the bounds after each re-sort, on CPIC scenes the largest near
     sets (exact and coarse) and rigid page map of this rank's slab, and,
     where ``timed`` (a device sync around each exchange, migration and
-    impulse sum), the seconds spent in them."""
+    impulse sum), the seconds spent in them. On a pencil mesh
+    ``sent_left`` and ``sent_right`` count the x round of each re-sort,
+    ``sent_low_y`` and ``sent_high_y`` its y round, ``arrived`` and
+    ``grown`` both, and ``diagonal`` (a 0-d device tensor, read when
+    asked) the particles sent that moved on both axes."""
 
     timed: bool = False
     substeps: int = 0
@@ -343,6 +419,9 @@ class SlabStats:
     resort_after: List[int] = dataclasses.field(default_factory=list)
     sent_left: int = 0
     sent_right: int = 0
+    sent_low_y: int = 0
+    sent_high_y: int = 0
+    diagonal: object = 0
     arrived: int = 0
     grown: int = 0
     bounds: List[tuple] = dataclasses.field(default_factory=list)
@@ -363,10 +442,10 @@ class SlabStats:
 class SlabCarry:
     """A rank's state between frames: its particles (the packed state on
     the fused route, a Particles set on the unfused one), the bounds
-    (host int32; None on uniform slabs), the column histogram of the last
-    re-sort (balanced), the page-map capacity K, and on a CPIC scene the
-    rigid bodies, replicated: every rank holds them whole, in the same
-    bits."""
+    (host int32, a pair of them on pencils; None where uniform), the
+    column histogram of the last re-sort (balanced), the page-map
+    capacity K, and on a CPIC scene the rigid bodies, replicated: every
+    rank holds them whole, in the same bits."""
 
     state: object
     bounds: Optional[np.ndarray]
@@ -385,33 +464,26 @@ def _page_map(build, keys, lcfg: SimConfig, K: int):
 
 def pack_with_origins(p: Particles, keys, off_cells, lcfg: SimConfig, K: int):
     """The packed state of a locally sorted set with its origin rows in
-    global grid units (local block origin + the slab's offset), and its
-    local page map (the JAX package's ``_pack_with_origins``)."""
+    global grid units (local block origin + the slab's offset, or a
+    pencil's (x, y) pair), and its local page map (the JAX package's
+    ``_pack_with_origins``)."""
     st = packed.pack_particles(p)
     org = packed.origin_rows(keys, lcfg)
-    org[0] += float(off_cells)
+    for d, off in enumerate(off_cells if isinstance(off_cells, tuple) else (off_cells,)):
+        org[d] += float(off)
     st[RORG: RORG + 3] = org
     return st, _page_map(packed.build_page_map_packed, keys, lcfg, K)
 
 
-def resort(carry: SlabCarry, slabs: Slabs, fused: bool, stats: SlabStats):
-    """Rebalance (balanced slabs), migrate, local keys, sort, page map.
+def resort(carry: SlabCarry, slabs, fused: bool, stats: SlabStats):
+    """Rebalance (balanced bounds), migrate, local keys, sort, page map,
+    on the layout `slabs` (``Slabs`` or ``spatial_mesh2d.Pencils``).
     Returns (state, local keys, pm, bounds, hist)."""
     cfg, lcfg = slabs.cfg, slabs.lcfg
     state, bounds, hist = carry.state, carry.bounds, carry.hist
     p = packed.unpack_particles(state, state.shape[1]) if fused else state
-    dest = None
-    if slabs.balanced:
-        bounds = rebalance_bounds(host_read(hist), bounds, slabs.uniform, slabs.r,
-                                  slabs.n_shards)
-        dest = dest_from_bounds(p.x, bounds, cfg, slabs.n_shards)
-    t0 = stats.clock(p.device)
-    p, mig = migrate(p, cfg, slabs.n_shards, dest)
-    stats.migrate_s += stats.clock(p.device) - t0
-    stats.sent_left += mig.sent_left
-    stats.sent_right += mig.sent_right
-    stats.arrived += mig.arrived
-    stats.grown += mig.grown
+    bounds = slabs.rebalance(hist, bounds)
+    p = slabs.migrate(p, bounds, stats)
     off = slabs.off_cells(bounds)
     keys = local_keys(p, off, cfg, lcfg)
     p, keys, _ = sort_particles_by_keys(p, keys)
@@ -420,29 +492,27 @@ def resort(carry: SlabCarry, slabs: Slabs, fused: bool, stats: SlabStats):
     else:
         state, pm = p, _page_map(build_page_map_full, keys, lcfg, carry.K)
     if slabs.balanced:
-        hist = col_hist_from_pm(pm, bounds[slabs.rank], lcfg, slabs.CB)
-        stats.bounds.append(tuple(int(b) for b in bounds))
+        hist = slabs.hist(pm, bounds)
+        stats.bounds.append(slabs.bounds_record(bounds))
     stats.resorts += 1
     stats.resort_after.append(stats.substeps)
     return state, keys, pm, bounds, hist
 
 
-def record_exchange(pm, slabs: Slabs, bounds, stats: SlabStats):
-    """The substep's boundary hook: the record exchange, then rank 0's
-    out-of-domain ghosts zeroed."""
-    Wb = slabs.width(bounds)
+def record_exchange(pm, slabs, bounds, stats: SlabStats):
+    """The substep's boundary hook: the layout's record exchange and the
+    out-of-domain ghosts zeroed (``Slabs.exchange``), timed in `stats`."""
 
     def exchange(rec):
         t0 = stats.clock(rec.device)
-        rec = exchange_boundary_records(rec, pm, slabs.lcfg, Wb)
-        rec = zero_domain_edge_ghosts(rec, pm, slabs.lcfg, slabs.rank)
+        rec = slabs.exchange(rec, pm, bounds)
         stats.exchange_s += stats.clock(rec.device) - t0
         return rec
 
     return exchange
 
 
-def spatial_blocked_substep_presorted(p: Particles, pm, t, slabs: Slabs, bounds, colliders, dt,
+def spatial_blocked_substep_presorted(p: Particles, pm, t, slabs, bounds, colliders, dt,
                                       stats: SlabStats):
     """One unfused substep of a locally sorted slab against its frozen page
     map (the JAX package's ``spatial_blocked_substep_presorted``): the
@@ -454,16 +524,14 @@ def spatial_blocked_substep_presorted(p: Particles, pm, t, slabs: Slabs, bounds,
     vmax, plast) with vmax and plast 0-d device tensors."""
     cfg, lcfg = slabs.cfg, slabs.lcfg
     n = p.capacity
-    off = slabs.off_cells(bounds)
-    origin = pm["origin"] + const((float(off), 0.0, 0.0), torch.float32, p.device)
+    origin = pm["origin"] + const(slabs.origin_shift(bounds), torch.float32, p.device)
     pdata = prep_p2g(p, None, cfg, dt, origin=origin)
     tiles = p2g.p2g_blocked(pm["s_arr"], pm["e_arr"], pdata)
     del pdata
     rec = blocked.merge_tiles(tiles, pm["nbr"])
     del tiles
     rec = record_exchange(pm, slabs, bounds, stats)(rec)
-    vrec = grid_update_flat(rec, pm["ids"], lcfg, shifted_colliders(colliders, slabs.xoff(bounds)),
-                            t, dt)
+    vrec = grid_update_flat(rec, pm["ids"], lcfg, slabs.grid_colliders(colliders, bounds), t, dt)
     win = blocked.windows(vrec, pm["nbr"])
     rows = torch.zeros((NCH, n), dtype=torch.float32, device=p.device)
     rows[RX: RX + 3] = p.x.t()
@@ -495,7 +563,7 @@ def _impulse_sum(stats: SlabStats):
     return total
 
 
-def cpic_slab_substep(carry: SlabCarry, state, pm, t, slabs: Slabs, dt, fused: bool, scene, caps,
+def cpic_slab_substep(carry: SlabCarry, state, pm, t, slabs, dt, fused: bool, scene, caps,
                       stats: SlabStats):
     """One coupled substep of this rank's slab (the substeps of the JAX
     package's ``build_spatial_cpic_packed_frame``, its balanced form and
@@ -504,16 +572,15 @@ def cpic_slab_substep(carry: SlabCarry, state, pm, t, slabs: Slabs, dt, fused: b
     bodies in `carry` are replaced by the advanced ones. Returns (state,
     t + dt, vmax, plast)."""
     bounds = carry.bounds
-    xoff = slabs.xoff(bounds)
-    hooks = dict(lcfg=slabs.lcfg, world_off=const((xoff, 0.0, 0.0), torch.float32, pm["ids"].device),
-                 grid_colliders=shifted_colliders(scene.colliders, xoff),
+    hooks = dict(lcfg=slabs.lcfg,
+                 world_off=const(slabs.world_off(bounds), torch.float32, pm["ids"].device),
+                 grid_colliders=slabs.grid_colliders(scene.colliders, bounds),
                  exchange_fn=record_exchange(pm, slabs, bounds, stats), sum_fn=_impulse_sum(stats))
     if fused:
         out = cpic_packed_substep_presorted(state, pm, carry.bodies, t, slabs.cfg, scene, dt, caps,
                                             **hooks)
     else:
-        origin = pm["origin"] + const((float(slabs.off_cells(bounds)), 0.0, 0.0), torch.float32,
-                                      state.device)
+        origin = pm["origin"] + const(slabs.origin_shift(bounds), torch.float32, state.device)
         out = cpic_blocked_substep_presorted(state, pm, carry.bodies, t, slabs.cfg, scene, dt,
                                              caps, origin=origin, **hooks)
     (state, carry.bodies, t), n_near, n_coarse, n_r, vmax, plast = out
@@ -523,7 +590,7 @@ def cpic_slab_substep(carry: SlabCarry, state, pm, t, slabs: Slabs, dt, fused: b
     return state, t, vmax, plast
 
 
-def slab_frame(carry: SlabCarry, t, slabs: Slabs, colliders, dt, n_substeps: int,
+def slab_frame(carry: SlabCarry, t, slabs, colliders, dt, n_substeps: int,
                fused: bool = True, stats: Optional[SlabStats] = None, scene=None, caps=None):
     """One fixed-dt frame of this rank's slab (module docstring): a
     re-sort, then n_substeps substeps with the lazy re-sort. Every rank
@@ -557,7 +624,7 @@ def slab_frame(carry: SlabCarry, t, slabs: Slabs, colliders, dt, n_substeps: int
                 state, t, vmax, dplast = cpic_slab_substep(carry, state, pm, t, slabs, dt, fused,
                                                            scene, caps, stats)
             elif fused:
-                gcolls = shifted_colliders(colliders, slabs.xoff(bounds))
+                gcolls = slabs.grid_colliders(colliders, bounds)
                 (state, t), _, vmax, dplast = packed.fused_substep_presorted(
                     state, pm, t, slabs.cfg, colliders, dt, gcfg=slabs.lcfg,
                     grid_colliders=gcolls, exchange_fn=record_exchange(pm, slabs, bounds, stats))

@@ -227,7 +227,9 @@ def _dense(name, res):
     return make
 
 
-# the scene scripts' counterparts: name -> (args -> (sim, frame_update))
+# the scene scripts' counterparts: name -> (args -> (sim, frame_update));
+# the other 3-D scripts and the demos are still to port
+# (ROADMAP.md queue 1, 'scripts')
 SCENES = {"water": _water, "balls": _balls, "sand_paddles": _sand_paddles,
           "water_wheel": _water_wheel,
           "colliding_balls_energy": _dense("colliding_balls_energy", 100),

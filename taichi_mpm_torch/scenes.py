@@ -30,8 +30,13 @@ mls-mpm88 oracle test. Its 2-D CPIC scenes: ``sand_wheel_2d``
 
 The slab frames' small scenes, from the JAX package's tests:
 ``crossing_blob`` and ``dam_frame`` (per-block async on slabs),
-``spatial_strip`` and ``sharding_cube`` (the dense slab frames);
+``spatial_strip`` and ``sharding_cube`` (the dense slab frames),
+``plate_scene`` (CPIC on slabs and pencils), ``driver_jelly``,
+``pencil_drift``, ``corner_cluster``, ``corner_crossing`` and
+``diagonal_pair`` (the pencil mesh);
 ``tag_pending`` tags each particle's index so that runs match by id.
+A scene that takes `ls` or `plate_mesh` is built by either package's
+solver, with that package's levelset or mesh module.
 """
 
 from __future__ import annotations
@@ -537,3 +542,117 @@ def sharding_cube(device=None) -> MPM:
     """tests/test_sharding.py's scene: benchmark_cube(cells=4, res=16),
     512 jelly particles in a sticky box."""
     return benchmark_cube(cells=4, res=16, material="jelly", E=2e4, nu=0.35, device=device)
+
+
+def plate_scene(solver, plate_mesh, free: bool = False, center=(0.5, 0.4, 0.5), **solver_kw):
+    """tests/test_distributed_driver.py:79-121's (and :153-168's) scene:
+    400 jelly particles uniform in [0.25, 0.75]^3 moving at (1, -0.5, 0),
+    res 32, penalty 1e3, over a plate (half size 0.22, normal y) at
+    `center`, (0.5, 0.4, 0.5), which straddles the slab and pencil
+    boundary at x = 0.5 (at (0.5, 0.49, 0.5) it lies across the corner of
+    four pencils of a (2, 2) mesh); its rotation scripted, or free with
+    `free`; frames of 6 substeps. `plate_mesh` is the mesh module's of
+    `solver`'s package; ids tagged."""
+    rng = np.random.default_rng(3)
+    sim = solver(res=(32, 32, 32), base_delta_t=2e-4, frame_dt=12e-4, gravity=(0, -10.0, 0),
+                 penalty=1e3, **solver_kw)
+    pos = rng.uniform(0.25, 0.75, size=(400, 3)).astype(np.float32)
+    sim.add_particles("jelly", pos=pos, vel=(1.0, -0.5, 0), E=1e4, nu=0.3, density=1000)
+    motion = {} if free else dict(scripted_rotation=lambda t: (0.0, 0.0, 0.0))
+    sim.add_particles("rigid", mesh=plate_mesh(half_u=0.22, half_v=0.22, axis=1),
+                      scripted_position=lambda t: center, codimensional=True,
+                      friction=0.2, **motion)
+    return tag_pending(sim)
+
+
+def driver_jelly(solver=MPM, n: int = 600, ls=levelset, **solver_kw):
+    """tests/test_distributed_driver.py:17-28's scene: `n` jelly particles
+    uniform in [0.15, 0.85]^3 moving at (1, 0, 0) in a box (0.1 to 0.9,
+    friction 0.3), res 32, gravity -10 along y, frames of 10 substeps.
+    Ids tagged."""
+    rng = np.random.default_rng(42)
+    sim = solver(res=(32, 32, 32), base_delta_t=2e-4, frame_dt=2e-3, gravity=(0.0, -10.0, 0.0),
+                 **solver_kw)
+    sim.add_collider(ls.box_domain(lo=(0.1, 0.1, 0.1), hi=(0.9, 0.9, 0.9), friction=0.3))
+    x0 = rng.uniform(0.15, 0.85, size=(n, 3)).astype(np.float32)
+    sim.add_particles("jelly", pos=x0, vel=(1.0, 0.0, 0.0), density=1000.0, E=1e4, nu=0.3)
+    return tag_pending(sim)
+
+
+def pencil_drift(solver=MPM, ls=levelset, **solver_kw):
+    """tests/test_spatial_mesh2d.py:22-31's scene and the box of its
+    frames (:88-91): 700 jelly particles uniform in [0.08, 0.92]^3 moving
+    at (1.5, 1.0, 0), so that they cross both pencil axes, in a box (0.1
+    to 0.9, friction 0.3), res 32, gravity -10 along y, frames of 8
+    substeps. Ids tagged."""
+    rng = np.random.default_rng(1)
+    sim = solver(res=(32, 32, 32), base_delta_t=2e-4, frame_dt=16e-4, gravity=(0.0, -10.0, 0.0),
+                 **solver_kw)
+    sim.add_collider(ls.box_domain(lo=(0.1, 0.1, 0.1), hi=(0.9, 0.9, 0.9), friction=0.3))
+    x0 = rng.uniform(0.08, 0.92, size=(700, 3)).astype(np.float32)
+    sim.add_particles("jelly", pos=x0, vel=(1.5, 1.0, 0.0), density=1000.0, E=1e4, nu=0.3)
+    return tag_pending(sim)
+
+
+def corner_cluster(solver=MPM, ls=levelset, **solver_kw):
+    """tests/test_spatial_mesh2d.py:143-174's scene: 800 jelly particles in
+    the low-x, low-y corner ([0.03, 0.20]^2 x [0.3, 0.7]) moving at (3, 2,
+    0), res (64, 64, 32), gravity -10 along z, in a box (0.02 to 0.98 in x
+    and y, 0.05 to 0.95 in z, friction 0.3), frames of 6 substeps. On a
+    (2, 2) mesh the balanced bounds of both axes move toward the corner.
+    Ids tagged."""
+    rng = np.random.default_rng(11)
+    sim = solver(res=(64, 64, 32), base_delta_t=2e-4, frame_dt=12e-4, gravity=(0.0, 0.0, -10.0),
+                 **solver_kw)
+    sim.add_collider(ls.box_domain(lo=(0.02, 0.02, 0.05), hi=(0.98, 0.98, 0.95), friction=0.3))
+    n = 800
+    x0 = np.empty((n, 3), np.float32)
+    x0[:, 0] = rng.uniform(0.03, 0.20, n)
+    x0[:, 1] = rng.uniform(0.03, 0.20, n)
+    x0[:, 2] = rng.uniform(0.3, 0.7, n)
+    sim.add_particles("jelly", pos=x0, vel=(3.0, 2.0, 0.0), density=1000.0, E=1e4, nu=0.3)
+    return tag_pending(sim)
+
+
+def corner_crossing(solver=MPM, ls=levelset, speed: float = 8.0, **solver_kw):
+    """Two jelly blobs (600 particles each, radius 0.06) by the middle of
+    a res-32 box, at z 0.35 and 0.65 so that they pass each other: one
+    centred at (0.47, 0.47) moving at (speed, speed, 0), one at (0.47,
+    0.53) moving at (speed, -speed, 0). On a (2, 2) mesh of uniform
+    pencils they cross both axes at once, so a re-sort moves particles
+    to the diagonal pencil, through the pencil beside it (drift 0.45
+    cell after 9 substeps at 8 m/s). A box (0.1 to 0.9, friction 0.3),
+    gravity -10 along y, frames of 12 substeps. Ids tagged."""
+    rng = np.random.default_rng(9)
+
+    def blob(center):
+        d = rng.normal(size=(600, 3))
+        r = 0.06 * rng.uniform(0.0, 1.0, 600) ** (1.0 / 3.0)
+        return (np.asarray(center) + d / np.linalg.norm(d, axis=1, keepdims=True)
+                * r[:, None]).astype(np.float32)
+
+    sim = solver(res=(32, 32, 32), base_delta_t=2e-4, frame_dt=2.4e-3,
+                 gravity=(0.0, -10.0, 0.0), **solver_kw)
+    sim.add_collider(ls.box_domain(lo=(0.1, 0.1, 0.1), hi=(0.9, 0.9, 0.9), friction=0.3))
+    sim.add_particles("jelly", pos=blob((0.47, 0.47, 0.35)), vel=(speed, speed, 0.0),
+                      density=1000.0, E=1e4, nu=0.3)
+    sim.add_particles("jelly", pos=blob((0.47, 0.53, 0.65)), vel=(speed, -speed, 0.0),
+                      density=1000.0, E=1e4, nu=0.3)
+    return tag_pending(sim)
+
+
+def diagonal_pair(solver=MPM, **solver_kw):
+    """Two jelly blobs (200 particles each, in cubes of side 0.04) at
+    (0.45, 0.45, 0.5) and (0.55, 0.55, 0.5) closing on each other at
+    (1, 1, 0) and (-1, -1, 0), res 32, no gravity, frames of 6
+    substeps: on a (2, 2) mesh of uniform pencils the nodes at the
+    corner (16, 16) take mass from pencils (0, 0) and (1, 1), while
+    pencils (0, 1) and (1, 0) hold no particle. Ids tagged."""
+    rng = np.random.default_rng(2)
+    sim = solver(res=(32, 32, 32), base_delta_t=2e-4, frame_dt=1.2e-3, gravity=(0.0, 0.0, 0.0),
+                 **solver_kw)
+    for center, vel in (((0.45, 0.45, 0.5), (1.0, 1.0, 0.0)),
+                        ((0.55, 0.55, 0.5), (-1.0, -1.0, 0.0))):
+        pos = (np.asarray(center) + rng.uniform(-0.02, 0.02, (200, 3))).astype(np.float32)
+        sim.add_particles("jelly", pos=pos, vel=vel, density=1000.0, E=1e4, nu=0.3)
+    return tag_pending(sim)

@@ -19,8 +19,8 @@ from taichi_mpm_torch.ops.substep import build_page_map_full
 from taichi_mpm_torch.parallel import comm
 from taichi_mpm_torch.parallel import spatial_blocked as sb
 from taichi_mpm_torch.parallel.spatial import migrate
-from taichi_mpm_torch.scenes import (crossing_blob, dam_frame, sharding_cube, spatial_strip,
-                                     tag_pending)
+from taichi_mpm_torch.scenes import (crossing_blob, dam_frame, plate_scene, sharding_cube,
+                                     spatial_strip, tag_pending)
 PM_INTS = ("ids", "n_act", "slot_map", "s_arr", "e_arr", "nbr", "slot_keys")
 
 
@@ -163,26 +163,6 @@ def scenes(snapshot, out_dir):
 CPIC_ROUTES = {"fused_balanced": (True, True), "fused_uniform": (True, False),
                "unfused_uniform": (False, False)}
 BODY_FIELDS = ("pos", "vel", "rot", "omega")
-
-
-def plate_scene(cls, plate_mesh, free=False, **kw):
-    """tests/test_distributed_driver.py:79-121's scene: 400 jelly particles
-    uniform in [0.25, 0.75]^3 moving at (1, -0.5, 0), res 32, penalty 1e3,
-    over a plate (half size 0.22, normal y) at (0.5, 0.4, 0.5), which
-    straddles the slab boundary at x = 0.5; its rotation scripted, or
-    free with `free`; frames of 6 substeps. `plate_mesh` is the mesh
-    module's of `cls`'s package; ids tagged."""
-    rng = np.random.default_rng(3)
-    sim = cls(res=(32, 32, 32), base_delta_t=2e-4, frame_dt=12e-4, gravity=(0, -10.0, 0),
-              penalty=1e3, **kw)
-    pos = rng.uniform(0.25, 0.75, size=(400, 3)).astype(np.float32)
-    sim.add_particles("jelly", pos=pos, vel=(1.0, -0.5, 0), E=1e4, nu=0.3, density=1000)
-    motion = {} if free else dict(scripted_rotation=lambda t: (0.0, 0.0, 0.0))
-    sim.add_particles("rigid", mesh=plate_mesh(half_u=0.22, half_v=0.22, axis=1),
-                      scripted_position=lambda t: (0.5, 0.4, 0.5), codimensional=True,
-                      friction=0.2, **motion)
-    tag_pending(sim)
-    return sim
 
 
 def cluster_scene(cls, plate_mesh, **kw):

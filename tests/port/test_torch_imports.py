@@ -94,8 +94,8 @@ def test_unported_paths_raise(monkeypatch):
         runner.mpm_class("cpu")  # no process group: says how to launch
     from taichi_mpm_torch import DistributedAsyncMPM, DistributedMPM
 
-    with pytest.raises(NotImplementedError, match="multi-gpu"):
-        DistributedMPM(res=(16, 16, 16), mesh_shape=(2, 2), device="cpu")
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node N"):
+        DistributedMPM(res=(16, 16, 16), mesh_shape=(2, 2), device="cpu")  # no process group
     with pytest.raises(ValueError, match="slab-mesh"):
         DistributedAsyncMPM(res=(16, 16, 16), mesh_shape=(2, 2), device="cpu")
     with pytest.raises(RuntimeError, match="torchrun --nproc-per-node N"):
