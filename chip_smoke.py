@@ -276,6 +276,19 @@ Phases, each printed as one JSON line:
    and balanced, as ``dist_path`` and ``dist_cpic_path`` time them (ms,
    host syncs, exchange, migration and impulse all-reduce ms, migrants
    per axis, peak memory, near sets per rank).
+17. The other 3-D scene scripts (``SCRIPT_KINDS``: ``scripts/async``'s
+   combo, sand, slope and stork; ``scripts/mls-cpic``'s banana,
+   bunny_split, buoyancy, goo_blocks, robot, robot_reversed, sand_stir and
+   sand_sweep; ``sand_layers.py``; ``colliding_balls_3d_test.py``) and
+   the demos. ``scripts_check``: each at the port tests' res, one frame
+   of a few substeps on the card against the CPU at the frame, sand or
+   CPIC bounds, a rerun in bits; robot and sand_layers also on
+   TMT_FUSED=0, so that all four kernels launch. ``scripts_path``: each
+   through ``runner.main`` at its own res, a warm-up frame and a timed
+   frame (the CPIC scripts' cut to 20 substeps): ms and host syncs per
+   substep of the timed frame, sorts, the bodies of robot and buoyancy. ``demo_mpm88``: both
+   torch demos, one frame on the card against the CPU and a rerun in
+   bits.
    Then
    ``timing``: the seconds of these phases and of the whole script.
 
@@ -442,7 +455,14 @@ def read_counts():
     return {name: c.launches for name, c in counters().items()}
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also says when it ended, in seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -1662,11 +1682,12 @@ def phase_cpic_path(card):
     return sim, launches, syncs / n_timed, timed_s * 1e3 / n_timed
 
 
-def phase_cpic_breakdown(sim, card):
+def cpic_stage_ms(sim, substeps=SUBSTEPS_PER_FRAME):
     """CUDA-event time of each stage of the coupled substep, summed over
-    one frame and divided by its substeps (the state is not advanced).
-    The first stage, the prologue, also holds the frame's reads between
-    substeps (drift, staleness)."""
+    one frame of `substeps` from the scene's state and divided by them
+    (the state is not advanced), and the frame's host-clock ms per
+    substep. The first stage, the prologue, also holds the frame's reads
+    between substeps (drift, staleness)."""
     import torch
 
     from taichi_mpm_torch.rigid import cpic_packed
@@ -1683,15 +1704,20 @@ def phase_cpic_breakdown(sim, card):
     t0 = time.perf_counter()
     cpic_packed.cpic_packed_frame_carry(
         sim.packed_carry, sim.bodies, sim.t, sim.cfg, sim.rigid_scene, sim.cfg.base_dt,
-        SUBSTEPS_PER_FRAME, sim.cpic_caps, marks=mark)
+        substeps, sim.cpic_caps, marks=mark)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     stages = {}
     for (_, a), (name, b) in zip(events, events[1:]):
-        stages[name] = stages.get(name, 0.0) + a.elapsed_time(b) / SUBSTEPS_PER_FRAME
+        stages[name] = stages.get(name, 0.0) + a.elapsed_time(b) / substeps
+    return stages, wall_ms / substeps
+
+
+def phase_cpic_breakdown(sim, card):
+    """``cpic_stage_ms`` of the wheel's state."""
+    stages, wall = cpic_stage_ms(sim)
     emit(dict(phase="cpic_breakdown", card=card, ms_per_substep=stages,
-              stages_sum_ms=sum(stages.values()), frame_wall_ms_per_substep=wall_ms
-              / SUBSTEPS_PER_FRAME))
+              stages_sum_ms=sum(stages.values()), frame_wall_ms_per_substep=wall))
 
 
 # -- global adaptive dt ---------------------------------------------------------
@@ -4848,6 +4874,276 @@ def phase_dist_dense_check(card):
                                       for k in nccl["launches"]}}
 
 
+# -- the remaining scene scripts and the standalone demos -------------------------
+
+# the runner entries of the 3-D scene scripts this section drives, by kind
+SCRIPT_KINDS = {
+    "async": ("combo", "sand", "slope", "stork"),
+    "cpic": ("banana", "bunny_split", "buoyancy", "goo_blocks", "robot", "robot_reversed",
+             "sand_stir", "sand_sweep"),
+    "plain": ("sand_layers", "colliding_balls_3d_test"),
+}
+SCRIPT_KIND = {name: kind for kind, names in SCRIPT_KINDS.items() for name in names}
+SANDY_SCRIPTS = ("combo", "sand", "robot", "robot_reversed", "sand_stir", "sand_sweep",
+                 "sand_layers")  # held at the sand column's bounds, knife edges aside
+# scripts_check: the port tests' res and a frame of a few substeps (the async
+# scripts' frame at adaptive dt: 47 substeps of the stork, 3-4 of the others)
+SCRIPT_CHECK_RES = {"async": 32, "cpic": 48, "plain": 32}
+SCRIPT_CHECK_FRAME_DT = {"async": 3e-3, "cpic": 1.5e-4, "plain": 6e-4}
+SCRIPT_UNFUSED = ("robot", "sand_layers")  # also on TMT_FUSED=0: p2g_blocked launched
+# The knife-edge lanes of resting sand outnumber its plastic events, so the
+# gap between the card's and the CPU's events is also held to this share of
+# the CPU's (PR 15's card runs: at most 0.045, combo's 27 of 595)
+PLAST_GAP_SHARE = 0.1
+# scripts_path: each script at its own res, a warm-up frame and a timed frame;
+# the 5e-5 s CPIC scripts' frames cut to 20 substeps, the others their 0.01 s
+SCRIPT_PATH_CPIC_FRAME_DT = 1e-3
+SCRIPT_PATH_TIMED_FRAMES = 1  # after one warm-up frame
+SCRIPT_STAGE_SUBSTEPS = 4  # the CPIC scripts' stage breakdown
+DEMO_BOUNDS = (("x", 5e-6), ("v", 5e-5), ("F", 5e-6))  # tests/port/test_torch_demos.py
+
+
+def script_scene(name, res, device, frame_dt=None, fused=True):
+    """The runner entry `name` of ``runner.SCENES`` at `res` on `device`
+    (on the route of `fused`), its frame_update, with frame_dt cut to
+    `frame_dt` where given."""
+    from taichi_mpm_torch import runner
+
+    argv = [name, "--res", str(res)] + (["--cpu"] if device == "cpu" else [])
+    args = runner.parse_args(argv, scene=True)
+    sim, update = on_route(fused, lambda: runner.SCENES[name](args))
+    if frame_dt:
+        sim.frame_dt = frame_dt
+    return sim, update
+
+
+def script_frame(name, device, fused=True):
+    """scripts_check's frame of the script `name`: its first frame (after
+    its frame_update) at the tests' res. Returns the scene."""
+    kind = SCRIPT_KIND[name]
+    sim, update = script_scene(name, SCRIPT_CHECK_RES[kind], device,
+                               SCRIPT_CHECK_FRAME_DT[kind], fused)
+    if update is not None:
+        update(sim, 0)
+    sim.step()
+    return sim
+
+
+def phase_scripts_check():
+    """Each of the 14 script entries (``SCRIPT_KINDS``) at the port tests'
+    res, one frame of a few substeps, on the card against the CPU (the
+    kernels' plain twins): the CPIC scripts at the CPIC bounds (states
+    and near_b equal, bodies 1e-5 / 1e-6), the others at the frame
+    bounds, the sand scripts at the sand column's (F 2.5e-5, aux 1.5e-5),
+    plastic events equal but for sand's knife edges (counted on the CPU
+    frame) and apart by at most PLAST_GAP_SHARE of the CPU's, equal sorts and adaptive substeps, a second card run equal
+    in bits (bodies too). ``robot`` and ``sand_layers`` also on
+    TMT_FUSED=0 (the pytree CPIC frame, the unfused route) against the
+    CPU on that route. All four kernels must launch. Returns the
+    launches."""
+    import torch
+
+    from taichi_mpm_torch import diagnostics
+
+    failures, out = [], {}
+    zero_counts()
+    runs = [(name, True) for names in SCRIPT_KINDS.values() for name in names]
+    runs += [(name, False) for name in SCRIPT_UNFUSED]
+    for name, fused in runs:
+        label = name if fused else f"{name}_unfused"
+        t0 = time.perf_counter()
+        card = script_frame(name, "cuda", fused)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counted = read_counts()
+        rerun = script_frame(name, "cuda", fused)
+        zero_counts()
+        for kernel, n in counted.items():  # the rerun's launches are a check's, not the path's
+            counters()[kernel].launches = n
+        t0 = time.perf_counter()
+        with diagnostics.packed_sand_edges_per_substep() as edges, \
+                diagnostics.dense_sand_edges_per_substep() as dense_edges:
+            cpu = script_frame(name, "cpu", fused)
+        cpu_s = time.perf_counter() - t0
+        slack = sum(edges) + sum(dense_edges)
+        if SCRIPT_KIND[name] == "cpic":
+            errs = cpic_errors(card, cpu, f"{label} card vs CPU", failures, plast_slack=slack)
+            for field in ("pos", "vel", "rot", "omega"):
+                if not np.array_equal(getattr(card.bodies, field).cpu().numpy(),
+                                      getattr(rerun.bodies, field).cpu().numpy()):
+                    failures.append(f"{label} rerun: body {field} differs")
+        else:
+            bounds = SAND_COLUMN_BOUNDS if name in SANDY_SCRIPTS else FRAME_BOUNDS
+            errs = frame_errors(card, cpu, f"{label} card vs CPU", failures, bounds, slack)
+        gap = abs(card.plasticity_counter - cpu.plasticity_counter)
+        if not gap <= PLAST_GAP_SHARE * cpu.plasticity_counter:
+            failures.append(f"{label} card vs CPU: plastic events {card.plasticity_counter} vs "
+                            f"{cpu.plasticity_counter}, more than {PLAST_GAP_SHARE} of the CPU's apart")
+        same_bits(card, rerun, f"{label} rerun", failures)
+        substeps = [getattr(s, "last_substeps", None) for s in (card, rerun, cpu)]
+        if len(set(substeps)) != 1:
+            failures.append(f"{label}: substeps {substeps} (card, rerun, CPU)")
+        check_domain(card, card.particles.count(), failures)
+        out[label] = dict(particles=card.particles.count(), res=card.cfg.res[0],
+                          frame_dt=card.frame_dt, adaptive_substeps=substeps[0],
+                          errors=errs, plast=card.plasticity_counter,
+                          plast_cpu=cpu.plasticity_counter, sand_knife_edges=slack,
+                          near_b=int(card.particles.near_b.sum()), card_s=card_s, cpu_s=cpu_s)
+    launches = read_counts()
+    failures += [f"{kernel} never launched" for kernel, n in launches.items() if n == 0]
+    emit(dict(phase="scripts_check", **out, launches=launches, failures=failures))
+    raise_failures(failures)
+    return launches
+
+
+def phase_scripts_path(card):
+    """Each of the 14 script entries through ``runner.main`` on the card,
+    at the script's own res and particle count, every launch count set
+    to 0 first: a warm-up frame and SCRIPT_PATH_TIMED_FRAMES timed frames
+    (the 5e-5 s CPIC scripts' cut to 1e-3 s, 20 substeps, by --frame-dt).
+    Per script: particles, ms per substep over the timed frames (host
+    clock around each frame, fenced; the warm-up frame, which pays the
+    scene's finalize, first sort and allocations, apart), particle-steps/s,
+    host syncs per substep and sorts, substeps, the printed frame lines; for robot, robot_reversed and buoyancy the
+    bodies' omega and pos. Every particle finite and in the domain, the
+    robots' wheels turning with their steppers' sign, buoyancy's count
+    growing; each kernel of a script's route once per substep (p2g_fused
+    on every script, g2p_blocked on the CPIC scripts, g2p_fused on the
+    others, p2g_blocked never). Then each CPIC script's ``cpic_stage_ms``
+    over SCRIPT_STAGE_SUBSTEPS from its state (not counted among the
+    path's launches). Returns the launches."""
+    import io
+    from contextlib import redirect_stdout
+
+    from taichi_mpm_torch import runner
+    from taichi_mpm_torch.utils import HostSyncs
+
+    failures, out, cpic_sims = [], {}, {}
+    zero_counts()
+    for kind, names in SCRIPT_KINDS.items():
+        for name in names:
+            make, box = runner.SCENES[name], {}
+
+            def entry(args, make=make, box=box):
+                sim, update = make(args)
+                box["timed"] = Timed(sim)
+                box["seeded"] = sum(b["x"].shape[0] for b in sim._pending)
+                counts = box["counts"] = []  # each frame's particles, after its update
+
+                def counted(s, f):
+                    if update is not None:
+                        update(s, f)
+                    counts.append(s.particles.count() if s.particles is not None
+                                  else sum(b["x"].shape[0] for b in s._pending))
+
+                return box["timed"], counted
+
+            argv = [name, "--frames", str(1 + SCRIPT_PATH_TIMED_FRAMES)]
+            if kind == "cpic":
+                argv += ["--frame-dt", str(SCRIPT_PATH_CPIC_FRAME_DT)]
+            runner.SCENES[name] = entry
+            log = io.StringIO()
+            syncs0 = HostSyncs.count
+            try:
+                with redirect_stdout(log):
+                    t0 = time.perf_counter()
+                    runner.main(argv)
+                    wall = time.perf_counter() - t0
+            finally:
+                runner.SCENES[name] = make
+            timed = box["timed"]
+            sim = timed.sim
+            per_frame = [st["substeps"] or round(sim.frame_dt / sim.cfg.base_dt)
+                         for st in timed.steps]
+            n = sim.particle_count()
+            n_timed = sum(per_frame[1:])
+            step_s = sum(timed.ms["step"][1:]) / 1e3
+            psteps = sum(c * k for c, k in zip(box["counts"][1:], per_frame[1:]))
+            check_domain(sim, n, failures)
+            row = dict(particles=n, res=sim.cfg.res[0], frames=len(per_frame),
+                       substeps_per_frame=per_frame, timed_substeps=n_timed,
+                       ms_per_substep=step_s * 1e3 / n_timed,
+                       warmup_frame_ms=timed.ms["step"][0], frame_ms=timed.ms["step"],
+                       particle_steps_per_s=psteps / step_s,
+                       host_syncs_per_substep=sum(st["host_syncs"] for st in timed.steps[1:])
+                       / n_timed, sorts=sim.n_sorts, wall_s=wall,
+                       all_host_syncs=HostSyncs.count - syncs0,
+                       runner_lines=log.getvalue().splitlines())
+            if sim.bodies is not None:
+                row.update(omega=sim.bodies.omega.cpu().numpy().tolist(),
+                           pos=sim.bodies.pos.cpu().numpy().tolist(),
+                           near_b=int(sim.particles.near_b.sum()))
+            if name.startswith("robot"):
+                spin = [float(sim.bodies.omega[w, 2] - sim.bodies.omega[b, 2])
+                        for w, b in (a.obj for a in sim.rigid_scene.articulations)]
+                row["wheel_spin"] = spin
+                sign = -1 if name == "robot_reversed" else 1
+                if not all(np.sign(w) == sign for w in spin):
+                    failures.append(f"{name}: the wheels spin {spin}, not with sign {sign}")
+            if name == "buoyancy" and not n > box["seeded"]:
+                failures.append(f"buoyancy: {n} particles after the jets, {box['seeded']} seeded")
+            if not all(f"frame {f:05d}" in row["runner_lines"][f] for f in range(len(per_frame))):
+                failures.append(f"{name}: the runner printed {row['runner_lines']}")
+            out[name] = row
+            if kind == "cpic":
+                cpic_sims[name] = sim
+    launches = read_counts()
+    cpic_substeps = sum(sum(out[name]["substeps_per_frame"]) for name in SCRIPT_KINDS["cpic"])
+    substeps = sum(sum(row["substeps_per_frame"]) for row in out.values())
+    expected = dict(p2g_fused=substeps, g2p_fused=substeps - cpic_substeps,
+                    g2p_blocked=cpic_substeps, p2g_blocked=0)
+    failures += [f"{kernel} launched {n} times on the scripts' path, not {expected[kernel]} "
+                 "(once per substep of its route)" for kernel, n in launches.items()
+                 if n != expected[kernel]]
+    for name, sim in cpic_sims.items():  # after the path's launches are read
+        stages, wall = cpic_stage_ms(sim, SCRIPT_STAGE_SUBSTEPS)
+        out[name].update(stage_ms=stages, stages_sum_ms=sum(stages.values()),
+                         breakdown_wall_ms_per_substep=wall)
+    emit(dict(phase="scripts_path", card=card, **out, launches=launches,
+              clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"), failures=failures))
+    raise_failures(failures)
+    return launches
+
+
+def phase_demo_mpm88():
+    """Both standalone demos (``taichi_mpm_torch/demos``), one frame of
+    40 substeps from their 8,192 particles on the card and on the CPU:
+    x 5e-6, v 5e-5, F 5e-6; a second card frame equal in bits; each
+    card frame's ms."""
+    import torch
+
+    from taichi_mpm_torch.demos import mls_mpm88, mls_mpm88_explained
+
+    failures, out = [], {}
+    for demo in (mls_mpm88, mls_mpm88_explained):
+        label = demo.__name__.rsplit(".", 1)[-1]
+        frames = {}
+        for run, device in (("card", "cuda"), ("rerun", "cuda"), ("cpu", "cpu")):
+            state = demo.initial_state(device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(int(demo.frame_dt / demo.dt)):
+                state = demo.substep(*state)
+            torch.cuda.synchronize()
+            frames[run] = ((time.perf_counter() - t0) * 1e3,
+                           [a.cpu().numpy() for a in state])
+        errs = {}
+        for (field, bound), a, b in zip(DEMO_BOUNDS, frames["card"][1], frames["cpu"][1]):
+            errs[field] = float(np.abs(a.astype(np.float64) - b).max())
+            if not errs[field] <= bound:
+                failures.append(f"{label} card vs CPU: {field} differs by {errs[field]} > {bound}")
+        if any(a.tobytes() != b.tobytes() for a, b in zip(frames["card"][1], frames["rerun"][1])):
+            failures.append(f"{label}: a second card frame differs in bits")
+        x = frames["card"][1][0]
+        if not np.isfinite(x).all():
+            failures.append(f"{label}: positions not finite")
+        out[label] = dict(errors=errs, card_ms=frames["card"][0], rerun_ms=frames["rerun"][0],
+                          cpu_ms=frames["cpu"][0], y_range=[float(x[:, 1].min()),
+                                                            float(x[:, 1].max())])
+    emit(dict(phase="demo_mpm88", **out, failures=failures))
+    raise_failures(failures)
+
+
 def main():
     import tempfile
 
@@ -4952,11 +5248,20 @@ def main():
     launches.update(phase_dist_async_check(card))
     launches.update(phase_dist_async_path(card))
     launches.update(phase_dist_dense_check(card))
+    dist_async_s = time.perf_counter() - t_dist_async
+    t_scripts = time.perf_counter()
+    launches["scripts_check"] = phase_scripts_check()
+    scripts_check_s = time.perf_counter() - t_scripts
+    launches["scripts_path"] = phase_scripts_path(card)
+    scripts_path_s = time.perf_counter() - t_scripts - scripts_check_s
+    phase_demo_mpm88()
     emit(dict(phase="timing", dense_cpic_phases_s=dense_cpic_s,
               bucketed_and_unfused_cpic_phases_s=new_phases_s, dist_phases_s=dist_s,
               dist_cpic_phases_s=dist_cpic_s,
               mesh_phases_s=mesh_s,
-              dist_async_and_dense_phases_s=time.perf_counter() - t_dist_async,
+              dist_async_and_dense_phases_s=dist_async_s, scripts_check_s=scripts_check_s,
+              scripts_path_s=scripts_path_s,
+              scripts_phases_s=time.perf_counter() - t_scripts,
               script_s=time.perf_counter() - t_start))
     emit({"kernels": kernels_line(measured, launches, dam_ms, by_material)})
     print(card, flush=True)

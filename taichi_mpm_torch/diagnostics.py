@@ -8,7 +8,8 @@ after each frame; ``stage_report``, the per-stage profile of a substep;
 and G2P kernels' edges; ``g2p_staged_share``, the share of lanes whose
 window the fused G2P kernel stages in shared memory;
 ``sand_knife_edges`` and ``sand_edges_per_substep``, the sand lanes whose
-plastic event is within rounding of its edges (on the dense path
+plastic event is within rounding of its edges (``packed_sand_edges_per_substep``
+at every packed finish on the CPU; on the dense path
 ``dense_sand_knife_edges`` and ``dense_sand_edges_per_substep``)."""
 
 from __future__ import annotations
@@ -210,7 +211,13 @@ def sand_knife_edges(keys, st, win, dt, cfg: SimConfig, tol: float = SAND_EDGE_T
     substeps and 4 within 3e-7.)"""
     if cforms.SAND not in cfg.active_materials:
         return 0
-    acc = g2p._gather_plain(keys, st, win, cfg)
+    return _row_sand_edges(st, g2p._gather_plain(keys, st, win, cfg), dt, cfg, tol)
+
+
+def _row_sand_edges(st, acc, dt, cfg: SimConfig, tol: float = SAND_EDGE_TOL) -> int:
+    """``sand_knife_edges`` of the gathered rows `acc` (v, B) of `st`."""
+    if cforms.SAND not in cfg.active_materials:
+        return 0
     k = g2p._k_cdg(cfg, dt)
     cdg = tuple(e - k * b for e, b in zip(g2p._EYE, acc[3:]))
     tr, dg = cforms.sand_edges(tuple(st[RF + i] for i in range(9)), cdg, st[RAUX],
@@ -294,6 +301,27 @@ def dense_sand_edges_per_substep():
         yield counts
     finally:
         transfer.g2p_finish = finish
+
+
+@contextlib.contextmanager
+def packed_sand_edges_per_substep():
+    """``sand_edges_per_substep`` for every packed G2P step on the CPU:
+    within the block, each call of ``ops.g2p.finish_packed`` (the finish
+    of the unfused route and of the packed CPIC frame, and of the fused
+    kernel's twin) first appends its ``sand_knife_edges`` count, from the
+    gathered rows it is given, to the yielded list."""
+    counts = []
+    finish = g2p.finish_packed
+
+    def counted(st, acc, cfg, dt, *args, **kw):
+        counts.append(_row_sand_edges(st, acc, dt, cfg))
+        return finish(st, acc, cfg, dt, *args, **kw)
+
+    g2p.finish_packed = counted
+    try:
+        yield counts
+    finally:
+        g2p.finish_packed = finish
 
 
 # -- hand-made inputs at the edges of the P2G kernels -------------------------

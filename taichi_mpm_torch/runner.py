@@ -18,6 +18,8 @@ and the module runs the scripts' counterparts in ``scenes`` itself:
     python -m taichi_mpm_torch.runner colliding_balls_energy --res 32 --frames 2 --cpu
     python -m taichi_mpm_torch.runner tetris --frames 5 --cpu --out out/
     python -m taichi_mpm_torch.runner sand_wheel_2d --res 128 --frames 3 --cpu
+    python -m taichi_mpm_torch.runner robot --res 32 --frames 1 --cpu --frame-dt 1.5e-4
+    python -m taichi_mpm_torch.runner stork --res 32 --frames 1 --cpu
 
 With SHARDS=N under ``torchrun`` a scene that takes the runner's solver
 class runs on N ranks (``parallel.driver.DistributedMPM``, one GPU per
@@ -174,68 +176,47 @@ def simulate(sim, args, frame_update=None, print_energy=False):
     return sim
 
 
-def _water(args):
-    from taichi_mpm_torch import scenes
-
-    return scenes.water_script(res=args.res or 64, device=args.device), None
-
-
-def _balls(args):
-    from taichi_mpm_torch import scenes
-
-    return scenes.async_balls(res=args.res or 64, device=args.device), None
-
-
-def _sand_paddles(args):
-    from taichi_mpm_torch import scenes
-
-    sim = scenes.sand_paddles(res=args.res or 64, device=args.device,
-                              solver=mpm_class(args.device))
-    return sim, scenes.sand_paddles_source
-
-
-def _water_wheel(args):
-    from taichi_mpm_torch import scenes
-
-    sim = scenes.water_wheel(res=args.res or 64, device=args.device,
-                             solver=mpm_class(args.device))
-    return sim, scenes.water_wheel_source
-
-
-def _sand_wheel_2d(args):
-    from taichi_mpm_torch import scenes
-
-    sim = scenes.sand_wheel_2d(res=args.res or 128, device=args.device,
-                               solver=mpm_class(args.device))
-    return sim, scenes.sand_wheel_2d_source
-
-
-def _async_wheel(args):
-    from taichi_mpm_torch import scenes
-
-    return scenes.async_wheel(res=args.res or 128, device=args.device), None
-
-
-def _dense(name, res):
+def _script(name, res=None, source=None, solver=True, **kw):
+    """A runner entry of the scene `name` of ``scenes``: at --res, or its
+    script's default `res` (None: a scene without one), on the runner's
+    solver class (``mpm_class``) where its script takes it, with the
+    frame_update `source` of ``scenes``."""
     def make(args):
         from taichi_mpm_torch import scenes
 
-        kw = {} if res is None else dict(res=args.res or res)
-        return getattr(scenes, name)(device=args.device, solver=mpm_class(args.device),
-                                     **kw), None
+        skw = dict(kw, solver=mpm_class(args.device)) if solver else dict(kw)
+        if res is not None:
+            skw["res"] = args.res or res
+        sim = getattr(scenes, name)(device=args.device, **skw)
+        return sim, None if source is None else getattr(scenes, source)
 
     return make
 
 
-# the scene scripts' counterparts: name -> (args -> (sim, frame_update));
-# the other 3-D scripts and the demos are still to port
-# (ROADMAP.md queue 1, 'scripts')
-SCENES = {"water": _water, "balls": _balls, "sand_paddles": _sand_paddles,
-          "water_wheel": _water_wheel,
-          "colliding_balls_energy": _dense("colliding_balls_energy", 100),
-          "oscillating_jello": _dense("oscillating_jello", 50),
-          "tetris": _dense("tetris", 128), "mpm88": _dense("mpm88", None),
-          "sand_wheel_2d": _sand_wheel_2d, "async_wheel": _async_wheel}
+# the scene scripts' counterparts: name -> (args -> (sim, frame_update)).
+# The timing harnesses of scripts/benchmark (benchmark_3d.py,
+# multichip_scaling.py) come with the port's benchmark
+# (ROADMAP.md queue 1, 'benchmark')
+SCENES = {"water": _script("water_script", 64, solver=False),
+          "balls": _script("async_balls", 64, solver=False),
+          "sand_paddles": _script("sand_paddles", 64, source="sand_paddles_source"),
+          "water_wheel": _script("water_wheel", 64, source="water_wheel_source"),
+          "colliding_balls_energy": _script("colliding_balls_energy", 100),
+          "oscillating_jello": _script("oscillating_jello", 50),
+          "tetris": _script("tetris", 128), "mpm88": _script("mpm88"),
+          "sand_wheel_2d": _script("sand_wheel_2d", 128, source="sand_wheel_2d_source"),
+          "async_wheel": _script("async_wheel", 128, solver=False),
+          "combo": _script("async_combo", 64, solver=False),
+          "sand": _script("async_sand", 64, solver=False),
+          "slope": _script("async_slope", 64, solver=False),
+          "stork": _script("async_stork", 64, solver=False),
+          "banana": _script("banana", 96), "bunny_split": _script("bunny_split", 96),
+          "buoyancy": _script("buoyancy", 64, source="buoyancy_source"),
+          "goo_blocks": _script("goo_blocks", 64), "robot": _script("robot", 64),
+          "robot_reversed": _script("robot", 64, reversed=True),
+          "sand_stir": _script("sand_stir", 64), "sand_sweep": _script("sand_sweep", 64),
+          "sand_layers": _script("sand_layers", 64, solver=False),
+          "colliding_balls_3d_test": _script("colliding_balls_3d", 64, solver=False)}
 # the scenes that print their energy every frame, as their scripts do
 ENERGY_SCENES = ("colliding_balls_energy", "oscillating_jello")
 

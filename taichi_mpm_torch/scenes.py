@@ -28,6 +28,14 @@ mls-mpm88 oracle test. Its 2-D CPIC scenes: ``sand_wheel_2d``
 (``scripts/mls-cpic/sand_wheel_2D.py``, with its source
 ``sand_wheel_2d_source``) and ``async_wheel`` (``scripts/async/wheel.py``).
 
+The other 3-D scene scripts, line for line: ``sand_layers``,
+``colliding_balls_3d``, the adaptive ``async_combo``, ``async_sand``,
+``async_slope`` and ``async_stork``, and the CPIC ``banana``,
+``bunny_split``, ``buoyancy`` (its jets ``buoyancy_source``),
+``goo_blocks``, ``robot`` (``reversed=True``: ``robot_reversed.py``),
+``sand_stir`` and ``sand_sweep``; their scripted motions (``cutter_pos``,
+``rod_pos``, ``blade_pos``) are numpy functions of the float32 time.
+
 The slab frames' small scenes, from the JAX package's tests:
 ``crossing_blob`` and ``dam_frame`` (per-block async on slabs),
 ``spatial_strip`` and ``sharding_cube`` (the dense slab frames),
@@ -41,13 +49,18 @@ solver, with that package's levelset or mesh module.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
 
 from taichi_mpm_torch.core import levelset
 from taichi_mpm_torch.core.adaptive import AsyncMPM
 from taichi_mpm_torch.core.solver import MPM
-from taichi_mpm_torch.rigid.mesh import cylinder_mesh, paddle_wheel_mesh, wheel_mesh_2d
+from taichi_mpm_torch.rigid.mesh import (box_mesh, cylinder_mesh, paddle_wheel_mesh, plate_mesh,
+                                         sphere_mesh, wheel_mesh_2d)
 from taichi_mpm_torch.sampling import poisson, texture
+from taichi_mpm_torch.utils import const
 
 
 def cube_lattice(cells_per_side: int, dx: float, origin, ppc_axis: int = 2,
@@ -481,6 +494,374 @@ def async_wheel(res: int = 128, device=None) -> AsyncMPM:
                              capacity=100_000, device=device))
     sim.add_particles("sand", density=2000, friction_angle=35.0,
                       density_tex=texture.box((0.44, 0.62), (0.56, 0.82)) * 6)
+    return sim
+
+
+# -- the other 3-D scene scripts, line for line. Their callables are numpy
+# functions of the float32 time the rigid advance passes (the scripted
+# motions) or torch functions of the node positions (the colliders). ------------------
+
+
+def layer_cohesion(p):
+    """``scripts/sand_layers.py``'s cohesion texture: four horizontal
+    bands from y = 0.1, 0.1125 thick, alternating loose (1e-4) and
+    strongly cohesive (4e-2)."""
+    band = np.floor((p[..., 1] - 0.1) / 0.1125).astype(np.int32)
+    return np.where(band % 2 == 0, 1e-4, 4e-2)
+
+
+def sand_layers(res: int = 64, device=None, solver=MPM) -> MPM:
+    """``scripts/sand_layers.py`` line for line: res^3, dt 2e-4, frame_dt
+    0.01, gravity -9.8; a floor at y = 0.1 with friction 0.4; a sand column
+    (density 2000, friction angle 35) Poisson-seeded from box((0.42, 0.1,
+    0.42), (0.58, 0.55, 0.58)) * 8, each particle's cohesion from
+    ``layer_cohesion`` at its seed. Runs on the card unless `device` names
+    another."""
+    sim = solver(res=(res, res, res), base_delta_t=2e-4, frame_dt=0.01, gravity=(0, -9.8, 0),
+                 device=device)
+    sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 1] - 0.1, friction=0.4))
+    col = texture.box((0.42, 0.1, 0.42), (0.58, 0.55, 0.58)) * 8
+    sim.add_particles("sand", density=2000, friction_angle=35.0, density_tex=col,
+                      cohesion_tex=layer_cohesion)
+    return sim
+
+
+def colliding_balls_3d(res: int = 64, device=None, solver=MPM) -> MPM:
+    """``scripts/benchmark/colliding_balls_3d_test.py`` line for line:
+    res^3, dt 1e-4, frame_dt 0.01, gravity -10; a floor at y = 0.08 with
+    friction 0.2; two jelly balls (radius 0.08 at x = 0.3 and 0.7, y 0.4,
+    Poisson-seeded at density 8, density 400, E 2e4, nu 0.35) meeting at 1
+    m/s each. Runs on the card unless `device` names another."""
+    sim = solver(res=(res, res, res), base_delta_t=1e-4, frame_dt=0.01, device=device)
+    sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 1] - 0.08, friction=0.2))
+    for cx, vx in ((0.3, 1.0), (0.7, -1.0)):
+        tex = texture.sphere((cx, 0.4, 0.5), 0.08) * 8
+        sim.add_particles("jelly", density=400, density_tex=tex, vel=(vx, 0, 0), E=2e4, nu=0.35)
+    return sim
+
+
+def async_combo(res: int = 64, device=None, solver=AsyncMPM) -> AsyncMPM:
+    """``scripts/async/combo.py`` line for line: AsyncMPM(res^3,
+    base_delta_t=1e-3, frame_dt=0.01, unit_delta_t=1e-6); a floor at y =
+    0.1 with friction 0.3; three balls of radius 0.07 Poisson-seeded at
+    density 6: snow (density 400, E 1.4e5, nu 0.2) at (0.3, 0.6, 0.5),
+    visco (density 800, E 5e3, nu 0.4) at (0.5, 0.75, 0.5) and sand
+    (density 2000, friction angle 35) at (0.7, 0.6, 0.5). Runs on the card
+    unless `device` names another."""
+    sim = solver(res=(res, res, res), base_delta_t=1e-3, frame_dt=0.01, unit_delta_t=1e-6,
+                 device=device)
+    sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 1] - 0.1, friction=0.3))
+    sim.add_particles("snow", density=400, E=1.4e5, nu=0.2,
+                      density_tex=texture.sphere((0.3, 0.6, 0.5), 0.07) * 6)
+    sim.add_particles("visco", density=800, E=5e3, nu=0.4,
+                      density_tex=texture.sphere((0.5, 0.75, 0.5), 0.07) * 6)
+    sim.add_particles("sand", density=2000, friction_angle=35.0,
+                      density_tex=texture.sphere((0.7, 0.6, 0.5), 0.07) * 6)
+    return sim
+
+
+def async_sand(res: int = 64, device=None, solver=AsyncMPM) -> AsyncMPM:
+    """``scripts/async/sand.py`` line for line (``sand_column`` is its
+    lattice-seeded cell): AsyncMPM(res^3, base_delta_t=1e-3,
+    frame_dt=0.01, unit_delta_t=1e-6); a floor at y = 0.1 with friction
+    0.4; sand (density 2000, friction angle 35) Poisson-seeded from
+    box((0.45, 0.1, 0.45), (0.55, 0.5, 0.55)) * 8. Runs on the card unless
+    `device` names another."""
+    sim = solver(res=(res, res, res), base_delta_t=1e-3, frame_dt=0.01, unit_delta_t=1e-6,
+                 device=device)
+    sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 1] - 0.1, friction=0.4))
+    col = texture.box((0.45, 0.1, 0.45), (0.55, 0.5, 0.55)) * 8
+    sim.add_particles("sand", density=2000, friction_angle=35.0, density_tex=col)
+    return sim
+
+
+# scripts/async/slope.py's slope normal, normalized in float64 as the script does
+SLOPE_NORMAL = np.array([0.4, 1.0, 0.0]) / np.linalg.norm(np.array([0.4, 1.0, 0.0]))
+
+
+def async_slope(res: int = 64, device=None, solver=AsyncMPM) -> AsyncMPM:
+    """``scripts/async/slope.py`` line for line: AsyncMPM(res^3,
+    base_delta_t=1e-3, frame_dt=0.01, unit_delta_t=1e-6); the slope
+    x n0 + y n1 = 0.35 (n = (0.4, 1, 0) normalized) with friction 0.25;
+    snow (density 400, E 1.4e5, nu 0.2) Poisson-seeded from
+    sphere((0.3, 0.65, 0.5), 0.08) * 6. Runs on the card unless `device`
+    names another."""
+    n = SLOPE_NORMAL
+    sim = solver(res=(res, res, res), base_delta_t=1e-3, frame_dt=0.01, unit_delta_t=1e-6,
+                 device=device)
+    sim.add_collider(levelset.Collider(
+        sdf=lambda x, t: x[..., 0] * n[0] + x[..., 1] * n[1] - 0.35, friction=0.25))
+    blob = texture.sphere((0.3, 0.65, 0.5), 0.08) * 6
+    sim.add_particles("snow", density=400, density_tex=blob, E=1.4e5, nu=0.2)
+    return sim
+
+
+def box_sdf(lo, hi):
+    """The SDF of the solid box [lo, hi] (negative inside), as
+    ``scripts/async/stork.py``'s ``_box_sdf``: |x - c| - h, the norm of its
+    positive part outside, its largest component inside."""
+    lo, hi = np.asarray(lo), np.asarray(hi)
+    c = ((lo + hi) / 2.0).tolist()
+    h = ((hi - lo) / 2.0).tolist()
+
+    def sdf(x, t):
+        q = torch.abs(x - const(c, device=x.device)) - const(h, device=x.device)
+        outside = torch.linalg.vector_norm(torch.clamp(q, min=0.0), dim=-1)
+        inside = torch.clamp(torch.amax(q, dim=-1), max=0.0)
+        return outside + inside
+
+    return sdf
+
+
+STORK_SPEED = 4.0  # the head's nod: it moves down at STORK_SPEED / 4 m/s
+
+
+def async_stork(res: int = 64, device=None, solver=AsyncMPM) -> AsyncMPM:
+    """``scripts/async/stork.py`` line for line: AsyncMPM(res^3,
+    base_delta_t=8e-4, frame_dt=0.01, unit_delta_t=1e-6,
+    strength_dt_mul=0.8), no gravity; the sticky pedestal box (0.5, 0.1,
+    0.3)-(0.7, 0.35, 0.7) (``box_sdf``, friction -1); five elastic parts
+    (density 10, nu 0.3) Poisson-seeded at density 10: legs E 4e5, body
+    4e3, shoulder joint 2e4, neck 4e3, and the head 4e3 moving down at 1
+    m/s. Runs on the card unless `device` names another."""
+    sim = solver(res=(res, res, res), base_delta_t=8e-4, frame_dt=0.01, unit_delta_t=1e-6,
+                 strength_dt_mul=0.8, gravity=(0.0, 0.0, 0.0), device=device)
+    sim.add_collider(levelset.Collider(sdf=box_sdf((0.5, 0.1, 0.3), (0.7, 0.35, 0.7)),
+                                       friction=-1.0))
+    legs = texture.box((0.585, 0.32, 0.48), (0.615, 0.5, 0.52)) * 10
+    body = texture.sphere((0.6, 0.52, 0.5), 0.055) * 10
+    joint = texture.sphere((0.56, 0.56, 0.5), 0.03) * 10
+    neck = texture.box((0.47, 0.56, 0.485), (0.56, 0.60, 0.515)) * 10
+    head = texture.sphere((0.46, 0.62, 0.5), 0.035) * 10
+    sim.add_particles("elastic", density=10, E=4e5, nu=0.3, density_tex=legs)
+    sim.add_particles("elastic", density=10, E=4e3, nu=0.3, density_tex=body)
+    sim.add_particles("elastic", density=10, E=2e4, nu=0.3, density_tex=joint)
+    sim.add_particles("elastic", density=10, E=4e3, nu=0.3, density_tex=neck)
+    sim.add_particles("elastic", density=10, E=4e3, nu=0.3, vel=(0.0, -0.25 * STORK_SPEED, 0.0),
+                      density_tex=head)
+    return sim
+
+
+# scripts/mls-cpic/banana.py's zig-zag cutter: down, sideways, up, sideways
+CUTTER_LENGTH, CUTTER_WIDTH = 0.20, 0.03
+CUTTER_X, CUTTER_Y, CUTTER_Z, CUTTER_SPEED = 0.6, 0.67, 0.5, 0.5
+CUTTER_PERIOD = (2 * CUTTER_LENGTH + 3 * CUTTER_WIDTH) / CUTTER_SPEED
+
+
+def cutter_pos(t):
+    """``banana.py``'s ``cutter_pos`` on a float32 time, in float32 (the
+    script's Python constants round to float32 where they meet t, as
+    JAX's weak types do)."""
+    f = np.float32
+    length, width = CUTTER_LENGTH, CUTTER_WIDTH
+    t = f(t)
+    i = np.floor(t / f(CUTTER_PERIOD))
+    dis = f(CUTTER_SPEED) * (t - f(CUTTER_PERIOD) * i)
+    x0 = f(CUTTER_X) - f(width) * i
+    if dis < f(length):
+        return (x0, f(CUTTER_Y) - dis, CUTTER_Z)
+    if dis < f(length + width):
+        return (x0 + (dis - f(length)), f(CUTTER_Y - length), CUTTER_Z)
+    if dis < f(2 * length + width):
+        return (x0 + f(width), f(CUTTER_Y) - (f(2 * length + width) - dis), CUTTER_Z)
+    return (x0 + f(width) - (dis - f(2 * length + width)) * f(0.0), f(CUTTER_Y), CUTTER_Z)
+
+
+def banana(res: int = 96, device=None, solver=MPM) -> MPM:
+    """``scripts/mls-cpic/banana.py`` line for line: res^3, dt 5e-5,
+    frame_dt 0.01, penalty 1e3, cfl 0.5, rpic_damping 1; sticky floors at
+    y = 0.42 and x = 0.16; a von Mises ellipsoid (``sphere_mesh`` scaled
+    to (0.16, 0.05, 0.07) at (0.5, 0.47, 0.5), density 8, density 400,
+    E 4e5, nu 0.4, yield stress 5) cut by a codimensional sticky plate
+    (half size 0.1, normal x) moved by ``cutter_pos``, its rotation
+    scripted at zero. `solver` is the class (the runner's ``mpm_class``).
+    Runs on the card unless `device` names another."""
+    sim = solver(res=(res, res, res), base_delta_t=5e-5, frame_dt=0.01, penalty=1e3, cfl=0.5,
+                 rpic_damping=1.0, device=device)
+    sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 1] - 0.42, friction=-1.0))
+    sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 0] - 0.16, friction=-1.0))
+    tex = texture.mesh(sphere_mesh(1.0, subdiv=2), translate=(0.5, 0.47, 0.5),
+                       scale=(0.16, 0.05, 0.07)) * 8
+    sim.add_particles("von_mises", density=400, density_tex=tex, E=4e5, nu=0.4, yield_stress=5.0)
+    sim.add_particles("rigid", mesh=plate_mesh(half_u=0.1, half_v=0.1, axis=0),
+                      codimensional=True, friction=-1.0, scripted_position=cutter_pos,
+                      scripted_rotation=lambda t: (0.0, 0.0, 0.0))
+    return sim
+
+
+def bunny_split(res: int = 96, device=None, solver=MPM) -> MPM:
+    """``scripts/mls-cpic/bunny_split.py`` line for line: res^3, dt 5e-5,
+    frame_dt 0.01, penalty 1e3; a floor at y = 0.1 with friction 0.2; a
+    jelly ball (radius 0.12 at (0.5, 0.6, 0.5), density 8, density 400, E
+    5e4, nu 0.35) falling on a static frictionless codimensional plate
+    (half size 0.18, normal x) at (0.5, 0.25, 0.5). Runs on the card
+    unless `device` names another."""
+    sim = solver(res=(res, res, res), base_delta_t=5e-5, frame_dt=0.01, penalty=1e3,
+                 device=device)
+    sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 1] - 0.1, friction=0.2))
+    tex = texture.sphere((0.5, 0.6, 0.5), 0.12) * 8
+    sim.add_particles("jelly", density=400, density_tex=tex, E=5e4, nu=0.35)
+    sim.add_particles("rigid", mesh=plate_mesh(half_u=0.18, half_v=0.18, axis=0),
+                      codimensional=True, friction=0.0,
+                      scripted_position=lambda t: (0.5, 0.25, 0.5),
+                      scripted_rotation=lambda t: (0.0, 0.0, 0.0))
+    return sim
+
+
+BUOYANCY_FRICTION = 0.3
+BUOYANCY_JET_TIME = 1.0  # the jets pour while t < 1 s
+BUOYANCY_JETS = tuple(
+    texture.ring((0.33, 0.8), inner=0.0, outer=0.035, axis=2).bound(2, lo, hi) * 8
+    for lo, hi in ((0.41, 0.47), (0.53, 0.59)))
+
+
+def buoyancy(res: int = 64, device=None, solver=MPM) -> MPM:
+    """``scripts/mls-cpic/buoyancy.py`` line for line: res^3, dt 5e-5,
+    frame_dt 0.01, penalty 1e3, pushing force 0, capacity 120,000; the tank
+    ``box_domain`` (0.2, 0.18, 0.35)-(0.8, 0.95, 0.65), friction 0.3; six
+    dynamic cubes (half size 0.018, friction 0.3) in two rows at x = 0.56,
+    density 200, 400, 600 along z; a pool of water (density 1000) from
+    box((0.21, 0.19, 0.36), (0.79, 0.24, 0.64)) * 4. Its jets come from
+    ``buoyancy_source``, the script's ``frame_update``. `solver` is the
+    class (the runner's ``mpm_class``). Runs on the card unless `device`
+    names another."""
+    sim = solver(res=(res, res, res), base_delta_t=5e-5, frame_dt=0.01, penalty=1e3,
+                 pushing_force=0.0, capacity=120_000, device=device)
+    sim.add_collider(levelset.box_domain(lo=(0.2, 0.18, 0.35), hi=(0.8, 0.95, 0.65),
+                                         friction=BUOYANCY_FRICTION))
+    cube = box_mesh((0.018, 0.018, 0.018))
+    for j in range(2):
+        for k in range(3):
+            sim.add_particles("rigid", mesh=cube, density=200.0 * (k + 1),
+                              friction=BUOYANCY_FRICTION, codimensional=False,
+                              initial_position=(0.56, 0.255 + 0.04 * j, 0.44 + 0.04 * k))
+    pool = texture.box((0.21, 0.19, 0.36), (0.79, 0.24, 0.64)) * 4
+    sim.add_particles("water", density=1000, density_tex=pool)
+    return sim
+
+
+def buoyancy_source(s, f):
+    """The jets of ``scripts/mls-cpic/buoyancy.py`` (its ``frame_update``):
+    while t < 1 s, water (density 1000) emitted from two rings at (0.33,
+    0.8), radius 0.035, z in [0.41, 0.47] and [0.53, 0.59], density 8,
+    falling at 2 m/s."""
+    if float(s.t) < BUOYANCY_JET_TIME:
+        for jet in BUOYANCY_JETS:
+            s.add_particles("water", density=1000, density_tex=jet, pd_source=True,
+                            vel=(0, -2.0, 0), delta_t=s.frame_dt)
+
+
+def goo_blocks(res: int = 64, device=None, solver=MPM) -> MPM:
+    """``scripts/mls-cpic/goo_blocks.py`` line for line: res^3, dt 5e-5,
+    frame_dt 0.01, penalty 1e3; a floor at y = 0.1 with friction 0.3; visco
+    goo (density 800, E 5e3, nu 0.4) from box((0.2, 0.1, 0.2), (0.8, 0.35,
+    0.8)) * 4; three dynamic boxes (half size 0.04, density 600, friction
+    0.2) dropped from y = 0.6, 0.7, 0.8. Runs on the card unless `device`
+    names another."""
+    sim = solver(res=(res, res, res), base_delta_t=5e-5, frame_dt=0.01, penalty=1e3,
+                 device=device)
+    sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 1] - 0.1, friction=0.3))
+    goo = texture.box((0.2, 0.1, 0.2), (0.8, 0.35, 0.8)) * 4
+    sim.add_particles("visco", density=800, density_tex=goo, E=5e3, nu=0.4)
+    for k, (cx, cz) in enumerate(((0.35, 0.4), (0.6, 0.55), (0.48, 0.65))):
+        sim.add_particles("rigid", mesh=box_mesh((0.04, 0.04, 0.04)), codimensional=False,
+                          density=600.0, friction=0.2, initial_position=(cx, 0.6 + 0.1 * k, cz))
+    return sim
+
+
+ROBOT_SPIN = 12.0  # rad/s, the steppers' wheel spin (reversed: -12)
+
+
+def robot(res: int = 64, device=None, solver=MPM, reversed: bool = False) -> MPM:
+    """``scripts/mls-cpic/robot.py`` line for line (with `reversed`,
+    ``robot_reversed.py``): res^3, dt 5e-5, frame_dt 0.01, penalty 1e3; a
+    floor at y = 0.12 with friction 0.4; a sand bed (density 2000,
+    friction angle 35) from box((0.1, 0.12, 0.35), (0.9, 0.2, 0.65)) * 4;
+    a dynamic box body (half size (0.08, 0.02, 0.05), density 300,
+    friction 0.3) at (0.35, 0.27, 0.5); two codimensional cylinder wheels
+    (radius 0.045, half height 0.055, 16 sides, axis z, density 50,
+    friction 0.8) at x = 0.29 and 0.41, y 0.24, each joined to the body by
+    a stepper about z at +12 rad/s (reversed: -12), axis length 0.05,
+    penalty 1e3. Runs on the card unless `device` names another."""
+    sim = solver(res=(res, res, res), base_delta_t=5e-5, frame_dt=0.01, penalty=1e3,
+                 device=device)
+    sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 1] - 0.12, friction=0.4))
+    bed = texture.box((0.1, 0.12, 0.35), (0.9, 0.2, 0.65)) * 4
+    sim.add_particles("sand", density=2000, friction_angle=35.0, density_tex=bed)
+    body = sim.add_particles("rigid", mesh=box_mesh((0.08, 0.02, 0.05)), codimensional=False,
+                             density=300.0, friction=0.3, initial_position=(0.35, 0.27, 0.5))
+    spin = -ROBOT_SPIN if reversed else ROBOT_SPIN
+    for dxw in (-0.06, 0.06):
+        w = sim.add_particles(
+            "rigid", mesh=cylinder_mesh(radius=0.045, half_height=0.055, n=16, axis=2),
+            codimensional=True, density=50.0, friction=0.8, initial_position=(0.35 + dxw, 0.24, 0.5))
+        sim.add_articulation("stepper", w, body, axis=(0, 0, 1), angular_velocity=spin,
+                             axis_length=0.05, offset0=(0.0, 0.0, 0.0), penalty=1e3)
+    return sim
+
+
+def fma32(a, b, c):
+    """a b + c of float32 values with one rounding: XLA's CPU code fuses a
+    script's product and sum (0.15 + 0.4 t) into one fused multiply-add
+    (the float64 product of two float32 values is exact)."""
+    return np.float32(np.float64(np.float32(a)) * np.float64(np.float32(b))
+                      + np.float64(np.float32(c)))
+
+
+STIR_OMEGA = 2.0 * math.pi * 0.4  # rad/s, scripts/mls-cpic/sand_stir.py's rod
+
+
+def rod_pos(t):
+    """``sand_stir.py``'s ``rod_pos`` on a float32 time: a circle of radius
+    0.18 about (0.5, 0.5) in x-z at 0.4 turns a second, y 0.22; cos and sin
+    of the float32 angle evaluated in float64 and rounded (the closest
+    match to XLA's float32 ones, ``math.quat.cos_sin``), the rest as
+    ``fma32``."""
+    a = np.float64(np.float32(STIR_OMEGA) * np.float32(t))
+    c, s = np.float32(np.cos(a)), np.float32(np.sin(a))
+    return (fma32(0.18, c, 0.5), 0.22, fma32(0.18, s, 0.5))
+
+
+def sand_stir(res: int = 64, device=None, solver=MPM) -> MPM:
+    """``scripts/mls-cpic/sand_stir.py`` line for line: res^3, dt 5e-5,
+    frame_dt 0.01, penalty 1e3; a floor at y = 0.1 with friction 0.4; a
+    sand bed (density 2000, friction angle 35) from box((0.2, 0.1, 0.2),
+    (0.8, 0.25, 0.8)) * 4; a codimensional rod (cylinder radius 0.02, half
+    height 0.12, 12 sides, axis y, friction 0.4) moved by ``rod_pos``, its
+    rotation scripted at zero. Runs on the card unless `device` names
+    another."""
+    sim = solver(res=(res, res, res), base_delta_t=5e-5, frame_dt=0.01, penalty=1e3,
+                 device=device)
+    sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 1] - 0.1, friction=0.4))
+    bed = texture.box((0.2, 0.1, 0.2), (0.8, 0.25, 0.8)) * 4
+    sim.add_particles("sand", density=2000, friction_angle=35.0, density_tex=bed)
+    sim.add_particles("rigid", mesh=cylinder_mesh(radius=0.02, half_height=0.12, n=12, axis=1),
+                      codimensional=True, friction=0.4, scripted_position=rod_pos,
+                      scripted_rotation=lambda t: (0.0, 0.0, 0.0))
+    return sim
+
+
+def blade_pos(t):
+    """``sand_sweep.py``'s ``blade_pos`` on a float32 time: x = 0.15 +
+    0.4 min(t, 1.2) (``fma32``), y 0.18, z 0.5."""
+    return (fma32(0.4, min(np.float32(t), np.float32(1.2)), 0.15), 0.18, 0.5)
+
+
+def sand_sweep(res: int = 64, device=None, solver=MPM) -> MPM:
+    """``scripts/mls-cpic/sand_sweep.py`` line for line: res^3, dt 5e-5,
+    frame_dt 0.01, penalty 1e3; a floor at y = 0.1 with friction 0.4; a
+    sand pile (density 2000, friction angle 35) from box((0.4, 0.1, 0.35),
+    (0.6, 0.22, 0.65)) * 4; a codimensional blade (plate, half sizes 0.08
+    and 0.15, normal x, friction 0.3) moved by ``blade_pos``, its rotation
+    scripted at zero. Runs on the card unless `device` names another."""
+    sim = solver(res=(res, res, res), base_delta_t=5e-5, frame_dt=0.01, penalty=1e3,
+                 device=device)
+    sim.add_collider(levelset.Collider(sdf=lambda x, t: x[..., 1] - 0.1, friction=0.4))
+    pile = texture.box((0.4, 0.1, 0.35), (0.6, 0.22, 0.65)) * 4
+    sim.add_particles("sand", density=2000, friction_angle=35.0, density_tex=pile)
+    sim.add_particles("rigid", mesh=plate_mesh(half_u=0.08, half_v=0.15, axis=0),
+                      codimensional=True, friction=0.3, scripted_position=blade_pos,
+                      scripted_rotation=lambda t: (0.0, 0.0, 0.0))
     return sim
 
 

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import torch
@@ -714,19 +715,89 @@ def dense_cpic_profile():
     print(table.table(sort_by="self_cpu_time_total", row_limit=15, max_name_column_width=60))
 
 
+# the 2-D CPIC scripts' coupled snapshots: script -> (path, frames of 1e-3 s)
+WHEEL_2D_SNAPSHOTS = {
+    "sand_wheel_2d": ("tests/fixtures/sand_wheel_2d_coupled.npz", 190),
+    "async_wheel": ("tests/fixtures/async_wheel_coupled.npz", 150),
+}
+
+
+def wheel_2d_snapshot(name, frame_dt=1e-3):
+    """``scripts/mls-cpic/sand_wheel_2D.py`` (its source emitting each
+    frame) or ``scripts/async/wheel.py`` on the port (CPU), frames of
+    `frame_dt` until its sand lies on the wheel (WHEEL_2D_SNAPSHOTS),
+    saved as a snapshot. Prints the particles, the grains near the wheel
+    and those with a CPIC state."""
+    from taichi_mpm_torch import scenes
+
+    path, frames = WHEEL_2D_SNAPSHOTS[name]
+    sim = getattr(scenes, name)(device="cpu")
+    sim.frame_dt = frame_dt
+    for f in range(frames):
+        if name == "sand_wheel_2d":
+            scenes.sand_wheel_2d_source(sim, f)
+        sim.step()
+    p = sim.particles
+    print(f"{name}: t={float(sim.t):.4f} particles={sim.particle_count()} "
+          f"near={int(p.near_b.sum())} states={int((p.states != 0).sum())}", flush=True)
+    sim.save(path)
+
+
+def energy_curves(res=40, frames=10):
+    """``scripts/benchmark/colliding_balls_energy.py`` in both packages on
+    the CPU at `res`, `frames` frames (the JAX script built by ``runpy``,
+    its sampler on the shipped tiles; the port's runner scene): each
+    frame's mechanical energy in both, their relative difference, and
+    each curve's drift over frames 7-10 (E at frame 10 against frame 7)."""
+    import runpy
+    import sys
+
+    from taichi_mpm_tpu.sampling import poisson as jpoisson
+    from taichi_mpm_torch import scenes
+    from taichi_mpm_torch.sampling import poisson as tpoisson
+
+    jpoisson._periodic_cache = {d: tpoisson.periodic_tile(d) for d in (2, 3)}
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "scripts/benchmark/colliding_balls_energy.py")
+    argv, sys.argv = sys.argv, [path, "--res", str(res)]
+    try:
+        jsim = runpy.run_path(path, run_name="scene")["sim"]
+    finally:
+        sys.argv = argv
+    tsim = scenes.colliding_balls_energy(res=res, device="cpu")
+    curves = {"jax": [], "port": []}
+    for f in range(frames):
+        for name, sim in (("jax", jsim), ("port", tsim)):
+            sim.step()
+            curves[name].append(float(sim.energy()))
+        j, t = curves["jax"][-1], curves["port"][-1]
+        print(f"frame {f:02d}  E jax {j:.7e}  port {t:.7e}  rel {abs(t - j) / abs(j):.2e}",
+              flush=True)
+    if frames >= 10:
+        for name, c in curves.items():
+            print(f"{name}: E(10) / E(7) - 1 = {c[9] / c[6] - 1:+.4%}", flush=True)
+    return curves
+
+
 if __name__ == "__main__":
     # from the repo's root: PYTHONPATH=. python tests/port/port_helpers.py dense-noise
     import argparse
-    import os
 
     ap = argparse.ArgumentParser(description="the measurements behind the dense path's bounds")
     ap.add_argument("what", choices=("dense-noise", "jax-dense-vs-blocked",
                                      "jax-cpic-dense-vs-blocked", "jax-cpic-unfused-vs-fused",
-                                     "dense-cpic-profile", "hub-wheel-witness", "cos-sin"))
+                                     "dense-cpic-profile", "hub-wheel-witness", "cos-sin",
+                                     "wheel-2d-snapshot", "energy-curves"))
     args = ap.parse_args()
     torch.set_num_threads(1)
     if args.what == "dense-cpic-profile":  # on the card
         dense_cpic_profile()
+    elif args.what == "energy-curves":
+        os.environ.setdefault("JAX_PLATFORMS", "cpu")
+        energy_curves()
+    elif args.what == "wheel-2d-snapshot":
+        for name in WHEEL_2D_SNAPSHOTS:
+            wheel_2d_snapshot(name)
     elif args.what == "dense-noise":
         dense_noise()
     elif args.what == "jax-dense-vs-blocked":

@@ -8,7 +8,8 @@ against the JAX package running the same scripts (``runpy``, their
 ``__main__`` left out): the same particles alive, x 5e-6, v 5e-4, F
 5e-5, states equal, bodies 1e-5 / 1e-6, equal substep counts. A 2-D CPIC
 snapshot saved by each package resumes in the other within the same
-bounds of the run that was not cut. Then tests/test_cpic.py's physical
+bounds of the run that was not cut. Three frames from a snapshot with
+the sand on the wheel hold the coupling there. Then tests/test_cpic.py's physical
 checks of the 2-D scenes on the port alone: particles rest on a thin
 plate, momentum passes both ways, a cutter gives two sides, a scripted
 wheel drags particles.
@@ -25,7 +26,7 @@ import torch
 from taichi_mpm_torch import MPM, scenes
 from taichi_mpm_torch.rigid.mesh import polygon_mesh_2d, segment_mesh_2d, wheel_mesh_2d
 
-from port_helpers import assert_cpic_close
+from port_helpers import WHEEL_2D_SNAPSHOTS, assert_cpic_close
 
 torch.set_num_threads(1)
 
@@ -99,6 +100,35 @@ def test_snapshots_resume_across_packages(pair, tmp_path):
     if pair["jsource"] is not None:
         pair["jsource"](jsim, f)
     jsim.step()
+    assert_cpic_close(jsim.particles, jsim.bodies, tsim.particles, tsim.bodies)
+
+
+COUPLED_FRAMES = 3
+
+
+def test_coupled_frames_match_jax(pair):
+    """Each script from a snapshot with its sand on the wheel (the port's
+    run of the script, frames of 1e-3 s, to 0.19 s or 0.15 s:
+    ``port_helpers.wheel_2d_snapshot``), resumed by both packages (the
+    JAX scene already compiled for such frames) for three coupled frames:
+    the CPIC bounds, with grains near the wheel and acting on it. It runs
+    after the tests above on this pair, which it leaves resumed."""
+    jsim, tsim = pair["jsim"], pair["make"]()
+    tsim.frame_dt = FRAME_DT
+    path, first = WHEEL_2D_SNAPSHOTS[pair["name"]]
+    for sim in (jsim, tsim):
+        sim.load(str(ROOT / path))
+    n = tsim.particles.count()
+    assert tsim.particles.near_b.sum() > 40
+    for f in range(first, first + COUPLED_FRAMES):
+        if pair["source"] is not None:
+            pair["jsource"](jsim, f)
+            pair["source"](tsim, f)
+        jsim.step()
+        tsim.step()
+    assert tsim.particles.count() == int(np.asarray(jsim.particles.active).sum()) == n
+    assert tsim.t == np.float32(jsim.t)
+    assert tsim.particles.near_b.sum() > 40 and (tsim.particles.states != 0).sum() > 100
     assert_cpic_close(jsim.particles, jsim.bodies, tsim.particles, tsim.bodies)
 
 

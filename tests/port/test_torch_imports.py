@@ -34,7 +34,9 @@ def test_port_import_does_not_load_jax():
         "taichi_mpm_torch.core.transfer, taichi_mpm_torch.core.solver, "
         "taichi_mpm_torch.math.kernels, taichi_mpm_torch.core.state, taichi_mpm_torch.config, "
         "taichi_mpm_torch.parallel.comm, taichi_mpm_torch.parallel.spatial, "
-        "taichi_mpm_torch.parallel.spatial_blocked, taichi_mpm_torch.parallel.driver\n"
+        "taichi_mpm_torch.parallel.spatial_blocked, taichi_mpm_torch.parallel.driver, "
+        "taichi_mpm_torch.demos, taichi_mpm_torch.demos.mls_mpm88, "
+        "taichi_mpm_torch.demos.mls_mpm88_explained\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'taichi_mpm_tpu'))]\n"
         "assert not bad, bad\n"
