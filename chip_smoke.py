@@ -6,7 +6,16 @@ CUDA toolkit:
 
     python3 chip_smoke.py
 
-Phases, each printed as one JSON line:
+The run has two blocks. The check block runs every phase that times
+nothing (``CHECK_PHASES``: the card held to the CPU and to the kernels'
+twins, the slab and pencil checks with the ranks they spawn) in
+CHECK_LANES spawned processes at once, each phase's lines printed when
+the block ends, while this process warms the CPIC wheel and the balls
+for the timed paths (``cpic_warm_snapshot``, ``balls_snapshot``), then
+runs the short checks itself (``PARENT_CHECK_PHASES``), and the rank
+groups of the timed rank paths start up (``RankGroup``). The
+timed block then runs every phase that times something, one at a time,
+alone on the card. Phases, each printed as one JSON line:
 
 1. ``card``: the card's name and power limit (nvidia-smi), then ``build``:
    the CUDA kernels compiled from ``taichi_mpm_torch/csrc``, one library
@@ -36,7 +45,12 @@ Phases, each printed as one JSON line:
    rounding of its knife edges (``diagnostics.sand_knife_edges``), two
    launches bit-identical, inactive lanes untouched, and on the unsorted
    lanes the bits of the sorted run, permuted; with the share of lanes
-   that gathered from shared memory.
+   that gathered from shared memory. ``body_totals_check``: the kernel
+   ``body_totals`` (``csrc/body_totals.cu``, the dense CPIC path's body
+   impulse totals in particle order) against its twin on the CPU, in
+   bits, on its edge inputs (``diagnostics.body_totals_edge_inputs``) and
+   on the addends of both 2-D scripts' coupled substeps; two launches
+   equal in bits.
 2. ``cube25``: ``benchmark_cube(cells=25)`` (125k jelly particles), one
    frame of 6 substeps on the card and the same frame on the CPU (the
    kernels' plain twins), held to x 5e-6, v 5e-5, F 5e-6, C 5e-4, aux 5e-6
@@ -60,7 +74,8 @@ Phases, each printed as one JSON line:
    spread around 1, so that the equation-of-state force and the return
    map are far from rest; then on that state with every other lane jelly,
    through the kernels compiled for a scene of both materials.
-   ``materials25``: for each of the six other materials, the set of
+   ``materials25`` (two lines, each half of the sets): for each of the
+   six other materials, the set of
    ``scripts/async/combo.py`` (snow, visco, sand) and all eight (dealt over
    the cube's lattice in turn), one 6-substep frame of the 125k cube on
    the card against the CPU's and the unfused card frame, at the bounds of
@@ -96,7 +111,8 @@ Phases, each printed as one JSON line:
    one adaptive frame of 5e-4 s on the card on each route and on the CPU:
    equal substep counts, the bounds of phase 2. ``dam``: the dam at res
    128 (1,410,048 water particles), a warm-up frame and 3 timed frames of
-   0.01 s on each route; per frame its substeps, smallest and largest dt,
+   0.01 s on the fused route, one on the unfused; per frame its substeps,
+   smallest and largest dt,
    ms per substep, host syncs per substep and the update counter; after
    the fused frames, the four kernels' CUDA-event times on the dam's
    state and ``g2p_fused``'s staged share there.
@@ -113,10 +129,12 @@ Phases, each printed as one JSON line:
    with equal substep counts.
 9. ``cpic_path``: ``scenes.cpic_wheel()`` (100,000 water particles over a
    hub and a 6-paddle wheel joined by a rotation articulation, res 96),
-   frames of 20 substeps: every launch count set to 0, warm-up frames
-   until the water has reached the wheel, then timed frames, the counts
-   read right after. Each kernel of the path must have launched once per
-   substep; all 100,000 particles active, finite and in the domain; the
+   frames of 20 substeps: 50 warm-up frames, until the water has reached
+   the wheel, in the check block (their launches counted there), saved;
+   then, resumed from that state, every launch count set to 0, a frame
+   and 5 timed frames, the counts read right after. Each kernel of the
+   path must have launched once per substep, in the warm-up frames too;
+   all 100,000 particles active, finite and in the domain; the
    wheel must turn (omega_z != 0). Then the kernel checks of phase 2 on
    the wheel's state, stirred with aux spread around 1: the P2G kernel's
    water branch and the gather-only G2P at the shapes this path gives
@@ -125,18 +143,18 @@ Phases, each printed as one JSON line:
    page map's occupancy against its capacity Kr. ``cpic_breakdown``:
    CUDA-event time of each stage of a
    coupled substep, per substep over one frame; ``cpic_profile``: the
-   idle share of one frame.
+   idle share of one frame of 5 substeps.
 10. ``cpic_adaptive``: the wheel's 100k water and
    bodies through ``AsyncMPM`` on the fused route, the water placed on
    the paddles as in ``cpic_check`` (from the default placement it would
    take ~2,800 adaptive substeps to reach the wheel): a warm-up frame and
-   3 timed frames of 2e-3 s, with their substeps, ms and host syncs per
+   a timed frame of 2e-3 s, with their substeps, ms and host syncs per
    substep, which must not exceed the fixed-dt frames'. Each kernel of
    an adaptive path must have launched once per substep, no other.
 11. ``script_dam``: ``scripts/async/water.py`` at res 128 through the
    port's runner (``scenes.water_script``, ``runner.simulate``): seeded
    from its texture (1,056,758 particles, bit for bit the CPU's seeding),
-   a warm-up frame and 3 timed frames of 0.01 s, a verbose BGEO every
+   a warm-up frame and 2 timed frames of 0.01 s, a verbose BGEO every
    frame into a temporary directory, a snapshot after frame 1, the energy
    every frame: ``p2g_fused`` and ``g2p_fused`` once per substep, all
    particles active, finite and in the domain, the last BGEO read back
@@ -148,10 +166,12 @@ Phases, each printed as one JSON line:
    substeps, and the scene copied at the snapshot steps it within the
    bounds of phase 2 (particles matched by an index tag in a parameter
    slot no material reads) with the same substeps; the same on the 125k
-   jelly cube over 6 substeps at fixed dt. ``energy_check``: each
-   material's 125k cube, ``energy()`` of the card's frame against the
-   CPU's, and of the card's state stirred against that state on the
-   CPU, within 1e-5 of the sum of the terms' magnitudes.
+   jelly cube over 6 substeps at fixed dt. ``energy_check`` (two lines,
+   after each ``materials25`` line, whose frames of the single-material
+   cubes it reuses): each material's 125k cube, ``energy()`` of the
+   card's frame against the CPU's, and of the card's state stirred
+   against that state on the CPU, within 1e-5 of the sum of the terms'
+   magnitudes.
    ``emission_check``: ``scripts/mls-cpic/sand_paddles.py`` at res 64
    (two scripted paddle wheels, capacity 50,000, the sand source every
    frame), 3 frames of 1e-3 s on the card and on the CPU: equal emitted
@@ -189,7 +209,8 @@ Phases, each printed as one JSON line:
    fused route's ms per substep of ``main_path``, the memory peak and the
    stages' CUDA-event ms.
 13. The dense CPIC path (``rigid/cpic.py``: the coloured transfers over the
-   dense grid CDF, 2-D bodies; no kernel, each phase checks that).
+   dense grid CDF, 2-D bodies; its one kernel is ``body_totals``, twice a
+   substep, and each phase checks that it launches no other).
    ``dense_cpic_check``: tests/test_cpic.py's 2-D plate,
    ``scripts/async/wheel.py`` and ``scripts/mls-cpic/sand_wheel_2D.py``
    at res 128 and the 10k wheel of ``cpic_check`` with optimized=False,
@@ -198,12 +219,21 @@ Phases, each printed as one JSON line:
    10k wheel's 4 substeps on the dense and the fused CPIC frame on the
    card, at tests/test_cpic.py's oracle-vs-blocked bounds, beside the JAX
    package's own pair (``JAX_CPIC_PAIR``). ``wheel_2d_path``: both 2-D
-   scripts through ``runner.simulate`` at res 128 (ms per substep,
-   particle-steps/s, host syncs, substeps and dt range, the wheel's
-   omega). ``dense_cpic_scale``: the 100k CPIC wheel with
-   optimized=False, a 20-substep frame beside the fused CPIC frame's ms
-   per substep of ``cpic_path``, the memory peak and the stages'
-   CUDA-event ms.
+   scripts through ``runner.simulate`` at res 128, resumed from their
+   coupled snapshots (``WHEEL_2D_SNAPSHOTS``, the sand on the wheel) in
+   0.01 s frames (ms per substep, particle-steps/s, host syncs, substeps
+   and dt range, the wheel's omega, which must be finite and nonzero with
+   sand near the wheel). ``wheel_2d_coupled``: both scripts from those
+   snapshots, three 1e-3 s frames on the card against the CPU at the CPIC
+   and body bounds, a rerun in bits; then each substep of the first frame
+   from the CPU's state, stage by stage
+   (``diagnostics.coupled_stage_partings``), gated (``stage_failures``).
+   ``dense_cpic_scale``: the 100k CPIC wheel with optimized=False, a
+   20-substep frame beside the fused CPIC frame's ms per substep of
+   ``cpic_path``, the memory peak and the stages' CUDA-event ms, and
+   ``body_totals`` timed on a substep's P2G totals of that state and of
+   ``cpic_path``'s snapshot, beside its twin, ``index_add_`` and its
+   bound.
 14. The slabs (``DistributedMPM`` over ``torch.distributed``; the script
    needs one GPU, so its ranks share it and nothing here is a scaling
    number). ``dist_check``: the 125k cube (``benchmark_cube(cells=25,
@@ -218,7 +248,7 @@ Phases, each printed as one JSON line:
    migrants both ways and a balanced bound moved, the two default runs
    equal in bits. ``dist_path``: the 8M jelly cube at res 128 (125 does
    not divide into slab blocks) on two ranks sharing the card, fused and
-   balanced, a warm-up and 2 timed frames of 20 substeps: ms and host
+   balanced, a warm-up and a timed frame of 20 substeps: ms and host
    syncs (``utils.HostSyncs``) per substep, re-sorts, migrants and
    bounds, each kernel once per substep per rank; one frame under
    torch's sync debug mode, whose warnings count every synchronizing
@@ -245,7 +275,7 @@ Phases, each printed as one JSON line:
    near sets used, the default runs equal in bits. ``dist_cpic_path``:
    the 100k CPIC wheel (``scenes.cpic_wheel()``) from phase 9's state
    (its snapshot: the water on the wheel) on two ranks sharing the card,
-   fused and balanced, 1 + 2 frames of 20 substeps, both ranks' near
+   fused and balanced, 1 + 1 frames of 20 substeps, both ranks' near
    sets used: ms and host
    syncs per substep per rank (``HostSyncs`` and torch's own count), the
    exchange's, the impulse all-reduces' and the migration's ms per
@@ -285,12 +315,19 @@ Phases, each printed as one JSON line:
    CPIC bounds, a rerun in bits; robot and sand_layers also on
    TMT_FUSED=0, so that all four kernels launch. ``scripts_path``: each
    through ``runner.main`` at its own res, a warm-up frame and a timed
-   frame (the CPIC scripts' cut to 20 substeps): ms and host syncs per
+   frame (the CPIC scripts' cut to 10 substeps): ms and host syncs per
    substep of the timed frame, sorts, the bodies of robot and buoyancy. ``demo_mpm88``: both
    torch demos, one frame on the card against the CPU and a rerun in
    bits.
    Then
-   ``timing``: the seconds of these phases and of the whole script.
+   ``timing``: the seconds of the check block, of the timed block and of
+   the whole script.
+
+Every phase line ends with ``elapsed_s`` (seconds since the start),
+``phase_s`` (the phase's wall seconds), ``cpu_reference_s`` (of which
+CPU reference frames) and ``ranks_s`` and ``rank_spawns`` (spawned rank
+groups); ``rank_startup`` measures what a spawned group of 2 and of 4
+ranks costs before it works.
 
 Then the ``kernels`` line: per kernel its launches on each path (the
 slab and pencil phases' per rank: summed over ``dist_check``'s,
@@ -315,6 +352,9 @@ each other material the package runs), and their CUDA-event times on the
 8M jelly cube and the 1.4M adaptive dam, each after one frame. Run it on two
 trees in one call (parent, change, change, parent) to show that a change
 kept the kernels' bits and to time both on one card.
+``python3 chip_smoke.py --dense-cpic-tree [DIR]`` times the dense 100k
+CPIC wheel of the package under DIR (``dense_cpic_tree``), to compare two
+trees' dense CPIC substep the same way.
 """
 
 from __future__ import annotations
@@ -335,7 +375,10 @@ N_TIMED_FRAMES_UNFUSED = 5
 SUBSTEPS_PER_FRAME = 20
 CPIC_WARM_FRAMES = 50  # 1000 substeps: the water falls onto the wheel
 CPIC_TIMED_FRAMES = 5
+CPIC_PROFILE_SUBSTEPS = 5  # the profiled CPIC frame (cpic_profile)
 ADAPTIVE_TIMED_FRAMES = 3  # after one warm-up frame
+DAM_UNFUSED_TIMED_FRAMES = 1  # the unfused dam's, after one warm-up frame
+CPIC_ADAPTIVE_TIMED_FRAMES = 1  # after one warm-up frame
 N_SAND_FRAMES = 5  # timed frames of the 8M sand cube, after one warm-up frame
 
 # float32 operations per particle, counted from the kernels' formulas (an
@@ -415,13 +458,14 @@ def material_rows(st, lanes, table, read=True):
 
 
 def counters():
-    from taichi_mpm_torch.ops import g2p, p2g
+    from taichi_mpm_torch.ops import body_sums, g2p, p2g
 
     return {"p2g_fused": p2g.stats, "g2p_fused": g2p.stats, "g2p_blocked": g2p.blocked_stats,
-            "p2g_blocked": p2g.blocked_stats}
+            "p2g_blocked": p2g.blocked_stats, "body_totals": body_sums.stats}
 
 
 ROUTE_KERNELS = {True: ("p2g_fused", "g2p_fused"), False: ("p2g_blocked", "g2p_blocked")}
+TRANSFER_KERNELS = ("p2g_fused", "g2p_fused", "p2g_blocked", "g2p_blocked")
 
 
 def route_failures(launches, fused, substeps, kernels=None):
@@ -455,15 +499,226 @@ def read_counts():
     return {name: c.launches for name, c in counters().items()}
 
 
-T_START = time.perf_counter()
+T_START = time.time()  # the run's start; a check lane is given the parent's
+# what the phase now running has spent so far: the seconds of scene frames
+# on the CPU (the references the card's frames are held to) and of rank
+# groups, and the groups spawned for it; read and reset by each phase line
+PHASE_CLOCK = dict(start=time.perf_counter(), cpu_reference_s=0.0, ranks_s=0.0, rank_spawns=0)
+LINES = None  # a check lane keeps its phase lines here for the parent to print
 
 
 def emit(obj):
     """One JSON line; a phase's line also says when it ended, in seconds
-    since the script started."""
+    since the script started, and what the phase took: its wall seconds
+    since the line before in its process (``phase_s``), of which CPU
+    reference frames (``cpu_reference_s``) and rank groups (``ranks_s``,
+    with ``rank_spawns``, the groups spawned for it)."""
     if "phase" in obj:
-        obj = dict(obj, elapsed_s=time.perf_counter() - T_START)
-    print(json.dumps(obj), flush=True)
+        now = time.perf_counter()
+        obj = dict(obj, elapsed_s=time.time() - T_START, phase_s=now - PHASE_CLOCK["start"],
+                   **{k: obj.get(k, PHASE_CLOCK[k])
+                      for k in ("cpu_reference_s", "ranks_s", "rank_spawns")})
+        PHASE_CLOCK.update(start=now, cpu_reference_s=0.0, ranks_s=0.0, rank_spawns=0)
+    if LINES is not None:
+        LINES.append(json.dumps(obj))
+    else:
+        print(json.dumps(obj), flush=True)
+
+
+def clock_cpu_frames():
+    """Count into PHASE_CLOCK every frame a scene steps on the CPU (the
+    solvers' ``step``, the outermost call only)."""
+    import functools
+
+    from taichi_mpm_torch import MPM
+    from taichi_mpm_torch.core.adaptive import AsyncMPM
+    from taichi_mpm_torch.parallel.driver import DistributedAsyncMPM, DistributedMPM
+
+    depth = [0]
+
+    def timed_step(step):
+        @functools.wraps(step)
+        def wrapper(self, *args, **kw):
+            if depth[0] or self.device.type != "cpu":
+                return step(self, *args, **kw)
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return step(self, *args, **kw)
+            finally:
+                depth[0] -= 1
+                PHASE_CLOCK["cpu_reference_s"] += time.perf_counter() - t0
+        return wrapper
+
+    for cls in (MPM, AsyncMPM, DistributedMPM, DistributedAsyncMPM):
+        if "step" in vars(cls):
+            cls.step = timed_step(vars(cls)["step"])
+
+
+# -- rank groups and check lanes: what runs beside the parent ---------------------------
+
+DIST_TIMEOUT_S = 600  # a rank group's task, or a spawned group's run
+RANK_GROUPS = {}  # world -> RankGroup, in the parent while its timed rank paths run
+RANK_GROUP_TIMEOUT_S = 3000  # a group lives from the check block to the end of the run
+
+
+def rank_server(tasks, results):
+    """A rank of a RankGroup: runs each task that arrives on its queue (the
+    name of a function of this module and its arguments), puts (rank,
+    result, traceback) on `results`, and returns at None."""
+    import traceback
+
+    import torch
+
+    from taichi_mpm_torch.parallel import comm
+
+    r = comm.rank()
+    while True:
+        task = tasks[r].get()
+        if task is None:
+            return None
+        name, args = task
+        try:
+            results.put((r, globals()[name](*args), None))
+        except Exception:  # reported to the parent, which raises it
+            results.put((r, None, traceback.format_exc()))
+        torch.cuda.empty_cache()
+
+
+class RankGroup:
+    """`world` gloo ranks sharing the card, spawned once (``comm.run_ranks``
+    of ``rank_server`` in a thread) and kept until ``close``: ``run(fn,
+    *args)`` runs fn(*args) on every rank, as ``comm.run_ranks`` would,
+    without a spawn and a start-up each time. A rank that fails, dies or
+    outlives the timeout raises in ``run``."""
+
+    def __init__(self, world):
+        import multiprocessing as mp
+        import threading
+
+        from taichi_mpm_torch.parallel import comm
+
+        ctx = mp.get_context("spawn")
+        self.world, self.error = world, None
+        self.tasks = [ctx.Queue() for _ in range(world)]
+        self.results = ctx.Queue()
+
+        def serve():
+            try:
+                comm.run_ranks(rank_server, world, "gloo", args=(self.tasks, self.results),
+                               timeout_s=RANK_GROUP_TIMEOUT_S)
+            except Exception as e:  # raised in run, by the thread that waits
+                self.error = e
+            self.results.put(None)
+
+        self.thread = threading.Thread(target=serve, daemon=True)
+        self.thread.start()
+
+    def run(self, fn, *args, timeout_s=DIST_TIMEOUT_S):
+        import queue
+
+        for q in self.tasks:
+            q.put((fn.__name__, args))
+        out, deadline = {}, time.monotonic() + timeout_s
+        while len(out) < self.world:
+            try:
+                item = self.results.get(timeout=max(1.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise TimeoutError(f"{fn.__name__}: ranks {sorted(set(range(self.world)) - set(out))}"
+                                   f" did not finish within {timeout_s} s") from None
+            if item is None:
+                raise RuntimeError(f"the group of {self.world} ranks ended: {self.error}")
+            r, value, err = item
+            if err is not None:
+                raise RuntimeError(f"{fn.__name__}: rank {r} failed:\n{err}")
+            out[r] = value
+        return [out[r] for r in range(self.world)]
+
+    def close(self):
+        for q in self.tasks:
+            q.put(None)
+        self.thread.join(timeout=120)
+
+
+def ranks_of(fn, world, args=()):
+    """fn(*args) on `world` gloo ranks sharing the card: in this process's
+    open RankGroup of that size, else in ranks spawned for the call
+    (``comm.run_ranks``). Returns the ranks' results in rank order."""
+    from taichi_mpm_torch.parallel import comm
+
+    t0 = time.perf_counter()
+    try:
+        if world in RANK_GROUPS:
+            return RANK_GROUPS[world].run(fn, *args)
+        PHASE_CLOCK["rank_spawns"] += 1
+        return comm.run_ranks(fn, world, "gloo", args=args, timeout_s=DIST_TIMEOUT_S)
+    finally:
+        PHASE_CLOCK["ranks_s"] += time.perf_counter() - t0
+
+
+CHECK_LANES = 4  # processes that run the check block's phases at once
+CHECK_BLOCK_TIMEOUT_S = 900  # the longest wait for a check phase's result
+LANE_THREADS = 2  # torch's CPU threads in each
+
+
+def lane_init(start, threads):
+    """A check lane: the parent's start time, phase lines kept for the
+    parent, `threads` CPU threads, CPU frames counted."""
+    global LINES, T_START
+    import torch
+
+    T_START, LINES = start, []
+    torch.set_num_threads(threads)
+    clock_cpu_frames()
+
+
+def lane_phase(name, args):
+    """phase `name`(*args) in a check lane. Returns its lines, its value
+    and its traceback if it failed."""
+    import traceback
+
+    del LINES[:]
+    PHASE_CLOCK.update(start=time.perf_counter(), cpu_reference_s=0.0, ranks_s=0.0,
+                       rank_spawns=0)
+    try:
+        value, err = globals()[name](*args), None
+    except Exception:  # reported to the parent, which prints the lines and raises
+        value, err = None, traceback.format_exc()
+    return list(LINES), value, err
+
+
+def check_block(tasks, parent_work):
+    """The check block: each phase of `tasks` ((name, args), none timed)
+    in CHECK_LANES processes at once, the longest first, while this
+    process runs parent_work(). Prints each phase's lines in the order of
+    `tasks` and raises if any failed. Returns (the phases' values in the
+    order of `tasks`, parent_work's value)."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(CHECK_LANES, mp_context=mp.get_context("spawn"),
+                               initializer=lane_init, initargs=(T_START, LANE_THREADS))
+    done = False
+    try:
+        futures = [(name, pool.submit(lane_phase, name, args)) for name, args in tasks]
+        mine = parent_work()
+        values, errors = [], []
+        for name, fut in futures:
+            lines, value, err = fut.result(timeout=CHECK_BLOCK_TIMEOUT_S)
+            values.append(value)
+            for line in lines:
+                print(line, flush=True)
+            if err is not None:
+                errors.append(f"{name}:\n{err}")
+        done = True
+    finally:
+        if not done:  # a lane that hangs must not hold the run: stop every lane
+            for proc in list(pool._processes.values()):
+                proc.terminate()
+        pool.shutdown(wait=done, cancel_futures=True)
+    if errors:
+        fail("\n".join(errors))
+    return values, mine
 
 
 def fail(msg):
@@ -954,6 +1209,35 @@ def kernel_tree(root=None):
     emit(dict(out, clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit")))
 
 
+DENSE_CPIC_TREE_FRAMES = 5
+
+
+def dense_cpic_tree(root=None):
+    """The dense 100k CPIC wheel (``scenes.cpic_wheel(optimized=False)``)
+    of the package under `root` (default: this checkout), as phase
+    dense_cpic_scale steps it: a 1-substep warm-up frame, then
+    DENSE_CPIC_TREE_FRAMES frames of DENSE_CPIC_SCALE_SUBSTEPS, the ms per
+    substep of each (host clock, fenced)."""
+    if root is not None:
+        sys.path.insert(0, os.path.abspath(root))
+    import taichi_mpm_torch
+    from taichi_mpm_torch import scenes
+
+    sim = scenes.cpic_wheel(device="cuda", optimized=False)
+    sim._ensure_finalized()
+    sim.step(frame_dt=sim.cfg.base_dt)
+    sim.sync()
+    ms = []
+    for _ in range(DENSE_CPIC_TREE_FRAMES):
+        t0 = time.perf_counter()
+        sim.step(frame_dt=DENSE_CPIC_SCALE_SUBSTEPS * sim.cfg.base_dt)
+        sim.sync()
+        ms.append((time.perf_counter() - t0) * 1e3 / DENSE_CPIC_SCALE_SUBSTEPS)
+    emit(dict(phase="dense_cpic_tree", package=os.path.dirname(taichi_mpm_torch.__file__),
+              ms_per_substep=ms, near_b=int(sim.particles.near_b.sum()),
+              clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit")))
+
+
 # the cubes' material parameters besides the defaults: jelly's of the main
 # path, sand's of the slice's sand cube
 CUBE_KW = {"jelly": dict(E=2e4, nu=0.35), "sand": dict(friction_angle=35.0)}
@@ -1087,19 +1371,23 @@ def set_label(names):
     return names[0] if len(names) == 1 else "all" if len(names) == 8 else "+".join(names)
 
 
-def phase_materials25():
-    """For each set of MATERIAL_SETS25: one 6-substep frame of the 125k
+def phase_materials25(part=0, parts=1):
+    """For each set of MATERIAL_SETS25[part::parts] (the check block runs
+    the sets in two halves at once): one 6-substep frame of the 125k
     cube (benchmark_cube(cells=25), the set's materials dealt over the
     lattice in turn) on the card, each fused kernel launched once per
     substep, held to the same frame on the CPU and to the unfused card
     frame at the cube25 bounds, with plastic events equal but for sand's
     knife edges over the CPU frame; then the four kernels against their
     twins on that state stirred (compare_kernels: bounds, two launches
-    bit-identical)."""
+    bit-identical). A set of one material also gives its energy record
+    (``energy_record``, from the same two frames); then
+    ``phase_energy_check`` of those materials and of this part's share of
+    the materials no set holds alone."""
     from taichi_mpm_torch import diagnostics
 
-    out, failures = {}, []
-    for names in MATERIAL_SETS25:
+    out, failures, energies = {}, [], {}
+    for names in MATERIAL_SETS25[part::parts]:
         label = set_label(names)
         material = names[0] if len(names) == 1 else names
         t0 = time.perf_counter()
@@ -1121,6 +1409,8 @@ def phase_materials25():
                                              plast_slack=slack),
                    unfused_vs_fused=frame_errors(unfused, card, "unfused vs fused card frame",
                                                  f, plast_slack=slack))
+        if len(names) == 1:  # energy_check's frames of this material, the same cubes
+            energies[material] = energy_record(card, cpu, material, [])
         del cpu, unfused
         res["kernels"] = compare_kernels(card, stirred(card.packed_carry[0], aux_sd=0.05), f)
         res["seconds"] = time.perf_counter() - t0
@@ -1129,6 +1419,8 @@ def phase_materials25():
         del card
     emit(dict(phase="materials25", **out, failures=failures))
     raise_failures(failures)
+    alone = [m for m in MATERIALS if (m,) not in MATERIAL_SETS25]
+    phase_energy_check(energies, (*energies, *alone[part::parts]))
 
 
 def as_material(st, name):
@@ -1416,17 +1708,18 @@ def phase_breakdown(sim, card):
               substep_stages_ms=sum(v for k, v in stages.items() if k != "sort_and_map")))
 
 
-def phase_profile(sim, card, phase="profile"):
-    """One frame under torch.profiler: the device's busy time (the sum of
-    its kernels' and copies' times) over the frame's wall time, and the
-    kernels that take the most of it."""
+def phase_profile(sim, card, phase="profile", substeps=None):
+    """One frame (of `substeps`, default the scene's frame) under
+    torch.profiler: the device's busy time (the sum of its kernels' and
+    copies' times) over the frame's wall time, and the kernels that take
+    the most of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.step()
+        sim.step(frame_dt=substeps and substeps * sim.cfg.base_dt)
         sim.sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     on_device = [e for e in prof.key_averages()
@@ -1437,7 +1730,7 @@ def phase_profile(sim, card, phase="profile"):
         by_name[e.key[:80]] = by_name.get(e.key[:80], 0.0) + e.self_device_time_total / 1e3
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
     emit(dict(
-        phase=phase, card=card, frame_wall_ms=wall_ms, device_busy_ms=busy_ms,
+        phase=phase, card=card, substeps=substeps, frame_wall_ms=wall_ms, device_busy_ms=busy_ms,
         idle_share=(1.0 - busy_ms / wall_ms) if busy_ms > 0 else None,
         top_ms_per_frame=top,
     ))
@@ -1518,25 +1811,30 @@ KERNEL_SOURCES = {
     # one kernel for both TPU entry points (p2g_blocked_batched, p2g_blocked)
     "p2g_blocked": ("taichi_mpm_torch/csrc/p2g.cu",
                     "taichi_mpm_tpu/ops/p2g_pallas.py:318, taichi_mpm_tpu/ops/p2g_pallas.py:362"),
+    # replaces no TPU kernel: sums the dense CPIC body totals in the order of
+    # the JAX package's scatter-add (rigid/body.py accumulate_impulses)
+    "body_totals": ("taichi_mpm_torch/csrc/body_totals.cu",
+                    "none (the order of taichi_mpm_tpu/rigid/body.py:141 accumulate_impulses)"),
 }
 
 
 def kernels_line(measured, launches_by_path, dam_ms, by_material):
-    """The kernels line: each kernel's measurements at 8M, its time at
-    the 1.4M dam's state, its launches on each main path (``launches``
-    is their sum), and for the fused kernels their time and bound at the
-    8M state made of each material (``by_material``)."""
+    """The kernels line: each kernel's measurements (the four transfer
+    kernels at 8M, ``body_totals`` at the dense 100k wheel's P2G totals),
+    the transfer kernels' time at the 1.4M dam's state, its launches on
+    each main path (``launches`` is their sum), and for the fused kernels
+    their time and bound at the 8M state made of each material
+    (``by_material``)."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     line = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
-        by_path = {path: counts[name] for path, counts in launches_by_path.items()}
+        by_path = {path: counts.get(name, 0) for path, counts in launches_by_path.items()}
         m = measured[name]
         line.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(by_path.values()), launches_by_path=by_path,
-                         max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"],
-                         bound_ms=m["bound_ms"], bound_by=m["bound_by"], library_ms=None,
-                         dam_ms=dam_ms[name],
-                         bytes=m["bytes"], ops=m["ops"], live_slots=m["live_slots"],
-                         slots=m["slots"], by_material=by_material.get(name)))
+                         **{k: m[k] for k in keys}, library_ms=m.get("library_ms"),
+                         dam_ms=dam_ms.get(name), by_material=by_material.get(name),
+                         **{k: v for k, v in m.items() if k not in keys + ("library_ms",)}))
     return line
 
 
@@ -1619,14 +1917,15 @@ def phase_cpic_check(material="water"):
     raise_failures(failures)
 
 
-def phase_cpic_path(card):
-    """The full CPIC benchmark scene: warm-up frames, timed frames,
-    checks. Returns (sim, launches, host syncs per substep, ms per
-    substep)."""
+def cpic_warm_snapshot(path):
+    """The CPIC benchmark scene (``scenes.cpic_wheel()``, frames of 20
+    substeps) through CPIC_WARM_FRAMES warm-up frames on the card, every
+    launch count set to 0 first, while the water falls onto the wheel;
+    saved to `path` for ``phase_cpic_path``. Returns the seconds, the
+    largest near sets and page map, the substeps and the launches."""
     import torch
 
     from taichi_mpm_torch import scenes
-    from taichi_mpm_torch.utils import HostSyncs
 
     t0 = time.perf_counter()
     sim = scenes.cpic_wheel(device="cuda")
@@ -1634,8 +1933,6 @@ def phase_cpic_path(card):
     sim._ensure_finalized()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-
     zero_counts()
     peak = dict(n_near=0, n_coarse=0, n_r=0)
     t0 = time.perf_counter()
@@ -1644,6 +1941,32 @@ def phase_cpic_path(card):
         peak = {k: max(v, sim.cpic_stats[k]) for k, v in peak.items()}
     sim.sync()
     warm_s = time.perf_counter() - t0
+    sim.save(path)
+    return dict(setup_s=setup_s, warmup_s=warm_s, peak=peak, launches=read_counts(),
+                substeps=CPIC_WARM_FRAMES * SUBSTEPS_PER_FRAME)
+
+
+def phase_cpic_path(card, warm, snapshot):
+    """The full CPIC benchmark scene from its warm-up (``cpic_warm_snapshot``:
+    `warm` its record, `snapshot` its state, the water on the wheel),
+    every launch count set to 0 first: a frame after the resume, then
+    CPIC_TIMED_FRAMES timed frames, and the checks. Returns (sim,
+    launches, host syncs per substep, ms per substep)."""
+    import torch
+
+    from taichi_mpm_torch import scenes
+    from taichi_mpm_torch.utils import HostSyncs
+
+    sim = scenes.cpic_wheel(device="cuda")
+    sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
+    sim.load(snapshot)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_counts()
+    peak = dict(warm["peak"])
+    sim.step()  # the resume's first frame packs and sorts afresh
+    sim.sync()
     HostSyncs.count = 0
     t0 = time.perf_counter()
     for _ in range(CPIC_TIMED_FRAMES):
@@ -1658,7 +1981,9 @@ def phase_cpic_path(card):
     # wheel's state after the timed frames, stirred, with aux spread
     kernel_checks = compare_kernels(sim, stirred(sim.packed_carry[0], aux_sd=0.1), failures)
 
-    substeps = (CPIC_WARM_FRAMES + CPIC_TIMED_FRAMES) * SUBSTEPS_PER_FRAME
+    substeps = (1 + CPIC_TIMED_FRAMES) * SUBSTEPS_PER_FRAME
+    failures += [f"warm-up: {f}" for f in route_failures(warm["launches"], True,
+                                                         warm["substeps"], CPIC_KERNELS)]
     failures += route_failures(launches, True, substeps, CPIC_KERNELS)
     x = check_domain(sim, 100_000, failures)
     n_active = int(x.shape[0])
@@ -1668,15 +1993,17 @@ def phase_cpic_path(card):
     n_timed = CPIC_TIMED_FRAMES * SUBSTEPS_PER_FRAME
     emit(dict(
         phase="cpic_path", card=card, particles=n_active, K=sim.block_capacity,
-        substeps=substeps, timed_substeps=n_timed, ms_per_substep=timed_s * 1e3 / n_timed,
+        substeps=warm["substeps"] + substeps, timed_substeps=n_timed,
+        ms_per_substep=timed_s * 1e3 / n_timed,
         particle_steps_per_s=n_active * n_timed / timed_s,
         host_syncs_per_substep=syncs / n_timed, n_sorts=sim.n_sorts,
         max_n_near=peak["n_near"], max_n_coarse=peak["n_coarse"],
         max_n_r=peak["n_r"], Kr_capacity=sim.cpic_caps.Kr, wheel_omega_z=omega_z,
-        hub_omega_z=float(sim.bodies.omega[1, 2]), warmup_s=warm_s, setup_s=setup_s,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, y_min=float(x[:, 1].min()),
-        launches=launches, kernel_checks=kernel_checks,
-        clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"), failures=failures,
+        hub_omega_z=float(sim.bodies.omega[1, 2]), warmup_s=warm["warmup_s"],
+        setup_s=warm["setup_s"], peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        y_min=float(x[:, 1].min()), warmup_launches=warm["launches"], launches=launches,
+        kernel_checks=kernel_checks, clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"),
+        failures=failures,
     ))
     raise_failures(failures)
     return sim, launches, syncs / n_timed, timed_s * 1e3 / n_timed
@@ -1779,7 +2106,8 @@ def summary(frames, n_particles):
 
 def phase_dam(card, fused):
     """The dam break at res 128 (1,410,048 water particles) on one route:
-    a warm-up frame and ADAPTIVE_TIMED_FRAMES timed frames of 0.01 s."""
+    a warm-up frame and ADAPTIVE_TIMED_FRAMES (fused) or
+    DAM_UNFUSED_TIMED_FRAMES (unfused) timed frames of 0.01 s."""
     import torch
 
     from taichi_mpm_torch import scenes
@@ -1790,7 +2118,8 @@ def phase_dam(card, fused):
     n = int(sim.particles.count())
     setup_s = time.perf_counter() - t0
     zero_counts()
-    frames = adaptive_frames(sim, 1 + ADAPTIVE_TIMED_FRAMES)
+    frames = adaptive_frames(sim, 1 + (ADAPTIVE_TIMED_FRAMES if fused
+                                       else DAM_UNFUSED_TIMED_FRAMES))
     launches = read_counts()
     substeps = sum(f["substeps"] for f in frames)
     failures = route_failures(launches, fused, substeps)
@@ -1816,7 +2145,7 @@ def phase_dam(card, fused):
 def phase_cpic_adaptive(card, fixed_syncs):
     """The CPIC wheel's 100k water and bodies through AsyncMPM (fused
     route), the water placed on the paddles: a warm-up frame and
-    ADAPTIVE_TIMED_FRAMES timed frames of 20 base dt (2e-3 s). Its host
+    CPIC_ADAPTIVE_TIMED_FRAMES timed frames of 20 base dt (2e-3 s). Its host
     syncs per substep must not exceed the fixed-dt frames' (`fixed_syncs`,
     measured in this run)."""
     from taichi_mpm_torch import scenes
@@ -1826,7 +2155,7 @@ def phase_cpic_adaptive(card, fixed_syncs):
                             vel=(0.0, -1.0, 0.0), solver=AsyncMPM, unit_delta_t=1e-6)
     sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
     zero_counts()
-    frames = adaptive_frames(sim, 1 + ADAPTIVE_TIMED_FRAMES)
+    frames = adaptive_frames(sim, 1 + CPIC_ADAPTIVE_TIMED_FRAMES)
     launches = read_counts()
     substeps = sum(f["substeps"] for f in frames)
     failures = route_failures(launches, True, substeps, CPIC_KERNELS)
@@ -1847,7 +2176,7 @@ def phase_cpic_adaptive(card, fixed_syncs):
 # -- the scene-script path ------------------------------------------------------
 
 SCRIPT_DAM_PARTICLES = 1_056_758  # scripts/async/water.py's seeding at res 128 (CPU numpy)
-SCRIPT_DAM_TIMED_FRAMES = 3  # after one warm-up frame
+SCRIPT_DAM_TIMED_FRAMES = 2  # after one warm-up frame
 RESUME_FRAME_DT = 5e-4
 ID_ROW_PARAM = 7  # a params slot no material reads: each particle's index goes there
 # tests/port/test_torch_energy.py's tolerance: |E_card - E_cpu| over the sum
@@ -2125,32 +2454,44 @@ def energy_of(p, cfg):
     return float(mechanical_energy(p, cfg)), scale
 
 
-def phase_energy_check():
-    """For each material: the 125k cube after one 6-substep frame on the
-    card and on the CPU, MPM.energy() of each (within ENERGY_RTOL); then
-    the card's state stirred (F far from I, spinning), its energy on the
-    card against the same state's on the CPU (within ENERGY_RTOL)."""
+def energy_record(card, cpu, name, failures):
+    """energy_check's record of one material's 125k cube after one
+    6-substep frame on the card (`card`) and on the CPU (`cpu`):
+    MPM.energy() of each (within ENERGY_RTOL); then the card's state
+    stirred (F far from I, spinning), its energy on the card against the
+    same state's on the CPU (within ENERGY_RTOL)."""
     from taichi_mpm_torch.ops import packed
 
+    e_card, e_cpu = card.energy(), cpu.energy()
+    _, scale = energy_of(cpu.particles, cpu.cfg)
+    st = stirred(card.packed_carry[0], aux_sd=0.05)
+    p = packed.unpack_particles(st, card.particles.capacity)
+    s_card, s_scale = energy_of(p, card.cfg)
+    s_cpu, _ = energy_of(packed.unpack_particles(st.cpu(), card.particles.capacity), card.cfg)
+    res = dict(frame_card=e_card, frame_cpu=e_cpu, frame_rel=abs(e_card - e_cpu) / scale,
+               stirred_card=s_card, stirred_cpu=s_cpu, stirred_rel=abs(s_card - s_cpu) / s_scale)
+    for key in ("frame_rel", "stirred_rel"):
+        if not res[key] <= ENERGY_RTOL:
+            failures.append(f"{name}: {key} {res[key]} > {ENERGY_RTOL}")
+    return res
+
+
+def phase_energy_check(energies, names=MATERIALS):
+    """``energy_check``: ``energy_record`` for each material of `names`,
+    those of `energies` (name -> record) taken by ``phase_materials25``
+    from its own frames of the same cubes, the others here."""
     failures, out = [], {}
-    for name in MATERIALS:
+    for name in names:
+        if name in energies:
+            out[name] = energies[name]
+            continue
         card, cpu = cube(25, "cuda", 6, name), cube(25, "cpu", 6, name)
         card.step()
         cpu.step()
-        e_card, e_cpu = card.energy(), cpu.energy()
-        _, scale = energy_of(cpu.particles, cpu.cfg)
-        st = stirred(card.packed_carry[0], aux_sd=0.05)
-        p = packed.unpack_particles(st, card.particles.capacity)
-        s_card, s_scale = energy_of(p, card.cfg)
-        s_cpu, _ = energy_of(packed.unpack_particles(st.cpu(), card.particles.capacity), card.cfg)
-        res = dict(frame_card=e_card, frame_cpu=e_cpu, frame_rel=abs(e_card - e_cpu) / scale,
-                   stirred_card=s_card, stirred_cpu=s_cpu,
-                   stirred_rel=abs(s_card - s_cpu) / s_scale)
-        for key in ("frame_rel", "stirred_rel"):
-            if not res[key] <= ENERGY_RTOL:
-                failures.append(f"{name}: {key} {res[key]} > {ENERGY_RTOL}")
-        out[name] = res
-        del card, cpu, st, p
+        out[name] = energy_record(card, cpu, name, failures)
+        del card, cpu
+    failures += [f"{name}: {key} {out[name][key]} > {ENERGY_RTOL}" for name in energies
+                 for key in ("frame_rel", "stirred_rel") if not out[name][key] <= ENERGY_RTOL]
     emit(dict(phase="energy_check", **out, failures=failures))
     raise_failures(failures)
 
@@ -2256,6 +2597,14 @@ def dense_tetris(device):
 def no_launches(launches):
     """The dense path launches no kernel of the port."""
     return [f"{name} launched {n} times on the dense path" for name, n in launches.items() if n]
+
+
+def dense_cpic_launches(launches, substeps):
+    """The dense CPIC path launches ``body_totals`` twice a substep (P2G's
+    impulse totals and G2P's penalty totals) and no other kernel."""
+    return [f"{name} launched {n} times in {substeps} dense CPIC substeps"
+            for name, n in launches.items()
+            if n != (2 * substeps if name == "body_totals" else 0)]
 
 
 def nudged(sim, seed=0):
@@ -2426,7 +2775,18 @@ def phase_dense_vs_blocked():
     raise_failures(failures)
 
 
-def phase_dense_path(card):
+def dense_path_reference():
+    """The CPU's first frame of phase dense_path's scene: (its energy, the
+    sum of its terms' magnitudes, the seconds the frame took)."""
+    from taichi_mpm_torch import scenes
+
+    cpu = scenes.colliding_balls_energy(res=DENSE_PATH_RES, device="cpu")
+    t0 = time.perf_counter()
+    cpu.step()
+    return (*energy_of(cpu.particles, cpu.cfg), time.perf_counter() - t0)
+
+
+def phase_dense_path(card, reference):
     """The slice at full size: scripts/benchmark/colliding_balls_energy.py
     at res 100 (two Poisson-seeded jelly balls, dt 3e-4, 33 substeps per
     0.01 s frame) through runner.simulate with print_energy, a warm-up
@@ -2434,8 +2794,9 @@ def phase_dense_path(card):
     to 0 first: ms per substep, particle-steps/s, host syncs per substep
     (0 at fixed dt), peak device memory, each frame's energy and its
     drift from frame 0; the first frame's energy against the CPU's frame
-    within ENERGY_RTOL of its terms' magnitudes; every particle active,
-    finite and in the domain; no kernel launched. Returns the launches."""
+    (`reference`: ``dense_path_reference``, run in the check block) within
+    ENERGY_RTOL of its terms' magnitudes; every particle active, finite
+    and in the domain; no kernel launched. Returns the launches."""
     import io
     from contextlib import redirect_stdout
 
@@ -2451,11 +2812,7 @@ def phase_dense_path(card):
     setup_s = time.perf_counter() - t0
     n = sim.particles.count()
     substeps = max(1, int(round(sim.frame_dt / sim.cfg.base_dt)))
-    cpu = scenes.colliding_balls_energy(res=DENSE_PATH_RES, device="cpu")
-    t0 = time.perf_counter()
-    cpu.step()
-    cpu_frame_s = time.perf_counter() - t0
-    e_cpu, scale = energy_of(cpu.particles, cpu.cfg)
+    e_cpu, scale, cpu_frame_s = reference
     torch.cuda.reset_peak_memory_stats()
     timed = Timed(sim)
     args = runner.parse_args(["--frames", str(1 + DENSE_PATH_TIMED_FRAMES)])
@@ -2589,11 +2946,29 @@ def phase_dense_scale(card, fused_ms):
 # -- the dense CPIC path ----------------------------------------------------------
 
 DENSE_CPIC_SUBSTEPS = 6  # the 10k 3-D wheel's frame in dense_cpic_check
+# the 2-D scripts' snapshots with their sand on the wheel (the port's CPU
+# run of each script in 1e-3 s frames to 0.19 s and 0.15 s,
+# tests/port/port_helpers.py wheel-2d-snapshot): path, frames done
+WHEEL_2D_SNAPSHOTS = {
+    "sand_wheel_2d": ("tests/fixtures/sand_wheel_2d_coupled.npz", 190),
+    "async_wheel": ("tests/fixtures/async_wheel_coupled.npz", 150),
+}
+COUPLED_FRAMES = 3  # of COUPLED_FRAME_DT from each snapshot in wheel_2d_coupled
+COUPLED_FRAME_DT = 1e-3
+COUPLED_MIN_NEAR = 40  # grains near the wheel (the CPU's frames: 61 and 265)
+# wheel_2d_coupled's stage-by-stage check (diagnostics.coupled_stage_partings,
+# the card's substep from the CPU's state): what each stage may part from
+# the CPU's by, in ulps of the largest addend that fed it. The integer
+# stages (the CDF's tags and owners, the particles' states and near_b)
+# must be equal. The body totals summed on the card from the CPU's own
+# addends (sum_order.*_kernel_*) must give the CPU's bits: the kernel sums
+# in the CPU's order, so 0 ulps. Every other stage: STAGE_ULPS.
+STAGE_ULPS = 64.0
 SAND_WHEEL_CHECK_FRAMES = 10
 SAND_WHEEL_CHECK_FRAME_DT = 2e-3  # 20 substeps a frame, the source emitting each frame
 DENSE_CPIC_VS_FUSED_SUBSTEPS = 4
-WHEEL_2D_TIMED_FRAMES = 10  # sand_wheel_2D.py's 0.01 s frames, after one warm-up frame
-ASYNC_WHEEL_TIMED_FRAMES = 5
+WHEEL_2D_TIMED_FRAMES = 2  # sand_wheel_2D.py's 0.01 s frames, after one warm-up frame
+ASYNC_WHEEL_TIMED_FRAMES = 2
 DENSE_CPIC_SCALE_SUBSTEPS = 20
 # The JAX package's own pair on dense_cpic_vs_fused's scene: its oracle
 # cpic_substep (jitted on the CPU) against its packed CPIC frame (the
@@ -2666,7 +3041,8 @@ def phase_dense_cpic_check():
     ``cpic_check`` (x 5e-6, v 5e-4, F 5e-5, states and near_b equal,
     bodies 1e-5 / 1e-6), plastic events equal but for sand's knife edges
     (counted on the CPU frame), equal adaptive substep counts, a second
-    card run equal in bits (bodies too), no kernel launched."""
+    card run equal in bits (bodies too), ``body_totals`` launched twice a
+    substep and no other kernel."""
     from taichi_mpm_torch import diagnostics, scenes
 
     def wheel3d(device):
@@ -2684,6 +3060,7 @@ def phase_dense_cpic_check():
     }
     failures, out = [], {}
     zero_counts()
+    card_substeps = 0
     for label, (make, frames, source) in cases.items():
         t0 = time.perf_counter()
         card = run_frames(make("cuda"), frames, source)
@@ -2702,6 +3079,8 @@ def phase_dense_cpic_check():
         substeps = getattr(card, "last_substeps", None)
         if substeps != getattr(cpu, "last_substeps", None):
             failures.append(f"{label}: {substeps} substeps vs the CPU's {cpu.last_substeps}")
+        card_substeps += 2 * (substeps if substeps is not None  # the card run and its rerun
+                              else frames * round(card.frame_dt / card.cfg.base_dt))
         if card.packed_carry is not None:
             failures.append(f"{label}: not on the dense path")
         if label in ("plate_2d", "wheel_3d_10k_unoptimized") and not card.particles.near_b.any():
@@ -2713,7 +3092,7 @@ def phase_dense_cpic_check():
                           plast=card.plasticity_counter, plast_cpu=cpu.plasticity_counter,
                           sand_knife_edges=sum(edges), card_s=card_s, cpu_s=cpu_s)
     launches = read_counts()
-    failures += no_launches(launches)
+    failures += dense_cpic_launches(launches, card_substeps)
     emit(dict(phase="dense_cpic_check", **out, launches=launches, failures=failures))
     raise_failures(failures)
     return launches
@@ -2763,64 +3142,239 @@ def phase_dense_cpic_vs_fused():
     raise_failures(failures)
 
 
-def phase_wheel_2d_path(card):
-    """The 2-D CPIC scene scripts through ``runner.simulate`` on the card,
-    every launch count set to 0 first: scripts/mls-cpic/sand_wheel_2D.py at
-    res 128 (its source emitting 48 particles a frame), a warm-up frame and
-    10 timed frames of 0.01 s (100 substeps each), and
-    scripts/async/wheel.py at res 128 (2,361 sand particles at global
-    adaptive dt), a warm-up frame and 5 timed frames: ms per substep,
-    particle-steps/s, host syncs per substep, particles, substeps per frame
-    and dt range (adaptive), the wheel's omega (finite, and nonzero once a
-    particle has come near it), every particle finite and in the domain,
-    no kernel launched. Returns the launches."""
-    import io
-    from contextlib import redirect_stdout
+def wheel_2d_scene(name, device, frame_dt=COUPLED_FRAME_DT):
+    """sand_wheel_2D.py or async/wheel.py (WHEEL_2D_SNAPSHOTS' `name`) at
+    res 128 on `device`, frames of `frame_dt`."""
+    from taichi_mpm_torch import scenes
 
-    from taichi_mpm_torch import runner, scenes
+    sim = getattr(scenes, name)(res=128, device=device)
+    sim.frame_dt = frame_dt
+    return sim
+
+
+def wheel_2d_source(name):
+    from taichi_mpm_torch import scenes
+
+    return scenes.sand_wheel_2d_source if name == "sand_wheel_2d" else None
+
+
+def coupled_run(name, device):
+    """The script `name` from its coupled snapshot, COUPLED_FRAMES frames
+    (its source emitting each frame). Returns the scene and its
+    substeps."""
+    path, first = WHEEL_2D_SNAPSHOTS[name]
+    sim, source, substeps = wheel_2d_scene(name, device), wheel_2d_source(name), 0
+    sim.load(path)
+    for f in range(first, first + COUPLED_FRAMES):
+        if source is not None:
+            source(sim, f)
+        sim.step()
+        substeps += getattr(sim, "last_substeps", None) or round(sim.frame_dt / sim.cfg.base_dt)
+    return sim, substeps
+
+
+def stage_failures(label, partings, failures):
+    """wheel_2d_coupled's gate on each substep's stage partings: integer
+    stages equal, the kernel's sums of the CPU's addends in the CPU's bits,
+    every other stage within STAGE_ULPS. Returns each stage's largest
+    parting over the substeps (ulps, or whether always equal)."""
+    worst = {}
+    for n, sub in enumerate(partings):
+        for key, r in sub.items():
+            if "equal" in r:
+                worst[key] = worst.get(key, True) and r["equal"]
+                if not r["equal"]:
+                    failures.append(f"{label} substep {n}: {key} differs")
+                continue
+            worst[key] = max(worst.get(key, 0.0), r["ulps"])
+            bound = 0.0 if "_kernel_" in key else (None if "_masked_sum_" in key else STAGE_ULPS)
+            if bound is not None and not r["ulps"] <= bound:
+                failures.append(f"{label} substep {n}: {key} parts by {r['ulps']} ulps of "
+                                f"{r['scale']} > {bound}")
+    return worst
+
+
+def phase_body_totals_check():
+    """``body_totals_check``: the kernel ``body_totals`` against its plain
+    twin on the same inputs, the twin on the CPU (the order that defines
+    the sums): ``diagnostics.body_totals_edge_inputs`` (several offsets and
+    bodies, lanes of no body, a body with no lane, a row where one body
+    holds 95% of the lanes, one lane, no valid lane) and the addends of
+    both 2-D scripts' first coupled substep (P2G's per-offset totals and
+    G2P's penalty totals, taken on the CPU): equal bits, and equal bits
+    over two launches. Beside each, how far torch's masked sums on the
+    card part from the twin (the sums the card took before)."""
+    import torch
+
+    from taichi_mpm_torch import diagnostics
+    from taichi_mpm_torch.ops import body_sums
+
+    cases = {k: (*(torch.as_tensor(a) for a in v[:3]), v[3])
+             for k, v in diagnostics.body_totals_edge_inputs().items()}
+    for name, (path, _) in WHEEL_2D_SNAPSHOTS.items():
+        sim = wheel_2d_scene(name, "cpu")
+        sim.load(path)
+        stages = diagnostics.substep_stages(sim)
+        for key in ("p2g", "g2p"):
+            cases[f"{name}_{key}"] = (*stages[f"{key}_rows"], sim.bodies.num)
+    failures, out = [], {}
+    for label, (rid, J, tau, R) in cases.items():
+        want = body_sums.body_totals_plain(rid, J, tau, R)
+        dev = [a.cuda() for a in (rid, J, tau)]
+        got = body_sums.body_totals(*dev, R)
+        again = body_sums.body_totals(*dev, R)
+        masked = diagnostics.masked_body_sums(*dev, R)
+        torch.cuda.synchronize()
+        got, again, masked = ([a.cpu() for a in v] for v in (got, again, masked))
+        bits = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                   for g, w in zip(got, want))
+        rerun = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(got, again))
+        if not bits:
+            failures.append(f"{label}: the kernel's totals are not the twin's bits")
+        if not rerun:
+            failures.append(f"{label}: two launches differ")
+        out[label] = dict(
+            rows=list(rid.shape), bodies=R, components=[J.shape[-1], tau.shape[-1]],
+            valid=int((rid >= 0).sum()), bits=bits, rerun_bits=rerun,
+            max_abs_err=max(max_abs(g, w) for g, w in zip(got, want)),
+            masked_sum_max_abs_err=max(max_abs(m, w) for m, w in zip(masked, want)))
+    emit(dict(phase="body_totals_check", cases=out, failures=failures))
+    raise_failures(failures)
+
+
+def phase_wheel_2d_coupled(card):
+    """``wheel_2d_coupled``: both 2-D scripts from their coupled snapshots
+    (WHEEL_2D_SNAPSHOTS, the sand on the wheel), COUPLED_FRAMES frames of
+    1e-3 s (the sand source emitting each frame), on the card against the
+    CPU: the CPIC bounds (x 5e-6, v 5e-4, F 5e-5, states and near_b equal,
+    plastic events but for sand's knife edges) and the body bounds (vel
+    and omega 1e-5, pos 1e-6), equal substeps, at least COUPLED_MIN_NEAR
+    grains near the wheel, a second card run equal in bits (bodies too),
+    ``body_totals`` twice a substep and no other kernel. Then the first
+    frame substep by substep (``diagnostics.coupled_stage_partings``: each
+    card substep from the CPU's state), gated by ``stage_failures``, with
+    the first stage that parts by more than 4 ulps and how far torch's
+    masked sums of the same addends part (``sum_order.*_masked_sum_*``).
+    Returns the launches of the coupled frames."""
+    from taichi_mpm_torch import diagnostics
 
     failures, out = [], {}
     zero_counts()
-    for label, make, source, timed_frames in (
-            ("sand_wheel_2d", lambda: scenes.sand_wheel_2d(res=128, device="cuda"),
-             scenes.sand_wheel_2d_source, WHEEL_2D_TIMED_FRAMES),
-            ("async_wheel", lambda: scenes.async_wheel(res=128, device="cuda"), None,
-             ASYNC_WHEEL_TIMED_FRAMES)):
-        sim = make()
+    card_substeps = 0
+    for name in WHEEL_2D_SNAPSHOTS:
+        t0 = time.perf_counter()
+        dev, n = coupled_run(name, "cuda")
+        card_s = time.perf_counter() - t0
+        rerun, n_rerun = coupled_run(name, "cuda")
+        card_substeps += n + n_rerun
+        with diagnostics.dense_sand_edges_per_substep() as edges:
+            cpu, n_cpu = coupled_run(name, "cpu")
+        errs = cpic_errors(dev, cpu, f"{name} card vs CPU", failures, plast_slack=sum(edges))
+        same_bits(dev, rerun, f"{name} rerun", failures)
+        for b in ("pos", "vel", "rot", "omega"):
+            if not np.array_equal(getattr(dev.bodies, b).cpu().numpy(),
+                                  getattr(rerun.bodies, b).cpu().numpy()):
+                failures.append(f"{name} rerun: body {b} differs")
+        if n != n_cpu:
+            failures.append(f"{name}: {n} substeps vs the CPU's {n_cpu}")
+        near = int(cpu.particles.near_b.sum())
+        if near < COUPLED_MIN_NEAR:
+            failures.append(f"{name}: {near} grains near the wheel on the CPU, fewer than "
+                            f"{COUPLED_MIN_NEAR}: the coupling went untested")
+        out[name] = dict(particles=dev.particles.count(), substeps=n, near_b=near,
+                         near_b_card=int(dev.particles.near_b.sum()),
+                         omega=float(dev.bodies.omega[1, 0]),
+                         omega_cpu=float(cpu.bodies.omega[1, 0]), errors=errs,
+                         plast=dev.plasticity_counter, plast_cpu=cpu.plasticity_counter,
+                         sand_knife_edges=sum(edges), card_s=card_s)
+    launches = read_counts()
+    failures += dense_cpic_launches(launches, card_substeps)
+    stages = {}
+    for name, (path, first) in WHEEL_2D_SNAPSHOTS.items():
+        partings, _ = diagnostics.coupled_stage_partings(
+            lambda dev, name=name: wheel_2d_scene(name, dev), path, first, wheel_2d_source(name),
+            device="cuda")
+        stages[name] = dict(substeps=len(partings),
+                            first_parting_over_4_ulps=diagnostics.first_parting(partings),
+                            worst=stage_failures(f"{name} stages", partings, failures))
+    emit(dict(phase="wheel_2d_coupled", card=card, **out, stages=stages, stage_ulps=STAGE_ULPS,
+              launches=launches, failures=failures))
+    raise_failures(failures)
+    return launches
+
+
+def phase_wheel_2d_path(card):
+    """The 2-D CPIC scene scripts through ``runner.simulate`` on the card,
+    every launch count set to 0 first, each resumed (``--continue``) from
+    its coupled snapshot (WHEEL_2D_SNAPSHOTS: the sand on the wheel, at
+    0.19 s and 0.15 s) in the scripts' own 0.01 s frames:
+    scripts/mls-cpic/sand_wheel_2D.py at res 128 (its source emitting each
+    frame, 100 substeps a frame), a warm-up frame and WHEEL_2D_TIMED_FRAMES
+    timed frames, and scripts/async/wheel.py at res 128 (global adaptive
+    dt), a warm-up frame and ASYNC_WHEEL_TIMED_FRAMES: ms per substep,
+    particle-steps/s, host syncs per substep, particles, substeps per frame
+    and dt range (adaptive), the wheel's omega, which must be finite and
+    nonzero with sand near the wheel, every particle finite and in the
+    domain, ``body_totals`` twice a substep and no other kernel. Returns
+    the launches."""
+    import io
+    import shutil
+    import tempfile
+    from contextlib import redirect_stdout
+
+    from taichi_mpm_torch import runner
+
+    failures, out = [], {}
+    zero_counts()
+    substeps = 0
+    for label, timed_frames in (("sand_wheel_2d", WHEEL_2D_TIMED_FRAMES),
+                                ("async_wheel", ASYNC_WHEEL_TIMED_FRAMES)):
+        sim = wheel_2d_scene(label, "cuda", frame_dt=0.01)
+        source = wheel_2d_source(label)
+        path, done = WHEEL_2D_SNAPSHOTS[label]
+        cont = round(done * COUPLED_FRAME_DT / sim.frame_dt) - 1  # the last 0.01 s frame done
         counts = []  # each frame's particles, after its emission
 
         def update(s, f, source=source, counts=counts):
+            s.frame_dt = 0.01  # the snapshot's own frame_dt was 1e-3
             if source is not None:
                 source(s, f)
             counts.append(s.particles.count() if s.particles is not None
                           else sum(b["x"].shape[0] for b in s._pending))
 
         timed = Timed(sim)
-        args = runner.parse_args(["--frames", str(1 + timed_frames)])
         log = io.StringIO()
-        with redirect_stdout(log):
-            runner.simulate(timed, args, frame_update=update)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_wheel_2d_") as d:
+            shutil.copy(path, runner.snapshot_path(d, cont))
+            args = runner.parse_args(["--frames", str(cont + 2 + timed_frames), "--continue",
+                                      str(cont), "--out", d])
+            with redirect_stdout(log):
+                runner.simulate(timed, args, frame_update=update)
         per_frame = [st["substeps"] or round(sim.frame_dt / sim.cfg.base_dt)
                      for st in timed.steps]
+        substeps += sum(per_frame)
         n_timed = sum(per_frame[1:])
         step_s = sum(timed.ms["step"][1:]) / 1e3
         psteps = sum(n * k for n, k in zip(counts[1:], per_frame[1:]))
         check_domain(sim, sim.particles.count(), failures)
         omega = float(sim.bodies.omega[1, 0])
         reached = int(sim.particles.near_b.sum()) > 0
-        if not np.isfinite(omega) or (reached and omega == 0.0):
+        if not (np.isfinite(omega) and omega != 0.0 and reached):
             failures.append(f"{label}: the wheel's omega is {omega} (sand near it: {reached})")
         out[label] = dict(
-            particles=sim.particles.count(), frames=1 + timed_frames, timed_substeps=n_timed,
+            particles=sim.particles.count(), resumed_at_t=float(np.float32(done * COUPLED_FRAME_DT)),
+            frames=1 + timed_frames, timed_substeps=n_timed,
             substeps_per_frame=per_frame, ms_per_substep=step_s * 1e3 / n_timed,
             particle_steps_per_s=psteps / step_s,
             host_syncs_per_substep=sum(st["host_syncs"] for st in timed.steps[1:]) / n_timed,
             dt_range=getattr(sim, "last_dt_range", None), warmup_frame_ms=timed.ms["step"][0],
             frame_ms=timed.ms["step"], wheel_omega=omega, sand_near_wheel=reached,
+            near_b=int(sim.particles.near_b.sum()),
             y_min=float(sim.particles.x[sim.particles.active][:, 1].min()),
             runner_lines=log.getvalue().splitlines()[-1:])
     launches = read_counts()
-    failures += no_launches(launches)
+    failures += dense_cpic_launches(launches, substeps)
     emit(dict(phase="wheel_2d_path", card=card, **out, launches=launches,
               clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"), failures=failures))
     raise_failures(failures)
@@ -2863,7 +3417,43 @@ def dense_cpic_stage_ms(sim):
                                              cfg.gravity), 2))
 
 
-def phase_dense_cpic_scale(card, fused_ms):
+def body_totals_timing(stages, R):
+    """``body_totals`` on one substep's P2G addends (``stages``' p2g_rows):
+    its CUDA-event ms, the plain twin's on the card, one ``index_add_``
+    (the library call that computes the same sums, in atomics' order), the
+    largest difference from the twin on the CPU (which sets the order),
+    and the bound: the bytes the function must move (rid whole, the
+    values of the valid lanes, the totals) over 3.35 TB/s, or its adds over
+    67 TFLOP/s, the larger."""
+    import torch
+
+    from taichi_mpm_torch.ops import body_sums
+
+    rid, J, tau = stages["p2g_rows"]
+    L, n = rid.shape[:-1].numel(), rid.shape[-1]
+    ct = J.shape[-1] + tau.shape[-1]
+    got = body_sums.body_totals(rid, J, tau, R)
+    want = body_sums.body_totals_plain(*(a.cpu() for a in (rid, J, tau)), R)
+    valid = int((rid >= 0).sum())
+    rows = torch.where(rid >= 0, torch.arange(L, device=rid.device).reshape(rid.shape[:-1] + (1,))
+                       * R + rid, L * R).reshape(-1)
+    vals = torch.cat([J, tau], -1).reshape(-1, ct)
+    nbytes = rid.numel() * rid.element_size() + valid * ct * 4 + L * R * ct * 4
+    ops = valid * ct
+    b_ms, bound_by = bound(nbytes, ops)
+    return dict(
+        ms=cuda_ms(lambda: body_sums.body_totals(rid, J, tau, R), 20),
+        plain_ms=cuda_ms(lambda: body_sums.body_totals_plain(rid, J, tau, R), 1, warmup=0),
+        library_ms=cuda_ms(lambda: torch.zeros((L * R + 1, ct), device=rid.device).index_add_(
+            0, rows, vals), 20),
+        max_abs_err=max(max_abs(g.cpu(), w) for g, w in zip(got, want)),
+        bits=all(torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+                 for g, w in zip(got, want)),
+        bound_ms=b_ms, bound_by=bound_by, bytes=nbytes, ops=ops, rows=L, lanes=n, bodies=R,
+        valid_lanes=valid)
+
+
+def phase_dense_cpic_scale(card, fused_ms, wheel_snapshot):
     """The CPIC benchmark scene (``scenes.cpic_wheel()``: 100k water, res
     96, the hub and the 6-paddle wheel under a rotation articulation, a
     colliding pair) with optimized=False: a 1-substep warm-up frame, then
@@ -2871,10 +3461,15 @@ def phase_dense_cpic_scale(card, fused_ms):
     CPIC frame's of phase ``cpic_path`` in this run (`fused_ms`), host
     syncs per substep, the memory peak and the stages' CUDA-event ms
     (``dense_cpic_stage_ms``); every particle finite and in the domain,
-    no kernel launched. Returns the launches."""
+    ``body_totals`` twice a substep and no other kernel. Then the kernel
+    ``body_totals`` timed (``body_totals_timing``) on the P2G addends of a
+    substep of this state and of the same scene resumed from
+    ``cpic_path``'s snapshot (`wheel_snapshot`: the water on the wheel),
+    where it must give the twin's bits. Returns the launches and the
+    kernel's measurement on the snapshot."""
     import torch
 
-    from taichi_mpm_torch import scenes
+    from taichi_mpm_torch import diagnostics, scenes
     from taichi_mpm_torch.utils import HostSyncs
 
     failures = []
@@ -2892,29 +3487,39 @@ def phase_dense_cpic_scale(card, fused_ms):
     frame_s = time.perf_counter() - t0
     syncs = HostSyncs.count - syncs
     launches = read_counts()
-    failures += no_launches(launches)
+    failures += dense_cpic_launches(launches, 1 + DENSE_CPIC_SCALE_SUBSTEPS)
     check_domain(sim, 100_000, failures)
     if sim.packed_carry is not None:
         failures.append("the CPIC wheel did not take the dense path")
     ms = frame_s * 1e3 / DENSE_CPIC_SCALE_SUBSTEPS
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    stage_ms = dense_cpic_stage_ms(sim)
+    fresh = body_totals_timing(diagnostics.substep_stages(sim), sim.bodies.num)
+    coupled = scenes.cpic_wheel(device="cuda", optimized=False)
+    coupled.load(wheel_snapshot)
+    measured = body_totals_timing(diagnostics.substep_stages(coupled), coupled.bodies.num)
+    for label, m in (("fresh", fresh), ("from the snapshot", measured)):
+        if not m["bits"]:
+            failures.append(f"body_totals {label}: not the twin's bits ({m['max_abs_err']})")
+    if not measured["valid_lanes"]:
+        failures.append("body_totals: no valid lane in the snapshot's substep")
     emit(dict(phase="dense_cpic_scale", card=card, particles=sim.particles.count(),
               substeps=DENSE_CPIC_SCALE_SUBSTEPS, ms_per_substep=ms,
               fused_cpic_ms_per_substep=fused_ms, dense_over_fused=ms / fused_ms,
               particle_steps_per_s=1e5 * DENSE_CPIC_SCALE_SUBSTEPS / frame_s,
               host_syncs_per_substep=syncs / DENSE_CPIC_SCALE_SUBSTEPS,
-              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-              stage_ms=dense_cpic_stage_ms(sim), near_b=int(sim.particles.near_b.sum()),
+              peak_mem_gb=peak, stage_ms=stage_ms, near_b=int(sim.particles.near_b.sum()),
               wheel_omega_z=float(sim.bodies.omega[2, 2]), launches=launches,
-              failures=failures))
+              body_totals=dict(fresh=fresh, snapshot=measured), failures=failures))
     raise_failures(failures)
-    return launches
+    return launches, measured
 
 
 # -- per-block bucketed async and the pytree CPIC frame ---------------------------
 
 BUCKET_DRIFT = 3.0  # m/s along x added to the 125k cube: re-sorts inside the frame
 BUCKET_LEVEL = 0  # the single-level check's level: 64 advances of the cube's dt
-BUCKETED_TIMED_FRAMES = 2  # after one warm-up frame
+BUCKETED_TIMED_FRAMES = 1  # after one warm-up frame
 UNFUSED_CPIC_KERNELS = ("p2g_blocked", "g2p_blocked")
 UNFUSED_CPIC_TIMED_FRAMES = 3  # after one warm-up frame, from cpic_path's state
 # The JAX package's own pytree-vs-packed CPIC pair on cpic_check's 10k
@@ -3246,8 +3851,7 @@ DIST_ROUTES = {"fused_balanced": (True, True), "fused_uniform": (True, False),
                "unfused_uniform": (False, False), "unfused_balanced": (False, True)}
 DIST_DEVICE = "cuda:0"  # every rank of the shared-card group runs on the one card
 DIST_PATH_RES = 128  # the 8M cube's res on slabs: 125 does not divide into slab blocks
-DIST_PATH_TIMED_FRAMES = 2  # after one warm-up frame
-DIST_TIMEOUT_S = 600
+DIST_PATH_TIMED_FRAMES = 1  # after one warm-up frame
 
 
 def dist_cube(solver, device):
@@ -3443,9 +4047,7 @@ def phase_dist_check(card, kind="plain"):
             nccl = dist_routes(kind, d, runs)
             if cpic:
                 exact = dist_routes("cpic_exact", d, [("fused_balanced", 0)])["fused_balanced_0"]
-        gloo = comm.run_ranks(dist_routes, 2, "gloo",
-                              args=(kind, d, runs + [("fused_balanced", 1)]),
-                              timeout_s=DIST_TIMEOUT_S)
+        gloo = ranks_of(dist_routes, 2, args=(kind, d, runs + [("fused_balanced", 1)]))
         if cpic:
             isolation = resort_and_shift(d, nccl, exact, failures)
     for key, res in nccl.items():
@@ -3596,12 +4198,11 @@ def phase_dist_path(card):
     import torch
 
     from taichi_mpm_torch import scenes
-    from taichi_mpm_torch.parallel import comm
 
     failures = []
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = comm.run_ranks(dist_path_rank, 2, "gloo", timeout_s=DIST_TIMEOUT_S)
+    ranks = ranks_of(dist_path_rank, 2)
     ranks_s = time.perf_counter() - t0
     n_timed = DIST_PATH_TIMED_FRAMES * SUBSTEPS_PER_FRAME
     for r in ranks:
@@ -3782,7 +4383,6 @@ def phase_slab_cpic_paths(card, wheel_snapshot):
     import shutil
     import tempfile
 
-    from taichi_mpm_torch.parallel import comm
     from taichi_mpm_torch.runner import snapshot_path
 
     t0 = time.perf_counter()
@@ -3794,9 +4394,7 @@ def phase_slab_cpic_paths(card, wheel_snapshot):
                             snapshot_path(os.path.join(d, run), 0))
         snap_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        ranks = comm.run_ranks(slab_cpic_rank, 2, "gloo",
-                               args=(wheel_snapshot, os.path.join(d, "slabs")),
-                               timeout_s=DIST_TIMEOUT_S)
+        ranks = ranks_of(slab_cpic_rank, 2, args=(wheel_snapshot, os.path.join(d, "slabs")))
         ranks_s = time.perf_counter() - t0
         launches = phase_dist_cpic_path(card, wheel_snapshot, [r["path"] for r in ranks], ranks_s)
         launches.update(phase_water_wheel_slabs(card, [r["water_wheel"] for r in ranks],
@@ -4150,7 +4748,7 @@ def phase_mesh_check(card):
         with comm.process_group("nccl", 0, 1, comm.free_port(), timeout_s=DIST_TIMEOUT_S):
             nccl = mesh_routes(d, runs)
             refused = mesh_refused()
-        gloo = comm.run_ranks(mesh_routes, 4, "gloo", args=(d, runs), timeout_s=DIST_TIMEOUT_S)
+        gloo = ranks_of(mesh_routes, 4, args=(d, runs))
     if refused is None or not refused.startswith("TMT_FUSED=0 routes CPIC pencil scenes"):
         failures.append(f"unfused balanced CPIC pencils not refused: {refused}")
     for label, ranks in [("nccl", [nccl])] + [(f"gloo rank {r}", [g]) for r, g in enumerate(gloo)]:
@@ -4217,12 +4815,10 @@ def phase_mesh_path(card, one_ms):
     by rank."""
     import torch
 
-    from taichi_mpm_torch.parallel import comm
-
     failures = []
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = comm.run_ranks(mesh_path_rank, 4, "gloo", timeout_s=DIST_TIMEOUT_S)
+    ranks = ranks_of(mesh_path_rank, 4)
     ranks_s = time.perf_counter() - t0
     n_timed = DIST_PATH_TIMED_FRAMES * SUBSTEPS_PER_FRAME
     for r in ranks:
@@ -4264,13 +4860,11 @@ def phase_mesh_cpic_path(card, wheel_snapshot):
     import torch
 
     from taichi_mpm_torch import scenes
-    from taichi_mpm_torch.parallel import comm
 
     failures = []
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = comm.run_ranks(mesh_cpic_path_rank, 4, "gloo", args=(wheel_snapshot,),
-                           timeout_s=DIST_TIMEOUT_S)
+    ranks = ranks_of(mesh_cpic_path_rank, 4, args=(wheel_snapshot,))
     ranks_s = time.perf_counter() - t0
     n_timed = DIST_PATH_TIMED_FRAMES * SUBSTEPS_PER_FRAME
     for r in ranks:
@@ -4462,8 +5056,7 @@ def phase_dist_async_check(card):
     runs = [(name, 0) for name in ASYNC_SCENES]
     with comm.process_group("nccl", 0, 1, comm.free_port(), timeout_s=DIST_TIMEOUT_S):
         nccl = dist_async_runs(runs)
-    gloo = comm.run_ranks(dist_async_runs, 2, "gloo", args=(runs + [("dam", 1)],),
-                          timeout_s=DIST_TIMEOUT_S)
+    gloo = ranks_of(dist_async_runs, 2, args=(runs + [("dam", 1)],))
     shown = {}
     for key, res in nccl.items():
         ref = refs[key[:-2]]
@@ -4627,10 +5220,11 @@ def dist_async_path_rank(snapshot):
     return out
 
 
-def phase_dist_async_path(card):
+def phase_dist_async_path(card, snapshot, front, snapshot_s):
     """``dist_async_path``: scripts/async/balls.py (94k particles) resumed
-    where the stiff ball's front reaches the slab boundary
-    (``balls_snapshot``: it crosses into the right slab in both frames)
+    where the stiff ball's front reaches the slab boundary (`snapshot`,
+    made by ``balls_snapshot`` in the check block, with the front's x and
+    its seconds: it crosses into the right slab in both frames)
     and scripts/async/water.py's dam (1,056,758 particles) at res 128 through
     DistributedAsyncMPM on two ranks sharing the card (gloo), a warm-up
     frame and a timed frame each (``async_path_frames``), beside
@@ -4643,21 +5237,15 @@ def phase_dist_async_path(card):
     with a context on each rank; balls: particles migrate in the timed
     frame. The two ranks time-share one H100: this is no scaling number.
     Returns the launches by scene and rank."""
-    import tempfile
 
     import torch
 
     from taichi_mpm_torch.core.adaptive import AsyncMPM
-    from taichi_mpm_torch.parallel import comm
 
     failures = []
-    snapshots = tempfile.TemporaryDirectory(prefix="chip_smoke_balls_")
-    snapshot = os.path.join(snapshots.name, "balls.npz")
-    front, snapshot_s = balls_snapshot(snapshot)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = comm.run_ranks(dist_async_path_rank, 2, "gloo", args=(snapshot,),
-                           timeout_s=DIST_TIMEOUT_S)
+    ranks = ranks_of(dist_async_path_rank, 2, args=(snapshot,))
     ranks_s = time.perf_counter() - t0
     one = {}
     for name in ("balls", "dam"):
@@ -4691,7 +5279,6 @@ def phase_dist_async_path(card):
               balls_resume_frames=BALLS_RESUME_FRAMES, balls_front_x=front,
               balls_snapshot_s=snapshot_s, ranks_s=ranks_s,
               clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit"), failures=failures))
-    snapshots.cleanup()
     raise_failures(failures)
     return {f"dist_async_path_{name}_rank{r[name]['rank']}": r[name]["launches"]
             for r in ranks for name in r}
@@ -4841,8 +5428,7 @@ def phase_dist_dense_check(card):
     del sim, p
     with comm.process_group("nccl", 0, 1, comm.free_port(), timeout_s=DIST_TIMEOUT_S):
         nccl = dense_slab_runs()
-    gloo = comm.run_ranks(dense_slab_runs, 2, "gloo", args=(DIST_DEVICE, True),
-                          timeout_s=DIST_TIMEOUT_S)
+    gloo = ranks_of(dense_slab_runs, 2, args=(DIST_DEVICE, True))
     bounds = dict(strip=DENSE_SLAB_BOUNDS, cube=(("x", 1e-6), ("v", 1e-5), ("F", 1e-5)))
     shown = {}
     for label, res in [("nccl", nccl)] + [(f"gloo rank {r}", g) for r, g in enumerate(gloo)]:
@@ -4897,7 +5483,7 @@ SCRIPT_UNFUSED = ("robot", "sand_layers")  # also on TMT_FUSED=0: p2g_blocked la
 PLAST_GAP_SHARE = 0.1
 # scripts_path: each script at its own res, a warm-up frame and a timed frame;
 # the 5e-5 s CPIC scripts' frames cut to 20 substeps, the others their 0.01 s
-SCRIPT_PATH_CPIC_FRAME_DT = 1e-3
+SCRIPT_PATH_CPIC_FRAME_DT = 5e-4  # 10 substeps of the CPIC scripts' 5e-5 s
 SCRIPT_PATH_TIMED_FRAMES = 1  # after one warm-up frame
 SCRIPT_STAGE_SUBSTEPS = 4  # the CPIC scripts' stage breakdown
 DEMO_BOUNDS = (("x", 5e-6), ("v", 5e-5), ("F", 5e-6))  # tests/port/test_torch_demos.py
@@ -4990,7 +5576,7 @@ def phase_scripts_check():
                           plast_cpu=cpu.plasticity_counter, sand_knife_edges=slack,
                           near_b=int(card.particles.near_b.sum()), card_s=card_s, cpu_s=cpu_s)
     launches = read_counts()
-    failures += [f"{kernel} never launched" for kernel, n in launches.items() if n == 0]
+    failures += [f"{kernel} never launched" for kernel in TRANSFER_KERNELS if not launches[kernel]]
     emit(dict(phase="scripts_check", **out, launches=launches, failures=failures))
     raise_failures(failures)
     return launches
@@ -5000,7 +5586,7 @@ def phase_scripts_path(card):
     """Each of the 14 script entries through ``runner.main`` on the card,
     at the script's own res and particle count, every launch count set
     to 0 first: a warm-up frame and SCRIPT_PATH_TIMED_FRAMES timed frames
-    (the 5e-5 s CPIC scripts' cut to 1e-3 s, 20 substeps, by --frame-dt).
+    (the 5e-5 s CPIC scripts' cut to 5e-4 s, 10 substeps, by --frame-dt).
     Per script: particles, ms per substep over the timed frames (host
     clock around each frame, fenced; the warm-up frame, which pays the
     scene's finalize, first sort and allocations, apart), particle-steps/s,
@@ -5091,7 +5677,7 @@ def phase_scripts_path(card):
     cpic_substeps = sum(sum(out[name]["substeps_per_frame"]) for name in SCRIPT_KINDS["cpic"])
     substeps = sum(sum(row["substeps_per_frame"]) for row in out.values())
     expected = dict(p2g_fused=substeps, g2p_fused=substeps - cpic_substeps,
-                    g2p_blocked=cpic_substeps, p2g_blocked=0)
+                    g2p_blocked=cpic_substeps, p2g_blocked=0, body_totals=0)
     failures += [f"{kernel} launched {n} times on the scripts' path, not {expected[kernel]} "
                  "(once per substep of its route)" for kernel, n in launches.items()
                  if n != expected[kernel]]
@@ -5144,6 +5730,60 @@ def phase_demo_mpm88():
     raise_failures(failures)
 
 
+# The check block's phases (none times anything) in the check lanes, the
+# longest first (their seconds in a whole run on a slow host: PERF.md),
+# each with its arguments ("card": the card's name) and where its value
+# goes: the kernels line's launches of a path, "paths" (a dict of paths),
+# "reference" (a CPU reference a timed phase takes) or nothing.
+CHECK_PHASES = (
+    ("phase_mesh_check", ("card",), "paths"),
+    ("phase_dist_check", ("card", "cpic"), "paths"),
+    ("phase_materials25", (0, 3), None),
+    ("phase_materials25", (1, 3), None),
+    ("phase_materials25", (2, 3), None),
+    ("phase_emission_check", (), None),
+    ("phase_dist_async_check", ("card",), "paths"),
+    ("phase_dist_check", ("card", "plain"), "paths"),
+    ("phase_bucketed_check", (), None),
+    ("phase_dist_dense_check", ("card",), "paths"),
+    ("phase_dense_check", (), "dense_check"),
+    ("phase_scripts_check", (), "scripts_check"),
+    ("dense_path_reference", (), "reference"),
+)
+# the check block's shorter phases, run here after the warm-ups, each with
+# where its value goes (as in CHECK_PHASES)
+PARENT_CHECK_PHASES = (
+    ("phase_dense_cpic_check", (), "dense_cpic_check"),
+    ("phase_wheel_2d_coupled", ("card",), "wheel_2d_coupled"),
+    ("phase_cube25", (), None), ("phase_water25", (), None), ("phase_dam_check", (), None),
+    ("phase_cpic_check", ("water",), None), ("phase_cpic_check", ("sand",), None),
+    ("phase_cpic_unfused_check", (), None), ("phase_sand_column_check", (), None),
+    ("phase_dense_vs_blocked", (), None), ("phase_dense_adaptive", (), None),
+    ("phase_p2g_edges", (), None), ("phase_g2p_edges", (), None),
+    ("phase_body_totals_check", (), None), ("phase_dense_cpic_vs_fused", (), None),
+    ("phase_demo_mpm88", (), None),
+)
+
+
+def parent_checks(card, wheel_snapshot, balls):
+    """This process's share of the check block: the CPIC wheel's and the
+    balls' warm-ups for the timed paths, then PARENT_CHECK_PHASES, with
+    the lanes' CPU threads. Returns the warm-ups' records and the phases'
+    values in the order of PARENT_CHECK_PHASES."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(LANE_THREADS)
+    try:
+        warm = cpic_warm_snapshot(wheel_snapshot)
+        balls_run = balls_snapshot(balls)
+        values = [globals()[name](*(card if a == "card" else a for a in args))
+                  for name, args, _ in PARENT_CHECK_PHASES]
+    finally:
+        torch.set_num_threads(threads)
+    return warm, balls_run, values
+
+
 def main():
     import tempfile
 
@@ -5156,6 +5796,9 @@ def main():
     if sys.argv[1:2] == ["--kernel-tree"]:
         kernel_tree(*sys.argv[2:3])
         return 0
+    if sys.argv[1:2] == ["--dense-cpic-tree"]:
+        dense_cpic_tree(*sys.argv[2:3])
+        return 0
     t_start = time.perf_counter()
     # the port itself: fails here when the script stands outside a checkout
     from taichi_mpm_torch.ops import cuda_build
@@ -5165,19 +5808,42 @@ def main():
     emit(dict(phase="card", card=card, torch=torch.__version__, cuda=torch.version.cuda))
     t0 = time.perf_counter()
     libraries = [(src, mats) for src in ("p2g", "g2p") for mats in LIBRARY_SETS]
+    libraries.append(("body_totals", 0))
     per_library = cuda_build.build(*libraries)
     emit(dict(phase="build", seconds=time.perf_counter() - t0, seconds_per_library=per_library,
               ptxas={f"{src}_{mats}": cuda_build.ptxas_report(src, mats)
                      for src, mats in libraries}))
+    clock_cpu_frames()
     emit(dict(phase="p2g_checksums", sha256=p2g_checksums()))
     emit(dict(phase="g2p_checksums", sha256=g2p_checksums()))
-    phase_p2g_edges()
-    phase_g2p_edges()
 
-    launches = {}
-    phase_cube25()
-    phase_water25()
-    phase_materials25()
+    # The check block: the phases that time nothing, in check lanes at
+    # once, while this process warms the CPIC wheel and the balls for the
+    # timed paths; the rank groups of those paths start up meanwhile.
+    snapshots = tempfile.TemporaryDirectory(prefix="chip_smoke_snapshots_")
+    wheel_snapshot = os.path.join(snapshots.name, "wheel.npz")
+    balls = os.path.join(snapshots.name, "balls.npz")
+    RANK_GROUPS.update({world: RankGroup(world) for world in (2, 4)})
+    t_checks = time.perf_counter()
+    tasks = [(name, tuple(card if a == "card" else a for a in args))
+             for name, args, _ in CHECK_PHASES]
+    values, (warm, balls_run, mine) = check_block(
+        tasks, lambda: parent_checks(card, wheel_snapshot, balls))
+    checks_s = time.perf_counter() - t_checks
+    emit(dict(phase="check_block", seconds=checks_s, lanes=CHECK_LANES,
+              lane_threads=LANE_THREADS, cpic_warmup_s=warm["warmup_s"],
+              balls_snapshot_s=balls_run[1]))
+    launches, refs = {}, {}
+    for (name, _, key), value in zip(CHECK_PHASES + PARENT_CHECK_PHASES, values + mine):
+        if key == "paths":
+            launches.update(value)
+        elif key == "reference":
+            refs[name] = value
+        elif key is not None:
+            launches[key] = value
+
+    # The timed block: one phase at a time, alone on the card.
+    t_timed = time.perf_counter()
     sim, launches["jelly_8m"], fused_ms = phase_main_path(card)
     phase_profile(sim, card)  # steps one more frame: before the phases that share its state
     phase_breakdown(sim, card)
@@ -5188,80 +5854,38 @@ def main():
     phase_stage_report(sim, card)
     del sim
     launches["sand_8m"] = phase_sand_path(card)
-    phase_dam_check()
     launches["dam_fused"], dam_ms, lattice = phase_dam(card, fused=True)
     launches["dam_unfused"], _, _ = phase_dam(card, fused=False)
     launches["script_dam"], kept = phase_script_dam(card, lattice)
     phase_script_resume(kept)
-    t_new = time.perf_counter()
-    phase_bucketed_check()
     for name, counts in phase_bucketed_path(card, kept["substeps"]).items():
         launches[f"bucketed_{name}"] = counts
-    new_phases_s = time.perf_counter() - t_new
-    phase_energy_check()
-    phase_emission_check()
-    phase_cpic_check()
-    phase_cpic_check("sand")
-    t_new = time.perf_counter()
-    phase_cpic_unfused_check()
-    new_phases_s += time.perf_counter() - t_new
-    phase_sand_column_check()
-    sim, launches["cpic_wheel"], fixed_syncs, cpic_ms = phase_cpic_path(card)
+    sim, launches["cpic_wheel"], fixed_syncs, cpic_ms = phase_cpic_path(card, warm,
+                                                                        wheel_snapshot)
     phase_cpic_breakdown(sim, card)
-    phase_profile(sim, card, phase="cpic_profile")
+    phase_profile(sim, card, phase="cpic_profile", substeps=CPIC_PROFILE_SUBSTEPS)
     # the wheel's state with the water on it, for the phases that resume it
-    snapshots = tempfile.TemporaryDirectory(prefix="chip_smoke_wheel_")
-    wheel_snapshot = os.path.join(snapshots.name, "wheel.npz")
     sim.save(wheel_snapshot)
     del sim
-    t_new = time.perf_counter()
     launches["cpic_wheel_unfused"] = phase_cpic_unfused_path(card, wheel_snapshot, cpic_ms)
-    new_phases_s += time.perf_counter() - t_new
     launches["cpic_wheel_adaptive"] = phase_cpic_adaptive(card, fixed_syncs)
-    launches["dense_check"] = phase_dense_check()
-    phase_dense_vs_blocked()
-    launches["dense_balls"] = phase_dense_path(card)
-    phase_dense_adaptive()
+    launches["dense_balls"] = phase_dense_path(card, refs["dense_path_reference"])
     launches["dense_jelly_8m"] = phase_dense_scale(card, fused_ms)
-    t_dense_cpic = time.perf_counter()
-    launches["dense_cpic_check"] = phase_dense_cpic_check()
-    phase_dense_cpic_vs_fused()
     launches["wheel_2d"] = phase_wheel_2d_path(card)
-    launches["dense_cpic_wheel_100k"] = phase_dense_cpic_scale(card, cpic_ms)
-    dense_cpic_s = time.perf_counter() - t_dense_cpic
-    t_dist = time.perf_counter()
-    launches.update(phase_dist_check(card))
+    launches["dense_cpic_wheel_100k"], measured["body_totals"] = phase_dense_cpic_scale(
+        card, cpic_ms, wheel_snapshot)
     dist_launches, one_8m_ms = phase_dist_path(card)
     launches.update(dist_launches)
-    dist_s = time.perf_counter() - t_dist
-    t_dist_cpic = time.perf_counter()
-    launches.update(phase_dist_check(card, "cpic"))
     launches.update(phase_slab_cpic_paths(card, wheel_snapshot))
-    dist_cpic_s = time.perf_counter() - t_dist_cpic
-    t_mesh = time.perf_counter()
-    launches.update(phase_mesh_check(card))
     launches.update(phase_mesh_path(card, one_8m_ms))
     launches.update(phase_mesh_cpic_path(card, wheel_snapshot))
+    launches.update(phase_dist_async_path(card, balls, *balls_run))
     snapshots.cleanup()
-    mesh_s = time.perf_counter() - t_mesh
-    t_dist_async = time.perf_counter()
-    launches.update(phase_dist_async_check(card))
-    launches.update(phase_dist_async_path(card))
-    launches.update(phase_dist_dense_check(card))
-    dist_async_s = time.perf_counter() - t_dist_async
-    t_scripts = time.perf_counter()
-    launches["scripts_check"] = phase_scripts_check()
-    scripts_check_s = time.perf_counter() - t_scripts
     launches["scripts_path"] = phase_scripts_path(card)
-    scripts_path_s = time.perf_counter() - t_scripts - scripts_check_s
-    phase_demo_mpm88()
-    emit(dict(phase="timing", dense_cpic_phases_s=dense_cpic_s,
-              bucketed_and_unfused_cpic_phases_s=new_phases_s, dist_phases_s=dist_s,
-              dist_cpic_phases_s=dist_cpic_s,
-              mesh_phases_s=mesh_s,
-              dist_async_and_dense_phases_s=dist_async_s, scripts_check_s=scripts_check_s,
-              scripts_path_s=scripts_path_s,
-              scripts_phases_s=time.perf_counter() - t_scripts,
+    for group in RANK_GROUPS.values():
+        group.close()
+    emit(dict(phase="timing", check_block_s=checks_s, check_lanes=CHECK_LANES,
+              timed_block_s=time.perf_counter() - t_timed,
               script_s=time.perf_counter() - t_start))
     emit({"kernels": kernels_line(measured, launches, dam_ms, by_material)})
     print(card, flush=True)

@@ -15,6 +15,7 @@ at every packed finish on the CPU; on the dense path
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import time
 from dataclasses import dataclass, field
@@ -96,6 +97,228 @@ def trace(log_dir: str = "taichi_mpm_torch_trace"):
     path = os.path.join(log_dir, "trace.json")
     prof.export_chrome_trace(path)
     print(f"[taichi_mpm_torch] trace written to {path}")
+
+
+# -- the coupled dense CPIC substep, stage by stage, card against CPU -------------
+
+# the stages of ``rigid.cpic.cpic_substep`` in the order they run, each
+# (stage, field); ``stage_values`` gives each its value and the largest
+# addend that fed it (None: an integer stage, compared for equality)
+STAGE_ORDER = (
+    ("cdf", "grid_rid"), ("cdf", "grid_states"), ("cdf", "grid_dist"), ("cdf", "states"),
+    ("cdf", "near_b"), ("cdf", "bdist"), ("cdf", "bnormal"),
+    ("p2g", "force"), ("p2g", "addends"), ("p2g", "grid"), ("p2g", "offset_J"), ("p2g", "offset_tau"), ("p2g", "J"), ("p2g", "tau"),
+    ("p2g", "body_vel"), ("p2g", "body_omega"),
+    ("grid_update", "v"),
+    ("g2p", "x"), ("g2p", "v"), ("g2p", "C"), ("g2p", "F"), ("g2p", "J"), ("g2p", "tau"),
+    ("end", "x"), ("end", "v"), ("end", "F"), ("end", "C"),
+    ("end", "body_pos"), ("end", "body_vel"), ("end", "body_omega"), ("end", "body_rot"),
+)
+
+
+def _amax(x) -> float:
+    x = x[torch.isfinite(x)] if x.is_floating_point() else x
+    return float(x.abs().max()) if x.numel() else 0.0
+
+
+def stage_values(stages: dict) -> dict:
+    """(stage, field) -> (value, largest addend or None) of one substep's
+    ``cpic_substep(stages=...)``: particle fields over the lanes active at
+    the substep's start, the grids whole."""
+    pin = stages["cdf_particles"]
+    act = pin.active
+    grid_dist, grid_rid, grid_states = stages["cdf_planes"]
+    rows = {k: stages[k + "_rows"] for k in ("p2g", "g2p")}
+    addend = {k: (_amax(rows[k][1]), _amax(rows[k][2])) for k in rows}
+    Jk, tk = stages["p2g_offset_totals"]
+    J1, tau1 = stages["p2g_totals"]
+    J2, tau2 = stages["g2p_totals"]
+    pg, pe = stages["g2p_particles"], stages["particles"]
+    b1, be = stages["p2g_bodies"], stages["bodies"]
+
+    def own(v):
+        return v, _amax(v)
+
+    out = {("cdf", "grid_rid"): (grid_rid, None), ("cdf", "grid_states"): (grid_states, None),
+           ("cdf", "grid_dist"): own(grid_dist), ("cdf", "states"): (pin.states[act], None),
+           ("cdf", "near_b"): (pin.near_b[act], None), ("cdf", "bdist"): own(pin.bdist[act]),
+           ("cdf", "bnormal"): own(pin.bnormal[act]),
+           ("p2g", "force"): own(stages["p2g_force"][act]),
+           ("p2g", "addends"): own(stages["p2g_scatter_addends"][:, act]),
+           ("p2g", "grid"): (stages["p2g_grid"], _amax(stages["p2g_scatter_addends"])),
+           ("p2g", "offset_J"): (Jk, addend["p2g"][0]), ("p2g", "offset_tau"): (tk, addend["p2g"][1]),
+           ("p2g", "J"): (J1, addend["p2g"][0]), ("p2g", "tau"): (tau1, addend["p2g"][1]),
+           ("p2g", "body_vel"): own(b1.vel), ("p2g", "body_omega"): own(b1.omega),
+           ("grid_update", "v"): own(stages["grid_v"]),
+           ("g2p", "x"): own(pg.x[act]), ("g2p", "v"): (pg.v[act],
+                                                       _amax(stages["g2p_gather_addends"])),
+           ("g2p", "C"): own(pg.C[act]), ("g2p", "F"): own(pg.F[act]),
+           ("g2p", "J"): (J2, addend["g2p"][0]), ("g2p", "tau"): (tau2, addend["g2p"][1])}
+    for name in ("x", "v", "F", "C"):
+        out["end", name] = own(getattr(pe, name)[act])
+    for name in ("pos", "vel", "omega", "rot"):
+        out["end", "body_" + name] = own(getattr(be, name))
+    return out
+
+
+def parting(a, b, scale) -> dict:
+    """How far value `a` parts from `b`: for an integer stage (scale
+    None) whether they are equal; else the max abs difference over the
+    entries finite in both (inf where the finite entries differ), and that
+    difference in ulps of `scale` (float32 spacing at the largest addend)."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if scale is None:
+        return dict(equal=bool(torch.equal(a, b)))
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(fa, fb):
+        return dict(diff=float("inf"), scale=scale, ulps=float("inf"))
+    diff = float((a[fa].double() - b[fb].double()).abs().max()) if fa.any() else 0.0
+    ulp = float(np.spacing(np.float32(scale))) if scale > 0 else float(np.spacing(np.float32(0)))
+    return dict(diff=diff, scale=scale, ulps=diff / ulp)
+
+
+def masked_body_sums(rid, J, tau, R: int):
+    """The body totals as per-body masked sums (torch's reductions: a tree
+    on the card), the summation the dense CPIC path used on the card
+    before ``ops.body_sums``; for comparison only."""
+    return tuple(torch.stack([torch.where((rid == r)[..., None], v, 0.0).sum(-2)
+                              for r in range(R)], -2) for v in (J, tau))
+
+
+def _to(obj, device):
+    return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).to(device)
+                                       for f in dataclasses.fields(obj)})
+
+
+def substep_partings(cpu_stages: dict, card_stages: dict, R: int, device) -> dict:
+    """One substep's partings, "stage.field" -> ``parting``: each stage of
+    the card's substep against the CPU's (both from the CPU's state at the
+    substep's start), then the sum order alone (``sum_order.*``): the body
+    totals of the CPU's own addends summed on the card by
+    ``ops.body_sums.body_totals`` and by ``masked_body_sums``, against the
+    CPU's totals."""
+    from taichi_mpm_torch.ops import body_sums
+
+    cpu, card = stage_values(cpu_stages), stage_values(card_stages)
+    out = {f"{st}.{f}": parting(card[st, f][0], cpu[st, f][0], cpu[st, f][1])
+           for st, f in STAGE_ORDER}
+    for key, totals in (("p2g", "p2g_offset_totals"), ("g2p", "g2p_totals")):
+        rows = [r.to(device) for r in cpu_stages[key + "_rows"]]
+        want = cpu_stages[totals]
+        scales = (_amax(rows[1]), _amax(rows[2]))
+        for how, got in (("kernel", body_sums.body_totals(*rows, R)),
+                         ("masked_sum", masked_body_sums(*rows, R))):
+            for name, g, w, sc in zip(("J", "tau"), got, want, scales):
+                out[f"sum_order.{key}_{how}_{name}"] = parting(g, w, sc)
+    return out
+
+
+@contextlib.contextmanager
+def _each_cpic_substep(hook):
+    """Every ``rigid.cpic.cpic_substep`` call of the block goes through
+    hook(substep, *args), which runs it."""
+    from taichi_mpm_torch.rigid import cpic
+
+    real = cpic.cpic_substep
+    cpic.cpic_substep = lambda *args, **kw: hook(real, *args, **kw)
+    try:
+        yield
+    finally:
+        cpic.cpic_substep = real
+
+
+def coupled_stage_partings(make, snapshot: str, frame: int = 0, source=None, device="cuda"):
+    """Where the card and the CPU part in a dense CPIC frame, substep by
+    substep: `make(device)` builds the scene (``MPM`` or ``AsyncMPM``),
+    both copies load `snapshot` (and take ``source(sim, frame)`` where
+    given), and the CPU steps one frame; before each of its substeps the
+    CPU's state (particles, bodies, t) is copied to the card, which runs
+    the same substep (the CPU's dt) on it, so each substep's partings are
+    its own. Returns (a list with each substep's ``substep_partings``, the
+    CPU scene after the frame)."""
+    cpu, card = make("cpu"), make(device)
+    for sim in (cpu, card):
+        sim.load(snapshot)
+        if source is not None:
+            source(sim, frame)
+    card._prepare_frame()  # the card's rigid scene and node positions
+    R = card.bodies.num
+    out = []
+
+    def hook(real, p, bodies, t, cfg, scene, dt, xg=None):
+        cpu_stages, card_stages = {}, {}
+        result = real(p, bodies, t, cfg, scene, dt, xg, stages=cpu_stages)
+        real(_to(p, card.device), _to(bodies, card.device), t, card.cfg, card.rigid_scene, dt,
+             card._xg, stages=card_stages)
+        out.append(substep_partings(cpu_stages, card_stages, R, card.device))
+        return result
+
+    with _each_cpic_substep(hook):
+        cpu.step()
+    return out, cpu
+
+
+def substep_stages(sim, dt=None) -> dict:
+    """The stages (``cpic_substep(stages=...)``) of one dense CPIC substep
+    of dt (default base_dt) from the scene's state, on its live lanes; the
+    scene is not advanced."""
+    from taichi_mpm_torch.core.state import FIELDS, Particles
+    from taichi_mpm_torch.rigid import cpic
+
+    sim._prepare_frame()
+    n = sim._live_lanes()
+    p = Particles(**{f: getattr(sim._particles, f)[:n] for f in FIELDS})
+    stages = {}
+    cpic.cpic_substep(p, sim.bodies, sim.t, sim.cfg, sim.rigid_scene,
+                      np.float32(dt or sim.cfg.base_dt), sim._xg, stages=stages)
+    return stages
+
+
+def body_totals_edge_inputs(seed: int = 0) -> dict:
+    """Inputs of ``ops.body_sums.body_totals`` at its edges, label ->
+    (rid (L, N) int64, J (L, N, ca), tau (L, N, cb) float32, R), in numpy:
+    several offsets and bodies, lanes of no body (rid -1), a body with no
+    lane, a row where one body holds most lanes, N not a multiple of the
+    kernel's 256-lane step, one lane, a row of one body alone, no valid
+    lane at all; values over six decades of both signs, so that the order
+    of a sum shows in its bits, and NaN in J on half the lanes of no body,
+    which the sums must not read."""
+    rng = np.random.default_rng(seed)
+
+    def values(shape):
+        return (rng.standard_normal(shape) * 10.0 ** rng.uniform(-3, 3, shape)).astype(np.float32)
+
+    def case(L, N, R, ca, cb, invalid=0.4, empty=(), crowd=None):
+        rid = rng.integers(0, R, (L, N))
+        for r in empty:
+            rid[rid == r] = (r + 1) % R
+        if crowd is not None:  # (row, body): that body holds 95% of the row's lanes
+            row, r = crowd
+            rid[row] = np.where(rng.uniform(size=N) < 0.95, r, rid[row])
+        rid[rng.uniform(size=(L, N)) < invalid] = -1
+        J, tau = values((L, N, ca)), values((L, N, cb))
+        J[(rid < 0) & (rng.uniform(size=(L, N)) < 0.5)] = np.nan  # never read
+        return rid, J, tau, R
+
+    return {
+        "offsets_2d": case(9, 1000, 3, 2, 1, empty=(1,)),
+        "offsets_3d": case(27, 777, 4, 3, 3, empty=(3,), crowd=(5, 0)),
+        "one_row": case(1, 5000, 2, 3, 3, invalid=0.9),
+        "one_lane": case(2, 1, 1, 2, 1, invalid=0.0),
+        "one_body": case(3, 600, 1, 3, 3, invalid=0.2),
+        "none_valid": case(3, 300, 2, 3, 3, invalid=1.0),
+    }
+
+
+def first_parting(partings: list, ulps: float = 4.0):
+    """The first (substep, "stage.field") in the stages' order whose parting
+    exceeds `ulps` (or whose integers differ), or None."""
+    for n, sub in enumerate(partings):
+        for st, f in STAGE_ORDER:
+            r = sub[f"{st}.{f}"]
+            if not r.get("equal", True) or r.get("ulps", 0.0) > ulps:
+                return n, f"{st}.{f}"
+    return None
 
 
 def device_memory_report(device=None) -> Optional[dict]:

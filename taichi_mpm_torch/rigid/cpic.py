@@ -14,12 +14,17 @@ path over whole-grid arrays, in 2-D or 3-D and at any B-spline order.
 Every stencil offset is computed at once as in ``core.transfer``, and the
 sums keep the JAX package's order: the P2G scatter is one ordered
 scatter, offset-major (``utils.index_add_ordered``); the impulses onto
-the bodies are summed per offset (on the CPU one ordered scatter into
-per-offset rows, on the card per-body masked sums, ``_body_totals``) and
-the offsets' totals then added in offset order; in G2P the last
-incompatible node of the stencil names the body the penalty impulse goes
-to. So the frame has the same bits on every run on the card. The helpers ``_compatible`` and ``_friction_of`` serve the packed
-CPIC path too.
+the bodies are summed per offset and body in particle order, on every
+device (``_body_totals``: ``ops.body_sums.body_totals``, on the card the
+hand-written kernel ``csrc/body_totals.cu``, on the CPU its twin, one
+ordered scatter into per-offset rows), and the offsets' totals then
+added in offset order; in G2P the last incompatible node of the stencil
+names the body the penalty impulse goes to. So the card sums the bodies'
+totals in the CPU's and the JAX package's order, and the frame has the
+same bits on every run on the card. ``cpic_substep(stages=...)`` keeps
+each stage's outputs (``diagnostics.coupled_stage_partings``). The
+helpers ``_compatible`` and ``_friction_of`` serve the packed CPIC path
+too.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from taichi_mpm_torch.core.levelset import friction_project
 from taichi_mpm_torch.core.state import Particles
 from taichi_mpm_torch.materials import models as materials
 from taichi_mpm_torch.math.kernels import inv_D
+from taichi_mpm_torch.ops import body_sums
 from taichi_mpm_torch.rigid import cdf
 from taichi_mpm_torch.rigid.body import (
     RigidBodies,
@@ -86,47 +92,49 @@ def _stencil(p: Particles, cfg: SimConfig, grid_rid, grid_states, nd=None):
     return dict(nd, lin=torch.where(nd["inb"], transfer._ravel(nd["nidx"], cfg.grid_nodes), 0))
 
 
-def _body_totals(bodies: RigidBodies, rid, J, at, valid):
+def _body_totals(bodies: RigidBodies, rid, J, at, valid, stages=None, key="p2g"):
     """``accumulate_impulses`` over the particle axis (the last but one of
     J) of each leading row (a stencil offset, if any): the impulses J at
     points `at` where valid, per body rid. Returns (J (..., R, d), torque
-    (..., R, 3 or 1)). On the CPU an ordered scatter, the JAX package's
-    sum order; on the card per-body masked sums, which are deterministic
-    too (an ordered scatter into a few rows sums each row in one thread
-    there: 82 of 91 ms of a dense CPIC substep of the 100k wheel on an
-    H100)."""
-    R = bodies.num
+    (..., R, 3 or 1)). Each row is summed in particle order on every
+    device, the CPU's and the JAX package's order
+    (``ops.body_sums.body_totals``: on the card the hand-written kernel
+    ``csrc/body_totals.cu``, on the CPU an ordered scatter into per-offset
+    rows). Torch's per-body masked sums on the card reduced as a tree,
+    which moved the 2-D async wheel's omega past the body bound; an
+    ordered scatter into a few rows sums each row in one thread over
+    every lane there (82 of 91 ms of a dense CPIC substep of the 100k
+    wheel on an H100). `stages` (a dict) receives the addends under
+    `key` + "_rows": each lane's body (-1 where not valid), J and
+    torque."""
     J = torch.where(valid[..., None], J, 0.0)
-    tau = _torque_of(at - bodies.pos[rid], J)
-    if J.device.type == "cuda":
-        return tuple(torch.stack([torch.where((rid == r)[..., None], v, 0.0).sum(-2)
-                                  for r in range(R)], -2) for v in (J, tau))
-    lead = rid.shape[:-1]
-    n_lead = int(np.prod(lead))
-    rows = (torch.arange(n_lead, device=rid.device)[:, None] * R
-            + rid.reshape(n_lead, -1)).reshape(-1)
-    return tuple(index_add_ordered(torch.zeros((n_lead * R, v.shape[-1]), device=v.device), rows,
-                                   v.reshape(-1, v.shape[-1])).reshape(lead + (R, -1))
-                 for v in (J, tau))
+    rows = (torch.where(valid, rid, -1), J, _torque_of(at - bodies.pos[rid], J))
+    if stages is not None:
+        stages[key + "_rows"] = rows
+    return body_sums.body_totals(*rows, bodies.num)
 
 
-def _offset_sums(bodies: RigidBodies, rid, J, at, valid):
+def _offset_sums(bodies: RigidBodies, rid, J, at, valid, stages=None):
     """The impulse totals of each stencil offset (leading axis K,
-    ``_body_totals``) added in offset order."""
-    Jk, tk = _body_totals(bodies, rid, J, at, valid)
+    ``_body_totals``) added in offset order. `stages` (a dict) receives
+    the addends, the per-offset totals and their sums."""
+    Jk, tk = _body_totals(bodies, rid, J, at, valid, stages)
     J_tot, tau_tot = Jk[0], tk[0]
     for k in range(1, Jk.shape[0]):
         J_tot = J_tot + Jk[k]
         tau_tot = tau_tot + tk[k]
+    if stages is not None:
+        stages.update(p2g_offset_totals=(Jk, tk), p2g_totals=(J_tot, tau_tot))
     return J_tot, tau_tot
 
 
 def p2g_cpic(p: Particles, bodies: RigidBodies, grid_rid, grid_states, cfg: SimConfig, dt,
-             nd=None):
+             nd=None, stages=None):
     """CPIC P2G: the dense P2G of ``core.transfer`` into the compatible
     nodes, and the impulses of the incompatible ones on their bodies
-    (`nd`: see ``_stencil``). Returns (grid nodes + (d + 1,), J_tot (R,
-    d), tau_tot (R, 3) or (R, 1) in 2-D)."""
+    (`nd`: see ``_stencil``; `stages`: see ``cpic_substep``). Returns
+    (grid nodes + (d + 1,), J_tot (R, d), tau_tot (R, 3) or (R, 1) in
+    2-D)."""
     d = cfg.dim
     R = bodies.num
     smask = cdf.state_mask(R)
@@ -164,16 +172,19 @@ def p2g_cpic(p: Particles, bodies: RigidBodies, grid_rid, grid_states, cfg: SimC
     fric = _friction_of(bodies, nrid, p.states)
     dv = vel - friction_project(vel, rigid_v, p.bnormal, fric)
     impulse = (mass * wo)[..., None] * dv + float(np.float32(dt)) * mv(force, st["gradw"])
-    J_tot, tau_tot = _offset_sums(bodies, rid_safe, impulse, xg, hit)
-    return flat.reshape(tuple(cfg.grid_nodes) + (d + 1,)), J_tot, tau_tot
+    J_tot, tau_tot = _offset_sums(bodies, rid_safe, impulse, xg, hit, stages)
+    grid = flat.reshape(tuple(cfg.grid_nodes) + (d + 1,))
+    if stages is not None:
+        stages.update(p2g_force=force, p2g_scatter_addends=val, p2g_grid=grid)
+    return grid, J_tot, tau_tot
 
 
 def g2p_cpic(p: Particles, bodies: RigidBodies, grid_v, grid_rid, grid_states, cfg: SimConfig,
-             dt, return_count: bool = False, nd=None):
+             dt, return_count: bool = False, nd=None, stages=None):
     """CPIC G2P: the dense gather with each incompatible node's velocity
     replaced by the ghost velocity, ``core.transfer.g2p_finish`` (near-
     boundary particles zero their C), then the boundary penalty (`nd`: see
-    ``_stencil``). Returns
+    ``_stencil``; `stages`: see ``cpic_substep``). Returns
     (particles, J_tot, tau_tot) of the penalty impulses [, the plasticity
     count as a 0-d tensor]."""
     d = cfg.dim
@@ -217,14 +228,17 @@ def g2p_cpic(p: Particles, bodies: RigidBodies, grid_v, grid_rid, grid_states, c
     dv = p.bdist[:, None] * p.bnormal * cfg.penalty
     v_fixed = torch.where(pen[:, None], p.v - dv, p.v)
     J_tot, tau_tot = _body_totals(bodies, torch.clamp(rid_last, 0, R - 1).long(),
-                                  dv * p.mass[:, None], p.x, pen & (rid_last >= 0))
+                                  dv * p.mass[:, None], p.x, pen & (rid_last >= 0), stages, "g2p")
     p = dataclasses.replace(p, v=v_fixed)
+    if stages is not None:
+        stages.update(g2p_gather_addends=wgv, g2p_particles=p, g2p_totals=(J_tot, tau_tot))
     if return_count:
         return p, J_tot, tau_tot, count
     return p, J_tot, tau_tot
 
 
-def cpic_substep(p: Particles, bodies: RigidBodies, t, cfg: SimConfig, scene, dt, xg=None):
+def cpic_substep(p: Particles, bodies: RigidBodies, t, cfg: SimConfig, scene, dt, xg=None,
+                 stages=None):
     """One coupled substep of the dense path, in the reference's order:
     coupling_iterations x {rigid-rigid collision and articulations (on
     the host, ``rigid.host``), rasterize the CDF}, gather the particles'
@@ -232,8 +246,14 @@ def cpic_substep(p: Particles, bodies: RigidBodies, t, cfg: SimConfig, scene, dt
     level set, the grid update, CPIC G2P (+ penalty impulses), the
     per-particle collision and the boundary clean-up where cfg asks for
     them, then advance the bodies. `xg` are the grid's node positions
-    (``core.transfer.node_positions``). Returns (p, bodies, t + dt in
-    float32, the plasticity count as a 0-d tensor)."""
+    (``core.transfer.node_positions``). A dict `stages` receives each
+    stage's outputs: the CDF planes, the gathered particles and the
+    bodies after the rigid prologue, the materials' force, the P2G
+    scatter's addends and grid, each impulse sum's addends (``rows``),
+    per-offset and total sums, the updated grid velocities, the G2P
+    gather's addends and particles, the bodies after P2G's impulses and
+    at the end. Returns (p, bodies, t + dt in float32, the plasticity
+    count as a 0-d tensor)."""
     from taichi_mpm_torch.core.solver import clear_boundary_particles
     from taichi_mpm_torch.rigid import collision as coll
     from taichi_mpm_torch.rigid.cpic_blocked import _solve_bodies
@@ -251,19 +271,26 @@ def cpic_substep(p: Particles, bodies: RigidBodies, t, cfg: SimConfig, scene, dt
     if cfg.kernel_order != 2:
         nd = None  # the transfers' stencil differs from the gather's
 
-    grid, J1, tau1 = p2g_cpic(p, bodies, grid_rid, grid_states, cfg, dt, nd)
+    if stages is not None:
+        stages.update(cdf_planes=(grid_dist, grid_rid, grid_states), cdf_particles=p,
+                      cdf_bodies=bodies)
+    grid, J1, tau1 = p2g_cpic(p, bodies, grid_rid, grid_states, cfg, dt, nd, stages)
     bodies = apply_impulses(bodies, J1, tau1)
     if scene.colliders:
         bodies = coll.rigid_levelset_collision(bodies, xb, scene.bp_rid, scene.colliders, t, dt)
     grid_v, _ = transfer.grid_update(grid, cfg, scene.colliders, t, dt, xg)
+    if stages is not None:
+        stages.update(p2g_bodies=bodies, grid_v=grid_v)
     p, J2, tau2, count = g2p_cpic(p, bodies, grid_v, grid_rid, grid_states, cfg, dt,
-                                  return_count=True, nd=nd)
+                                  return_count=True, nd=nd, stages=stages)
     bodies = apply_impulses(bodies, J2, tau2)
     if cfg.particle_collision:
         p = transfer.particle_collision_resolution(p, cfg, scene.colliders, t)
     if cfg.clean_boundary:
         p = clear_boundary_particles(p, cfg)
     bodies = advance(bodies, t, dt, scene.pos_funcs, scene.rot_funcs, cfg.gravity)
+    if stages is not None:
+        stages.update(particles=p, bodies=bodies)
     return p, bodies, np.float32(t) + np.float32(dt), count
 
 

@@ -26,7 +26,8 @@ import torch
 from taichi_mpm_torch import MPM, scenes
 from taichi_mpm_torch.rigid.mesh import polygon_mesh_2d, segment_mesh_2d, wheel_mesh_2d
 
-from port_helpers import WHEEL_2D_SNAPSHOTS, assert_cpic_close
+from port_helpers import (CPIC_BOUNDS, WHEEL_2D_SNAPSHOTS, assert_cpic_close, max_err,
+                          np_of)
 
 torch.set_num_threads(1)
 
@@ -130,6 +131,115 @@ def test_coupled_frames_match_jax(pair):
     assert tsim.t == np.float32(jsim.t)
     assert tsim.particles.near_b.sum() > 40 and (tsim.particles.states != 0).sum() > 100
     assert_cpic_close(jsim.particles, jsim.bodies, tsim.particles, tsim.bodies)
+
+
+# JAX's stage functions run op by op here (nothing new is compiled as a
+# whole); each takes the port's inputs of its stage, so each stage's
+# difference is its own: grid records to 1e-6 of their
+# scale, impulse and torque totals to 1e-5 (test_torch_cpic_dense.py's
+# bounds), particles at the CPIC bounds
+GRID_REL, IMPULSE_REL = 1e-6, 1e-5
+
+
+def _close_rel(want, got, rel):
+    want = np.asarray(want)
+    assert max_err(want, got) <= rel * max(1.0, float(np.abs(want).max()))
+
+
+def test_coupled_substep_stages_match_jax(pair):
+    """One dense CPIC substep (base_dt) from each coupled snapshot, stage by
+    stage (``diagnostics.substep_stages``, the stages the card is held to
+    in chip_smoke.py's wheel_2d_coupled), against the JAX package's own
+    coloured transfers, each from the port's inputs of its stage: P2G's
+    grid and impulse totals from the port's CDF and bodies, G2P's
+    particles and penalty totals from the port's gathered particles,
+    bodies and grid velocities. The other stages are held to JAX's
+    elsewhere, where they cost no extra compiles: the CDF in
+    test_torch_cdf_2d.py, the grid update in test_torch_dense_transfer.py,
+    the bodies' advance in test_torch_rigid_2d.py."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from taichi_mpm_tpu.rigid import body as jbody
+    from taichi_mpm_tpu.rigid import cpic as jcpic
+    from taichi_mpm_torch import diagnostics
+
+    jsim, tsim = pair["jsim"], pair["make"]()
+    path, _ = WHEEL_2D_SNAPSHOTS[pair["name"]]
+    for sim in (jsim, tsim):
+        sim.load(str(ROOT / path))
+    cfg = jsim.cfg
+    dt = np.float32(cfg.base_dt)
+    st = diagnostics.substep_stages(tsim, dt)
+    pc = st["cdf_particles"]
+    n = pc.x.shape[0]
+    assert int(pc.near_b.sum()) > 40 and int((st["p2g_rows"][0] >= 0).sum()) > 0
+
+    def jax_bodies(b):
+        return jbody.RigidBodies(**{f.name: jnp.asarray(np_of(getattr(b, f.name)))
+                                    for f in dataclasses.fields(b)})
+
+    def jax_particles(p):  # the port's live lanes, then JAX's own (inactive) lanes
+        jp = jsim.particles
+        return dataclasses.replace(jp, **{
+            f: jnp.concatenate([jnp.asarray(np_of(getattr(p, f))), getattr(jp, f)[n:]])
+            for f in ("x", "v", "F", "C", "aux", "states", "bdist", "bnormal", "near_b",
+                      "active")})
+
+    _, grid_rid, grid_states = (jnp.asarray(np_of(a)) for a in st["cdf_planes"])
+    grid, J1, tau1 = jcpic.p2g_cpic(jax_particles(pc), jax_bodies(st["cdf_bodies"]), grid_rid,
+                                    grid_states, cfg, dt)
+    _close_rel(grid, st["p2g_grid"], GRID_REL)
+    assert bool((np.asarray(J1) != 0).any())  # the wheel takes impulses
+    _close_rel(J1, st["p2g_totals"][0], IMPULSE_REL)
+    _close_rel(tau1, st["p2g_totals"][1], IMPULSE_REL)
+    b1 = jax_bodies(st["p2g_bodies"])
+    pg, J2, tau2 = jcpic.g2p_cpic(jax_particles(pc), b1, jnp.asarray(np_of(st["grid_v"])),
+                                  grid_rid, grid_states, cfg, dt)
+    pg = dataclasses.replace(pg, **{f: getattr(pg, f)[:n] for f in ("x", "v", "F", "active")})
+    for name, bound in CPIC_BOUNDS.items():
+        assert max_err(getattr(pg, name), getattr(st["g2p_particles"], name)) <= bound, name
+    _close_rel(J2, st["g2p_totals"][0], IMPULSE_REL)
+    _close_rel(tau2, st["g2p_totals"][1], IMPULSE_REL)
+
+
+def test_body_totals_twin_matches_ordered_rows():
+    """The plain twin of the kernel ``body_totals`` (``ops.body_sums``) on
+    its edge inputs (``diagnostics.body_totals_edge_inputs``: several
+    offsets and bodies, lanes of no body, some of them NaN, a body with no
+    lane, a row one body crowds, one lane, no valid lane), in bits against
+    ``index_add_ordered`` into per-offset rows with every lane added (the
+    lanes of no body as zeros into body 0's row, as the CPU path summed
+    before) and against JAX's scatter-add of each offset
+    (``accumulate_impulses``' sums; every case's rows in one scatter, so
+    that JAX compiles one)."""
+    import jax.numpy as jnp
+
+    from taichi_mpm_torch import diagnostics
+    from taichi_mpm_torch.ops import body_sums
+    from taichi_mpm_torch.utils import index_add_ordered
+
+    got, rows, vals, base = {}, [], [], 0
+    for label, (rid, J, tau, R) in diagnostics.body_totals_edge_inputs().items():
+        L = rid.shape[0]
+        out = body_sums.body_totals(*(torch.as_tensor(a) for a in (rid, J, tau)), R)
+        assert not any(bool(torch.isnan(g).any()) for g in out), label
+        flat = (np.arange(L)[:, None] * R + np.clip(rid, 0, R - 1)).reshape(-1)
+        for v, g in zip((J, tau), out):
+            zeroed = np.where((rid >= 0)[..., None], v, 0.0).astype(np.float32).reshape(
+                -1, v.shape[-1])
+            want = index_add_ordered(torch.zeros((L * R, v.shape[-1])), torch.as_tensor(flat),
+                                     torch.as_tensor(zeroed))
+            assert np.array_equal(np_of(g).reshape(L * R, -1), np_of(want)), label
+            got[label, base] = np_of(g).reshape(L * R, -1)
+            rows.append(base + flat)
+            vals.append(np.pad(zeroed, ((0, 0), (0, 3 - v.shape[-1]))))
+            base += L * R
+    jax_rows = np.asarray(jnp.zeros((base, 3)).at[np.concatenate(rows)].add(
+        np.concatenate(vals)))
+    for (label, start), g in got.items():
+        assert np.array_equal(g, jax_rows[start:start + g.shape[0], :g.shape[1]]), label
 
 
 # -- tests/test_cpic.py's physical checks of the 2-D scenes, on the port ----------
