@@ -231,9 +231,9 @@ alone on the card. Phases, each printed as one JSON line:
    ``dense_cpic_scale``: the 100k CPIC wheel with optimized=False, a
    20-substep frame beside the fused CPIC frame's ms per substep of
    ``cpic_path``, the memory peak and the stages' CUDA-event ms, and
-   ``body_totals`` timed on a substep's P2G totals of that state and of
-   ``cpic_path``'s snapshot, beside its twin, ``index_add_`` and its
-   bound.
+   ``body_totals`` timed on a substep's P2G and G2P totals of that state
+   and of ``cpic_path``'s snapshot, beside its twin, ``index_add_`` and
+   its bound.
 14. The slabs (``DistributedMPM`` over ``torch.distributed``; the script
    needs one GPU, so its ranks share it and nothing here is a scaling
    number). ``dist_check``: the 125k cube (``benchmark_cube(cells=25,
@@ -352,9 +352,13 @@ each other material the package runs), and their CUDA-event times on the
 8M jelly cube and the 1.4M adaptive dam, each after one frame. Run it on two
 trees in one call (parent, change, change, parent) to show that a change
 kept the kernels' bits and to time both on one card.
-``python3 chip_smoke.py --dense-cpic-tree [DIR]`` times the dense 100k
-CPIC wheel of the package under DIR (``dense_cpic_tree``), to compare two
-trees' dense CPIC substep the same way.
+``python3 chip_smoke.py --dense-cpic-tree [DIR [SNAPSHOT]]`` times the
+dense 100k CPIC wheel of the package under DIR (``dense_cpic_tree``) and
+that package's ``body_totals`` on a substep of it and of SNAPSHOT, which
+``python3 chip_smoke.py --wheel-snapshot SNAPSHOT`` writes
+(``cpic_path_snapshot``: the water on the wheel, as ``dense_cpic_scale``
+finds it), to compare two trees' dense CPIC substep and kernel the same
+way.
 """
 
 from __future__ import annotations
@@ -1212,16 +1216,21 @@ def kernel_tree(root=None):
 DENSE_CPIC_TREE_FRAMES = 5
 
 
-def dense_cpic_tree(root=None):
+def dense_cpic_tree(root=None, snapshot=None):
     """The dense 100k CPIC wheel (``scenes.cpic_wheel(optimized=False)``)
     of the package under `root` (default: this checkout), as phase
     dense_cpic_scale steps it: a 1-substep warm-up frame, then
     DENSE_CPIC_TREE_FRAMES frames of DENSE_CPIC_SCALE_SUBSTEPS, the ms per
-    substep of each (host clock, fenced)."""
+    substep of each (host clock, fenced); then that package's
+    ``body_totals`` timed (``body_totals_timing``) on a substep of the
+    state reached ("fresh": no particle near the wheel yet) and, given
+    `snapshot` (``cpic_path_snapshot``'s file: the water on the wheel, as
+    phase dense_cpic_scale times it), on a substep of that state
+    resumed."""
     if root is not None:
         sys.path.insert(0, os.path.abspath(root))
     import taichi_mpm_torch
-    from taichi_mpm_torch import scenes
+    from taichi_mpm_torch import diagnostics, scenes
 
     sim = scenes.cpic_wheel(device="cuda", optimized=False)
     sim._ensure_finalized()
@@ -1233,8 +1242,14 @@ def dense_cpic_tree(root=None):
         sim.step(frame_dt=DENSE_CPIC_SCALE_SUBSTEPS * sim.cfg.base_dt)
         sim.sync()
         ms.append((time.perf_counter() - t0) * 1e3 / DENSE_CPIC_SCALE_SUBSTEPS)
+    totals = dict(fresh=body_totals_timing(diagnostics.substep_stages(sim), sim.bodies.num))
+    if snapshot is not None:
+        coupled = scenes.cpic_wheel(device="cuda", optimized=False)
+        coupled.load(snapshot)
+        totals["snapshot"] = body_totals_timing(diagnostics.substep_stages(coupled),
+                                                coupled.bodies.num)
     emit(dict(phase="dense_cpic_tree", package=os.path.dirname(taichi_mpm_torch.__file__),
-              ms_per_substep=ms, near_b=int(sim.particles.near_b.sum()),
+              ms_per_substep=ms, near_b=int(sim.particles.near_b.sum()), body_totals=totals,
               clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit")))
 
 
@@ -1944,6 +1959,25 @@ def cpic_warm_snapshot(path):
     sim.save(path)
     return dict(setup_s=setup_s, warmup_s=warm_s, peak=peak, launches=read_counts(),
                 substeps=CPIC_WARM_FRAMES * SUBSTEPS_PER_FRAME)
+
+
+def cpic_path_snapshot(path):
+    """``cpic_warm_snapshot``'s warm-up, then phase cpic_path's 1 +
+    CPIC_TIMED_FRAMES frames from it, saved to `path`: the water on the
+    wheel, as the phases that resume cpic_path's state find it (less the
+    few substeps of cpic_breakdown and cpic_profile). Returns the warm-up's
+    record and the particles near the wheel."""
+    from taichi_mpm_torch import scenes
+
+    warm = cpic_warm_snapshot(path)
+    sim = scenes.cpic_wheel(device="cuda")
+    sim.frame_dt = SUBSTEPS_PER_FRAME * sim.cfg.base_dt
+    sim.load(path)
+    for _ in range(1 + CPIC_TIMED_FRAMES):
+        sim.step()
+    sim.sync()
+    sim.save(path)
+    return dict(warm, near_b=int(sim.particles.near_b.sum()))
 
 
 def phase_cpic_path(card, warm, snapshot):
@@ -3199,11 +3233,14 @@ def phase_body_totals_check():
     twin on the same inputs, the twin on the CPU (the order that defines
     the sums): ``diagnostics.body_totals_edge_inputs`` (several offsets and
     bodies, lanes of no body, a body with no lane, a row where one body
-    holds 95% of the lanes, one lane, no valid lane) and the addends of
-    both 2-D scripts' first coupled substep (P2G's per-offset totals and
-    G2P's penalty totals, taken on the CPU): equal bits, and equal bits
-    over two launches. Beside each, how far torch's masked sums on the
-    card part from the twin (the sums the card took before)."""
+    holds 95% of the lanes, one lane, no valid lane, N about the kernels'
+    word, tile, batch and chunk, hits on the first and last lane only, one
+    body on every lane of a 100,000-lane row, 8 bodies, the 2-D and the
+    G2P shapes) and the addends of both 2-D scripts' first coupled substep
+    (P2G's per-offset totals and G2P's penalty totals, taken on the CPU):
+    equal bits, and equal bits over two launches. Beside each, how far
+    torch's masked sums on the card part from the twin (the sums the card
+    took before)."""
     import torch
 
     from taichi_mpm_torch import diagnostics
@@ -3226,10 +3263,9 @@ def phase_body_totals_check():
         masked = diagnostics.masked_body_sums(*dev, R)
         torch.cuda.synchronize()
         got, again, masked = ([a.cpu() for a in v] for v in (got, again, masked))
-        bits = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
-                   for g, w in zip(got, want))
-        rerun = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                    for a, b in zip(got, again))
+        bits, rerun = (all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                           for g, w in zip(x, y))
+                       for x, y in ((got, want), (got, again)))
         if not bits:
             failures.append(f"{label}: the kernel's totals are not the twin's bits")
         if not rerun:
@@ -3417,40 +3453,88 @@ def dense_cpic_stage_ms(sim):
                                              cfg.gravity), 2))
 
 
-def body_totals_timing(stages, R):
-    """``body_totals`` on one substep's P2G addends (``stages``' p2g_rows):
-    its CUDA-event ms, the plain twin's on the card, one ``index_add_``
-    (the library call that computes the same sums, in atomics' order), the
-    largest difference from the twin on the CPU (which sets the order),
-    and the bound: the bytes the function must move (rid whole, the
-    values of the valid lanes, the totals) over 3.35 TB/s, or its adds over
-    67 TFLOP/s, the larger."""
+# cycles the stream sleeps before queued calls are timed (~10 ms at 1.98 GHz):
+# longer than the host takes to queue them
+QUEUE_SLEEP_CYCLES = 20_000_000
+
+
+def queued_ms(fn, reps):
+    """(device ms, host ms) per call of fn() over `reps` calls, after one
+    warm-up call: the calls queued behind a sleep on the stream, so the
+    card runs them back to back whatever the host's pace (CUDA events
+    around them), and the host's time to queue each. Raises when the sleep
+    ran out before the calls were queued (the device time would then be
+    the host's pace)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    queued = not start.query()
+    end.record()
+    torch.cuda.synchronize()
+    if not queued:
+        raise RuntimeError(f"queued_ms: the stream's sleep ran out while {reps} calls were "
+                           f"queued ({host_s * 1e3:.3f} ms)")
+    return start.elapsed_time(end) / reps, host_s * 1e3 / reps
+
+
+def body_totals_rows_timing(rows, R):
+    """``body_totals`` on one call's addends `rows` (rid, J, tau on the
+    card): ``ms``, CUDA events around 20 calls made back to back at the
+    host's pace (the way the dense CPIC path calls it, and the way the
+    kernel has been timed since it was written), ``device_ms``, the same
+    calls queued behind a sleep (``queued_ms``: the kernels' own time), and
+    ``host_ms``, the host's time to make a call; the plain twin's ms on the
+    card, one ``index_add_`` (the library call that computes the same sums,
+    in atomics' order) timed as ``ms``, the largest difference from the
+    twin on the CPU (which sets the order) and equal bits, and the bound:
+    the bytes the function must move (rid whole, the values of the valid
+    lanes, the totals) over 3.35 TB/s, or its adds over 67 TFLOP/s, the
+    larger. ``share`` is the bound over ``ms``, ``device_share`` over
+    ``device_ms``."""
     import torch
 
     from taichi_mpm_torch.ops import body_sums
 
-    rid, J, tau = stages["p2g_rows"]
+    rid, J, tau = rows
     L, n = rid.shape[:-1].numel(), rid.shape[-1]
     ct = J.shape[-1] + tau.shape[-1]
     got = body_sums.body_totals(rid, J, tau, R)
     want = body_sums.body_totals_plain(*(a.cpu() for a in (rid, J, tau)), R)
     valid = int((rid >= 0).sum())
-    rows = torch.where(rid >= 0, torch.arange(L, device=rid.device).reshape(rid.shape[:-1] + (1,))
+    flat = torch.where(rid >= 0, torch.arange(L, device=rid.device).reshape(rid.shape[:-1] + (1,))
                        * R + rid, L * R).reshape(-1)
     vals = torch.cat([J, tau], -1).reshape(-1, ct)
     nbytes = rid.numel() * rid.element_size() + valid * ct * 4 + L * R * ct * 4
     ops = valid * ct
     b_ms, bound_by = bound(nbytes, ops)
+    ms = cuda_ms(lambda: body_sums.body_totals(rid, J, tau, R), 20)
+    device_ms, host_ms = queued_ms(lambda: body_sums.body_totals(rid, J, tau, R), 20)
     return dict(
-        ms=cuda_ms(lambda: body_sums.body_totals(rid, J, tau, R), 20),
+        ms=ms, device_ms=device_ms, host_ms=host_ms,
         plain_ms=cuda_ms(lambda: body_sums.body_totals_plain(rid, J, tau, R), 1, warmup=0),
         library_ms=cuda_ms(lambda: torch.zeros((L * R + 1, ct), device=rid.device).index_add_(
-            0, rows, vals), 20),
+            0, flat, vals), 20),
         max_abs_err=max(max_abs(g.cpu(), w) for g, w in zip(got, want)),
         bits=all(torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
                  for g, w in zip(got, want)),
-        bound_ms=b_ms, bound_by=bound_by, bytes=nbytes, ops=ops, rows=L, lanes=n, bodies=R,
-        valid_lanes=valid)
+        bound_ms=b_ms, bound_by=bound_by, share=b_ms / ms, device_share=b_ms / device_ms,
+        bytes=nbytes, ops=ops, rows=L, lanes=n, bodies=R, valid_lanes=valid)
+
+
+def body_totals_timing(stages, R):
+    """``body_totals_rows_timing`` on one substep's P2G addends (the
+    per-offset totals, ``stages``' p2g_rows) and G2P's (the penalty
+    totals, one row: g2p_rows), as "p2g" and "g2p"."""
+    return {key: body_totals_rows_timing(stages[f"{key}_rows"], R) for key in ("p2g", "g2p")}
 
 
 def phase_dense_cpic_scale(card, fused_ms, wheel_snapshot):
@@ -3462,11 +3546,12 @@ def phase_dense_cpic_scale(card, fused_ms, wheel_snapshot):
     syncs per substep, the memory peak and the stages' CUDA-event ms
     (``dense_cpic_stage_ms``); every particle finite and in the domain,
     ``body_totals`` twice a substep and no other kernel. Then the kernel
-    ``body_totals`` timed (``body_totals_timing``) on the P2G addends of a
-    substep of this state and of the same scene resumed from
+    ``body_totals`` timed (``body_totals_timing``) on the P2G and the G2P
+    addends of a substep of this state and of the same scene resumed from
     ``cpic_path``'s snapshot (`wheel_snapshot`: the water on the wheel),
     where it must give the twin's bits. Returns the launches and the
-    kernel's measurement on the snapshot."""
+    kernel's measurement on the snapshot's P2G addends, its G2P addends'
+    as ``g2p_rows``."""
     import torch
 
     from taichi_mpm_torch import diagnostics, scenes
@@ -3498,10 +3583,12 @@ def phase_dense_cpic_scale(card, fused_ms, wheel_snapshot):
     coupled = scenes.cpic_wheel(device="cuda", optimized=False)
     coupled.load(wheel_snapshot)
     measured = body_totals_timing(diagnostics.substep_stages(coupled), coupled.bodies.num)
-    for label, m in (("fresh", fresh), ("from the snapshot", measured)):
-        if not m["bits"]:
-            failures.append(f"body_totals {label}: not the twin's bits ({m['max_abs_err']})")
-    if not measured["valid_lanes"]:
+    for label, by_rows in (("fresh", fresh), ("from the snapshot", measured)):
+        for key, m in by_rows.items():
+            if not m["bits"]:
+                failures.append(f"body_totals {label}, {key} rows: not the twin's bits "
+                                f"({m['max_abs_err']})")
+    if not measured["p2g"]["valid_lanes"]:
         failures.append("body_totals: no valid lane in the snapshot's substep")
     emit(dict(phase="dense_cpic_scale", card=card, particles=sim.particles.count(),
               substeps=DENSE_CPIC_SCALE_SUBSTEPS, ms_per_substep=ms,
@@ -3512,7 +3599,7 @@ def phase_dense_cpic_scale(card, fused_ms, wheel_snapshot):
               wheel_omega_z=float(sim.bodies.omega[2, 2]), launches=launches,
               body_totals=dict(fresh=fresh, snapshot=measured), failures=failures))
     raise_failures(failures)
-    return launches, measured
+    return launches, dict(measured["p2g"], g2p_rows=measured["g2p"])
 
 
 # -- per-block bucketed async and the pytree CPIC frame ---------------------------
@@ -5797,7 +5884,10 @@ def main():
         kernel_tree(*sys.argv[2:3])
         return 0
     if sys.argv[1:2] == ["--dense-cpic-tree"]:
-        dense_cpic_tree(*sys.argv[2:3])
+        dense_cpic_tree(*sys.argv[2:4])
+        return 0
+    if sys.argv[1:2] == ["--wheel-snapshot"] and len(sys.argv) == 3:
+        emit(dict(phase="wheel_snapshot", **cpic_path_snapshot(sys.argv[2])))
         return 0
     t_start = time.perf_counter()
     # the port itself: fails here when the script stands outside a checkout

@@ -278,17 +278,23 @@ def body_totals_edge_inputs(seed: int = 0) -> dict:
     """Inputs of ``ops.body_sums.body_totals`` at its edges, label ->
     (rid (L, N) int64, J (L, N, ca), tau (L, N, cb) float32, R), in numpy:
     several offsets and bodies, lanes of no body (rid -1), a body with no
-    lane, a row where one body holds most lanes, N not a multiple of the
-    kernel's 256-lane step, one lane, a row of one body alone, no valid
-    lane at all; values over six decades of both signs, so that the order
-    of a sum shows in its bits, and NaN in J on half the lanes of no body,
-    which the sums must not read."""
+    lane, a row where one body holds most lanes, one lane, a row of one
+    body alone, no valid lane at all; N about the kernels' units (a mask
+    word of 32 lanes, a tile of 2,048, a batch's 8,192 hits, a chunk of
+    256 tiles that one pass over the tile counts covers): 31, 32, 33,
+    1,025, 2,048, 2,049, 8,193 and 524,289; hits on the first and the last
+    lane only; one body on every lane of a 100,000-lane row (the longest
+    chain of adds); 8 bodies; the 2-D shape (9 offsets, 2 + 1 components)
+    and G2P's (one row of 100,000 lanes, a few valid). Values over six
+    decades of both signs, so that the order of a sum shows in its bits,
+    and NaN in J on half the lanes of no body, which the sums must not
+    read."""
     rng = np.random.default_rng(seed)
 
     def values(shape):
         return (rng.standard_normal(shape) * 10.0 ** rng.uniform(-3, 3, shape)).astype(np.float32)
 
-    def case(L, N, R, ca, cb, invalid=0.4, empty=(), crowd=None):
+    def case(L, N, R, ca, cb, invalid=0.4, empty=(), crowd=None, only=None):
         rid = rng.integers(0, R, (L, N))
         for r in empty:
             rid[rid == r] = (r + 1) % R
@@ -296,11 +302,15 @@ def body_totals_edge_inputs(seed: int = 0) -> dict:
             row, r = crowd
             rid[row] = np.where(rng.uniform(size=N) < 0.95, r, rid[row])
         rid[rng.uniform(size=(L, N)) < invalid] = -1
+        if only is not None:  # only these lanes of each row hold a body
+            keep = rid[:, only].copy()
+            rid[:] = -1
+            rid[:, only] = keep
         J, tau = values((L, N, ca)), values((L, N, cb))
         J[(rid < 0) & (rng.uniform(size=(L, N)) < 0.5)] = np.nan  # never read
         return rid, J, tau, R
 
-    return {
+    cases = {
         "offsets_2d": case(9, 1000, 3, 2, 1, empty=(1,)),
         "offsets_3d": case(27, 777, 4, 3, 3, empty=(3,), crowd=(5, 0)),
         "one_row": case(1, 5000, 2, 3, 3, invalid=0.9),
@@ -308,6 +318,19 @@ def body_totals_edge_inputs(seed: int = 0) -> dict:
         "one_body": case(3, 600, 1, 3, 3, invalid=0.2),
         "none_valid": case(3, 300, 2, 3, 3, invalid=1.0),
     }
+    for n in (31, 32, 33, 1025, 2048, 2049):
+        cases[f"lanes_{n}"] = case(2, n, 3, 3, 3, invalid=0.3)
+    cases.update(
+        lanes_8193=case(1, 8193, 1, 3, 3, invalid=0.0),
+        lanes_524289=case(1, 256 * 2048 + 1, 2, 3, 3, invalid=0.0,
+                          only=np.r_[0:256 * 2048:997, 256 * 2048]),
+        first_and_last=case(3, 4097, 2, 3, 3, invalid=0.0, only=[0, -1]),
+        longest_chain=case(1, 100_000, 1, 3, 3, invalid=0.0),
+        bodies_8=case(4, 3000, 8, 3, 3, empty=(5,)),
+        offsets_2d_wheel=case(9, 2361, 2, 2, 1, invalid=0.9),
+        g2p_row=case(1, 100_000, 3, 3, 3, invalid=0.998),
+    )
+    return cases
 
 
 def first_parting(partings: list, ulps: float = 4.0):

@@ -129,7 +129,8 @@ def load(name: str, mats: int = 0) -> ctypes.CDLL:
 # the kernels' labels, by a part of their mangled names
 _KERNEL_LABELS = {"StageState": "p2g_fused", "StageOperand": "p2g_blocked",
                   "g2p_kernel": "g2p_fused", "g2p_blocked_kernel": "g2p_blocked",
-                  "body_totals_kernel": "body_totals"}
+                  "body_totals_mark": "body_totals_mark",
+                  "body_totals_sum": "body_totals_sum"}
 
 
 def ptxas_report(name: str, mats: int = 0) -> dict:

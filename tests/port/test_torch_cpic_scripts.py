@@ -208,7 +208,10 @@ def test_body_totals_twin_matches_ordered_rows():
     """The plain twin of the kernel ``body_totals`` (``ops.body_sums``) on
     its edge inputs (``diagnostics.body_totals_edge_inputs``: several
     offsets and bodies, lanes of no body, some of them NaN, a body with no
-    lane, a row one body crowds, one lane, no valid lane), in bits against
+    lane, a row one body crowds, one lane, no valid lane, N about the
+    kernels' word, tile, batch and chunk, hits on the first and last lane
+    only, one body on every lane of a 100,000-lane row, 8 bodies, the 2-D
+    and G2P shapes), in bits against
     ``index_add_ordered`` into per-offset rows with every lane added (the
     lanes of no body as zeros into body 0's row, as the CPU path summed
     before) and against JAX's scatter-add of each offset
