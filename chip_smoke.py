@@ -393,6 +393,17 @@ ELASTIC, JELLY, SNOW, WATER, SAND, VON_MISES, LINEAR, VISCO = range(8)
 MATERIALS = ("elastic", "jelly", "snow", "water", "sand", "von_mises", "linear", "visco")
 SVD_OPS = 1120  # F^T F, 18 Jacobi rotations (~53 each), sort, flip, Gram-Schmidt U, s
 POLAR_OPS = 6 * 115  # 6 scaled Newton iterations
+# SASS instructions that one particle executes in each fused build, by
+# kernel and material: counted by tools/sass_count.py from cuobjdump -sass
+# of the libraries built on the card (see its note for the rules: the
+# path of one particle, loops times their trips, slow paths not taken; a
+# P2G round's staging over its 32 particles and 32 scatter iterations).
+SASS_PER_PARTICLE = {
+    "p2g_fused": dict(elastic=4066, jelly=3382, snow=3410, water=2070, sand=4066,
+                      von_mises=4066, linear=2075, visco=3382),
+    "g2p_fused": dict(elastic=1625, jelly=1625, snow=3581, water=1603, sand=3772,
+                      von_mises=3722, linear=1625, visco=7473),
+}
 P2G_OPS_WEIGHTS = 54  # the 9 support weights, from the block-local position
 P2G_OPS_SCATTER = 27 * 31  # 27 support nodes: weight, offset, 3 + 1 channel FMAs
 # the force and the affine A (36) per material; + the weights
@@ -1008,7 +1019,9 @@ def phase_g2p_edges():
     """g2p_fused against its twin on the hand-made G2P edge inputs
     (diagnostics.g2p_edge_inputs): each material, jelly and water, all
     eight, and jelly, jelly and water and all eight again with the lanes in
-    a random order."""
+    a random order; then the builds with an SVD in their return map (and
+    all eight, sorted and not) on the inputs with F at the SVD's edges
+    (``svd=True``)."""
     import torch
 
     from taichi_mpm_torch import diagnostics
@@ -1017,9 +1030,13 @@ def phase_g2p_edges():
 
     failures, out, sorted_runs = [], {}, {}
     perm = np.random.default_rng(1).permutation(diagnostics.G2P_EDGE_LANES)
-    for label in (*EDGE_SETS, "jelly_unsorted", "mixed_unsorted", "all_unsorted"):
-        material = label.removesuffix("_unsorted")
-        e = diagnostics.g2p_edge_inputs(material)
+    labels = (*EDGE_SETS, "jelly_unsorted", "mixed_unsorted", "all_unsorted",
+              *(f"{m}/svd" for m in (*diagnostics.SVD_PLAST_MATERIALS, "all")),
+              "all/svd_unsorted")
+    for label in labels:
+        case = label.removesuffix("_unsorted")
+        material, _, svd = case.partition("/")
+        e = diagnostics.g2p_edge_inputs(material, svd=svd == "svd")
         cfg, dt = e["cfg"], e["cfg"].base_dt
         keys, st = e["keys"], e["st"]
         if label.endswith("unsorted"):
@@ -1059,10 +1076,10 @@ def phase_g2p_edges():
         n_scrubbed = int((k1[RACT, ~idle] == 0).sum())
         if not n_scrubbed >= n_nan >= 1:
             failures.append(f"{what}: {n_scrubbed} lanes scrubbed, {n_nan} with a NaN in F")
-        if material not in sorted_runs:
-            sorted_runs[material] = (k1, vm1, pl1)
+        if case not in sorted_runs:
+            sorted_runs[case] = (k1, vm1, pl1)
         else:  # the unsorted lanes must give the sorted run's bits, permuted
-            ks, vms, pls = sorted_runs[material]
+            ks, vms, pls = sorted_runs[case]
             p_t = torch.as_tensor(perm, device="cuda")
             if not (torch.equal(k1.view(torch.int32), ks[:, p_t].view(torch.int32))
                     and torch.equal(vm1, vms) and torch.equal(pl1, pls)):
@@ -1078,7 +1095,9 @@ def phase_g2p_edges():
 def phase_p2g_edges():
     """Both P2G kernels against their twins on the hand-made edge inputs
     (diagnostics.p2g_edge_inputs), each material, jelly and water, and all
-    eight: merged records to 1e-5 x max|record|, two launches
+    eight, and the Hencky builds (and all eight) on the inputs with F at
+    the SVD's edges and slots of the Hencky kernel's staging batches
+    (``svd=True``): merged records to 1e-5 x max|record|, two launches
     bit-identical, empty slots zero."""
     import torch
 
@@ -1086,8 +1105,10 @@ def phase_p2g_edges():
     from taichi_mpm_torch.ops import blocked, p2g
 
     failures, out = [], {}
-    for material in EDGE_SETS:
-        e = diagnostics.p2g_edge_inputs(material)
+    svd_cases = (f"{m}/svd" for m in (*diagnostics.SVD_FORCE_MATERIALS, "all"))
+    for case in (*EDGE_SETS, *svd_cases):
+        material, _, svd = case.partition("/")
+        e = diagnostics.p2g_edge_inputs(material, svd=svd == "svd")
         cfg, dt = e["cfg"], e["cfg"].base_dt
         st, s_arr, e_arr, nbr = (torch.as_tensor(e[k], device="cuda")
                                  for k in ("st", "s_arr", "e_arr", "nbr"))
@@ -1100,7 +1121,7 @@ def phase_p2g_edges():
         }
         empty = e_arr <= s_arr
         for name, (kernel, plain) in runs.items():
-            label = f"{name} on the {material} edge inputs"
+            label = f"{name} on the {case} edge inputs"
             tiles, tiles2, tiles_p = kernel(), kernel(), plain()
             torch.cuda.synchronize()
             if not torch.equal(tiles.view(torch.int32), tiles2.view(torch.int32)):
@@ -1111,8 +1132,8 @@ def phase_p2g_edges():
             err, scale = max_abs(rec, rec_p), float(rec_p.abs().max())
             if not err <= 1e-5 * scale:
                 failures.append(f"{label}: records differ by {err} > 1e-5 x {scale}")
-            out[f"{material}_{name}"] = dict(max_abs_err=err, record_scale=scale,
-                                             tile_err=max_abs(tiles, tiles_p))
+            out[f"{case}_{name}"] = dict(max_abs_err=err, record_scale=scale,
+                                         tile_err=max_abs(tiles, tiles_p))
     emit(dict(phase="p2g_edges", slots=int(s_arr.shape[0]), empty_slots=int(empty.sum()),
               particles=int((e_arr - s_arr).sum()), **out, failures=failures))
     raise_failures(failures)
@@ -1197,18 +1218,23 @@ def material_checksums():
 def kernel_tree(root=None):
     """The four kernels of the package under `root` (default: this
     checkout): their checksums (and those of the other materials where the
-    package has them), and their CUDA-event times on the states of
-    kernel_states."""
+    package has them), their CUDA-event times on the states of
+    kernel_states, and on the 8M jelly state ``material_builds`` with the
+    two-pass yardstick of the Hencky builds (tools/p2g_operand.cu built
+    against that package's csrc)."""
     if root is not None:
         sys.path.insert(0, os.path.abspath(root))
     import taichi_mpm_torch
 
+    yardstick = yardstick_libraries()
     out = dict(phase="kernel_tree", package=os.path.dirname(taichi_mpm_torch.__file__),
                checksums={**p2g_checksums(), **g2p_checksums()},
                material_checksums=material_checksums())
     for label, sim in kernel_states():
         out[f"ms_{label}"] = kernel_ms(sim)
         out[f"slots_{label}"] = sim.block_capacity
+        if label == "jelly_8m":
+            out["material_builds_8m"] = material_builds(sim, yardstick)
         del sim
     emit(dict(out, clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit")))
 
@@ -1492,32 +1518,168 @@ def fused_work(st, pm):
     }
 
 
-def phase_material_kernels(sim, card):
+def gpu_digest(*tensors):
+    """A digest of the bits of CUDA tensors, computed on the card: per
+    tensor, its 32-bit words times fixed pseudo-random 64-bit weights,
+    summed (mod 2^64), in hex. Equal bits give equal digests; a difference
+    anywhere changes one with probability about 1 - 2^-64 (for the 8M
+    states, where copying to the host and hashing would take seconds)."""
+    import torch
+
+    out = []
+    for t in tensors:
+        words = t.contiguous().view(torch.int32).reshape(-1)
+        g = torch.Generator(device=t.device).manual_seed(len(out) + 1)
+        total = torch.zeros((), dtype=torch.int64, device=t.device)
+        for chunk in torch.split(words, 1 << 24):
+            w = torch.randint(-(1 << 62), 1 << 62, chunk.shape, generator=g, device=t.device,
+                              dtype=torch.int64)
+            total += (chunk.to(torch.int64) * w).sum()
+        out.append(f"{int(total) & (2 ** 64 - 1):016x}")
+    return "".join(out)
+
+
+# SM issue: 4 schedulers per SM, each one warp instruction (32 lanes) a cycle
+SCHEDULERS_PER_SM = 4
+
+
+def sm_clock_mhz():
+    """The SM clock nvidia-smi reads now, in MHz."""
+    return float(nvidia_smi("clocks.sm").split()[0])
+
+
+def issue_floor_ms(kernel, material, particles, mhz):
+    """The instruction-issue floor of a fused build: SASS_PER_PARTICLE
+    instructions per particle over the card's SMs x 4 schedulers x 32
+    lanes at `mhz`; None where the build has no count."""
+    import torch
+
+    n = SASS_PER_PARTICLE.get(kernel, {}).get(material)
+    if n is None or not mhz:
+        return None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n * particles / (sms * SCHEDULERS_PER_SM * 32 * mhz * 1e6) * 1e3
+
+
+YARDSTICK_MATERIALS = ("elastic", "sand", "von_mises")  # the Hencky builds
+
+
+def yardstick_libraries():
+    """Build tools/p2g_operand.cu (the two-pass yardstick) against the
+    csrc of the imported package, one library per Hencky material, all
+    at once; returns them by material."""
+    import ctypes
+
+    from taichi_mpm_torch.ops import cuda_build
+
+    out_dir = cuda_build.BUILD_DIR / "yardstick"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "p2g_operand.cu")
+    procs = {}
+    for name in YARDSTICK_MATERIALS:
+        mats = 1 << MATERIALS.index(name)
+        lib = out_dir / f"p2g_operand_m{mats}.so"
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, f"-DTMT_MATS={mats}",
+               f"-I{cuda_build.CSRC}", "-o", str(lib), src]
+        procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            fail(f"nvcc failed for the yardstick of {name}:\n{log}")
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def operand_pass(lib, st, dt, cfg):
+    """The yardstick's first pass on the sorted state `st`: the (16, Pw)
+    P2G operand built by tools/p2g_operand.cu."""
+    import ctypes
+
+    import torch
+
+    from taichi_mpm_torch.ops import cuda_build, p2g
+
+    pd = torch.empty((16, st.shape[1]), dtype=torch.float32, device=st.device)
+    fn = lib.p2g_operand_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_float] * 6 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    mats = p2g.material_set(cfg)
+    rc = fn(st.data_ptr(), st.shape[1], pd.data_ptr(), *p2g._launch_args(cfg, dt), mats,
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check_launch(rc, "p2g_operand", mats)
+    return pd
+
+
+def material_builds(sim, yardstick=None):
     """p2g_fused and g2p_fused at the 8M state of `sim` (the jelly cube
     after its frames) made of each material in turn (as_material), each
     on the library of that material: CUDA-event time (10 launches after
-    one) beside its bound. Returns them by kernel and material."""
-    from taichi_mpm_torch.ops import blocked, g2p, p2g
+    one) beside its bound and its issue floor (SASS_PER_PARTICLE at the
+    SM clock read right after), the library's registers and spills, and a
+    digest of one launch's output (``gpu_digest``:
+    the tiles; the state, vmax and plasticity count), to hold two trees'
+    builds to the same bits at 8M. Given `yardstick` (its libraries by
+    Hencky material), also the two-pass alternative of each Hencky build:
+    the operand pass and p2g_blocked, each timed alone and together, and
+    whether its tiles have p2g_fused's bits."""
+    import torch
+
+    from taichi_mpm_torch.ops import blocked, cuda_build, g2p, p2g
     from taichi_mpm_torch.ops.substep import grid_update_flat
 
     st0, _, pm, _ = sim.packed_carry
     dt = sim.cfg.base_dt
     keys, s_arr, e_arr = pm["slot_keys"], pm["s_arr"], pm["e_arr"]
+    n_in = int((e_arr - s_arr).sum())
+    n_act = int((st0[36] > 0.5).sum())
     out = {"p2g_fused": {}, "g2p_fused": {}}
     for mid, name in enumerate(MATERIALS):
         st = as_material(st0, name)
         cfg = sim.cfg.with_materials((mid,))
-        rec = blocked.merge_tiles(p2g.p2g_fused(s_arr, e_arr, st, dt, cfg), pm["nbr"])
+        tiles = p2g.p2g_fused(s_arr, e_arr, st, dt, cfg)
+        rec = blocked.merge_tiles(tiles, pm["nbr"])
         win = blocked.windows(grid_update_flat(rec, pm["ids"], cfg, tuple(sim.colliders),
                                                sim.t, dt), pm["nbr"])
         scratch = st.clone()
+        vmax, plast = g2p.g2p_fused(keys, scratch, win, dt, cfg)
+        digests = {"p2g_fused": gpu_digest(tiles),
+                   "g2p_fused": gpu_digest(scratch, vmax, plast)}
         ms = {"p2g_fused": cuda_ms(lambda: p2g.p2g_fused(s_arr, e_arr, st, dt, cfg), 10),
               "g2p_fused": cuda_ms(lambda: g2p.g2p_fused(keys, scratch, win, dt, cfg), 10)}
+        mhz = sm_clock_mhz()
+        particles = {"p2g_fused": n_in, "g2p_fused": n_act}
         for kernel, (nbytes, ops) in fused_work(st, pm).items():
+            src = kernel[:3]
             b_ms, b_by = bound(nbytes, ops)
-            out[kernel][name] = dict(ms=ms[kernel], bound_ms=b_ms, bound_by=b_by,
-                                     bytes=nbytes, ops=ops)
-        del st, scratch, rec, win
+            ptx = cuda_build.ptxas_report(src, 1 << mid).get(kernel, {})
+            out[kernel][name] = dict(
+                ms=ms[kernel], bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops,
+                issue_floor_ms=issue_floor_ms(kernel, name, particles[kernel], mhz),
+                sass_per_particle=SASS_PER_PARTICLE.get(kernel, {}).get(name), sm_mhz=mhz,
+                registers=ptx.get("registers"), spill_stores=ptx.get("spill_stores"),
+                spill_loads=ptx.get("spill_loads"), digest=digests[kernel])
+        if yardstick is not None and name in yardstick:
+            lib = yardstick[name]
+            pd = operand_pass(lib, st, dt, cfg)
+            two = p2g.p2g_blocked(s_arr, e_arr, pd)
+            out["p2g_fused"][name]["two_pass"] = dict(
+                ms=cuda_ms(lambda: p2g.p2g_blocked(s_arr, e_arr, operand_pass(lib, st, dt, cfg)),
+                           10),
+                operand_ms=cuda_ms(lambda: operand_pass(lib, st, dt, cfg), 10),
+                p2g_blocked_ms=cuda_ms(lambda: p2g.p2g_blocked(s_arr, e_arr, pd), 10),
+                same_bits_as_fused=torch.equal(two.view(torch.int32), tiles.view(torch.int32)))
+            del pd, two
+        del st, scratch, rec, win, tiles
+    return out
+
+
+def phase_material_kernels(sim, card):
+    """``material_builds`` at the 8M state of `sim`. Returns them by
+    kernel and material."""
+    out = material_builds(sim)
     emit(dict(phase="material_kernels", card=card, **out))
     return out
 

@@ -70,17 +70,29 @@
 //    von Mises run one SVD (cmat3.cuh), visco two and a polar Newton
 //    iteration: ~1.3 and ~3.4 kflop per lane against the ~0.8 kflop of
 //    the gather, which makes visco's the one instantiation bound by
-//    operations (chip_smoke.py counts both). On an H100 at 8M they take
-//    1.20-1.38 ms (63-64 registers) and 3.45 ms (93 registers) against
-//    jelly's 0.58 (PERF.md).
+//    operations (chip_smoke.py counts both). Without fast math each IEEE
+//    division or square root is a sequence of instructions, so the SMs
+//    issue more than the flop count says: 1,625 SASS instructions a jelly
+//    lane, 3,581-3,772 a snow, von Mises or sand lane, 7,473 a visco lane
+//    (tools/sass_count.py), issue floors of 0.39, 0.86-0.90 and 1.79 ms at
+//    8M and 1.98 GHz. On an H100 (NVIDIA H100 80GB HBM3, 700 W, PERF.md)
+//    at 8M they take 1.19-1.38 ms (64 registers) and 3.45 ms (93
+//    registers) against jelly's 0.59: 66% and 52% of the issue rate.
 // A window's nodes stay in the dense 49 i + 7 j + k order: lanes in the
 // seeded lattice order read the same or neighbouring nodes at a time, and
 // random positions defeat any fixed layout. Blocks of 128 lanes with 22 KB
 // of shared memory and at most 63 registers let 8-9 blocks reside on an SM
 // under the largest shared-memory carveout, which the launch asks for.
-// What limits it now is the row stream: at 8M the kernel takes ~1.16x the
-// time of its rows alone with v = B = 0, and the staged gather alone about
-// two thirds of that (tools/g2p_variants.py, PERF.md).
+// What limits it now is the row stream for the builds without an SVD: at
+// 8M the kernel takes ~1.16x the time of its rows alone with v = B = 0,
+// and the staged gather alone about two thirds of that
+// (tools/g2p_variants.py, PERF.md); for the return maps with an SVD, the
+// issue rate of their dependent chains. Splitting the block into a gather
+// warpgroup and a return-map warpgroup with their own register budgets
+// (setmaxnreg; tools/g2p_split.cu) was slower on every such build at 8M:
+// the register file holds as many warps either way, and the gather, now
+// half of them, took 0.96 ms alone (sand 1.81 against 1.38 ms, visco
+// 4.03-4.08 against 3.27-3.49; PERF.md).
 
 #include <cuda_runtime.h>
 #include <limits.h>

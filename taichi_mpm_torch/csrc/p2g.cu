@@ -41,12 +41,19 @@
 // support weights, 27 nodes x 31) take 0.2 ms at 67 TFLOP/s; the SVD of
 // the Hencky force (elastic, sand, von Mises) adds ~0.5 kflop and 5
 // special functions. So bytes bound them all (chip_smoke.py counts them).
-// Yet on an H100 at 8M the Hencky staging takes 2.06 ms against jelly's
-// 1.10 (102 registers against 96; PERF.md): a lane stages one particle
-// at a time, and the SVD's 18 dependent Jacobi rotations do not hide
-// behind the warp's scatter. What the kernels spend beyond
-// that goes to the scatter: each particle puts 27 four-channel terms into
-// nodes that its neighbours share, one after the other in sorted order.
+// But without fast math each IEEE division or square root, one operation
+// in that count, is a sequence of instructions, and the Hencky force's
+// SVD holds 72 of them: the SMs issue 3,382 SASS instructions a jelly
+// particle and 4,066 a Hencky one (tools/sass_count.py: a round's staging
+// and its 32 scatter iterations over its 32 particles), an issue floor of
+// 0.81 and 0.97 ms at 8M and 1.98 GHz, above the bytes' 0.34. Each
+// particle then puts 27 four-channel terms into nodes that its neighbours
+// share, one after the other in sorted order.
+// On an H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md) at 8M jelly takes
+// 1.09 ms. The Hencky builds took 2.02-2.04 in one warp staging and then
+// scattering each round (102 registers): the SVD's 18 dependent Jacobi
+// rotations did not hide behind the warp's own scatter. They now run
+// p2g_ws_kernel (below): 1.57 ms.
 //
 // The accumulation stage, one warp per slot:
 // 1. Stage: lane l takes particle base + l of the slot's sorted range
@@ -90,12 +97,21 @@
 // warp reads the staged values as broadcasts (3 float4 and a float2), each
 // lane its 3 (weight, offset) pairs, and 27 lanes read and write a float4
 // of the tile, some 24 pipe cycles per particle; p2g_fused's jelly staging
-// (the polar Newton iteration) overlaps that only in part (PERF.md).
+// (the polar Newton iteration) overlaps that only in part (PERF.md). In
+// the Hencky builds it is the staging: at 8M the producers alone (the
+// consumer adding one value a round) take 1.32 ms, the scatter alone
+// (producers writing constant records) 0.96, both together 1.57 at 64
+// registers and 8 blocks per SM (24 producer warps), 1.78 at ptxas's 80
+// registers and 6 blocks. More producers per slot or another ring did not
+// help (4 producers 1.61, 3 stages 1.59, 8 stages 2.06, 2 producers and 2
+// stages 1.79; tools/p2g_variants.py hencky), nor did this schedule help
+// the other builds (jelly 1.22 against 1.10), which keep p2g_kernel.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 #include "materials.cuh"
+#include "pipeline.cuh"
 
 // One library per material set: nvcc -DTMT_MATS=<set> compiles p2g_fused
 // for that set alone (ops/cuda_build.py builds each set at its first use),
@@ -277,6 +293,59 @@ __device__ __forceinline__ void write_record(const float* sv, float4* __restrict
   }
 }
 
+// A warp adds `cnt` staged records, in order, into the shared tile: lane
+// l < 27 adds each particle's term into its support node kLaneOffset[l],
+// skipping a zero weight; __syncwarp between particles orders the updates
+// two lanes make to one node for successive particles.
+__device__ __forceinline__ void scatter_round(const float4 (*rec)[REC4], int cnt,
+                                              float4* __restrict__ tile, int lane) {
+  const bool mine = lane < SUPPORT;
+  const int o = kLaneOffset[lane];
+  const int di = o / 9, dj = (o / 3) % 3, dk = o % 3;
+  const int off = SI * di + SJ * dj + dk;
+  for (int p = 0; p < cnt; ++p) {
+    const float2* pair = reinterpret_cast<const float2*>(rec[p]) + R_PAIR;
+    if (mine) {
+      const float2 x = pair[di], y = pair[3 + dj], z = pair[6 + dk];
+      const float wq = x.x * y.x * z.x;
+      if (wq != 0.0f) {
+        float v[R_CORNER];  // m*v, m, A
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const float4 a = rec[p][q];
+          v[4 * q] = a.x;
+          v[4 * q + 1] = a.y;
+          v[4 * q + 2] = a.z;
+          v[4 * q + 3] = a.w;
+        }
+        const float2 a8 = reinterpret_cast<const float2*>(rec[p])[6];
+        v[12] = a8.x;
+        const float dx = x.y, dy = y.y, dz = z.y;
+        float4* t = tile + __float_as_int(a8.y) + off;
+        float4 acc = *t;
+        float mom = v[0] + v[4] * dx + v[5] * dy + v[6] * dz;
+        acc.x += wq * mom;
+        mom = v[1] + v[7] * dx + v[8] * dy + v[9] * dz;
+        acc.y += wq * mom;
+        mom = v[2] + v[10] * dx + v[11] * dy + v[12] * dz;
+        acc.z += wq * mom;
+        acc.w += wq * v[3];
+        *t = acc;
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// A warp writes the slot's tile out in coalesced float4 stores.
+__device__ __forceinline__ void write_tile(const float4* __restrict__ tile, float* __restrict__ out,
+                                           int slot, int lane) {
+  float4* dst = reinterpret_cast<float4*>(out + (size_t)slot * TILE_NODES * 4);
+  for (int n = lane; n < TILE_NODES; n += 32) {
+    dst[n] = tile[SI * (n / (TILE * TILE)) + SJ * ((n / TILE) % TILE) + n % TILE];
+  }
+}
+
 // One warp per slot: stage the slot's sorted range [s, e) 32 particles
 // at a time, then add each staged particle, in order, into its 27
 // support nodes of the warp's shared tile.
@@ -297,10 +366,6 @@ p2g_kernel(Stage stage, long long pw, const int* __restrict__ s_arr,
   const int e = (int)min((long long)e_arr[slot], pw);
 
   for (int n = lane; n < TILE_SMEM; n += 32) tile[n] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  const bool mine = lane < SUPPORT;
-  const int o = kLaneOffset[lane];
-  const int di = o / 9, dj = (o / 3) % 3, dk = o % 3;
-  const int off = SI * di + SJ * dj + dk;
   __syncwarp();
 
   float raw[Stage::NRAW];
@@ -315,43 +380,87 @@ p2g_kernel(Stage stage, long long pw, const int* __restrict__ s_arr,
     __syncwarp();
     // the next round's rows load while this round accumulates
     if (lane < e - base - 32) stage.load(pw, (long long)base + 32 + lane, raw);
-    for (int p = 0; p < cnt; ++p) {
-      const float2* pair = reinterpret_cast<const float2*>(rec[p]) + R_PAIR;
-      if (mine) {
-        const float2 x = pair[di], y = pair[3 + dj], z = pair[6 + dk];
-        const float wq = x.x * y.x * z.x;
-        if (wq != 0.0f) {
-          float v[R_CORNER];  // m*v, m, A
-#pragma unroll
-          for (int q = 0; q < 3; ++q) {
-            const float4 a = rec[p][q];
-            v[4 * q] = a.x;
-            v[4 * q + 1] = a.y;
-            v[4 * q + 2] = a.z;
-            v[4 * q + 3] = a.w;
-          }
-          const float2 a8 = reinterpret_cast<const float2*>(rec[p])[6];
-          v[12] = a8.x;
-          const float dx = x.y, dy = y.y, dz = z.y;
-          float4* t = tile + __float_as_int(a8.y) + off;
-          float4 acc = *t;
-          float mom = v[0] + v[4] * dx + v[5] * dy + v[6] * dz;
-          acc.x += wq * mom;
-          mom = v[1] + v[7] * dx + v[8] * dy + v[9] * dz;
-          acc.y += wq * mom;
-          mom = v[2] + v[10] * dx + v[11] * dy + v[12] * dz;
-          acc.z += wq * mom;
-          acc.w += wq * v[3];
-          *t = acc;
-        }
-      }
-      __syncwarp();
-    }
+    scatter_round(rec, cnt, tile, lane);
   }
 
-  float4* dst = reinterpret_cast<float4*>(out + (size_t)slot * TILE_NODES * 4);
-  for (int n = lane; n < TILE_NODES; n += 32) {
-    dst[n] = tile[SI * (n / (TILE * TILE)) + SJ * ((n / TILE) % TILE) + n % TILE];
+  write_tile(tile, out, slot, lane);
+}
+
+// The Hencky builds (a material set with elastic, sand or von Mises): one
+// slot per block of 1 + WS_PRODUCERS warps, so that the SVD staging of
+// later rounds runs beside the scatter of the round before. The producer
+// warps stage the slot's rounds of 32 particles in turn (producer j takes
+// rounds j, j + WS_PRODUCERS, ...) into a ring of WS_STAGES record
+// buffers; the consumer warp zeroes the tile, adds the rounds in order as
+// p2g_kernel does (scatter_round: the same records, the same order, the
+// same bits), and writes the tile out. Round r lives in stage
+// r % WS_STAGES: its producer waits until the consumer has emptied the
+// stage of round r - WS_STAGES, writes its records and arrives at the
+// stage's full barrier (32 arrivals, one per lane); the consumer waits
+// for it and, where a later round needs the stage, arrives at its empty
+// barrier (32 arrivals). Sizes, from the staging and scatter times above:
+// 3 producers and 4 stages (24 KB of shared memory), and launch bounds of
+// 8 blocks per SM, which hold the producers to 64 registers.
+template <int MATS>
+__host__ __device__ constexpr bool hencky_build() {
+  return has<MATS>(ELASTIC) || has<MATS>(SAND) || has<MATS>(VON_MISES);
+}
+
+constexpr int WS_PRODUCERS = 3;
+constexpr int WS_STAGES = 4;
+constexpr int WS_MIN_BLOCKS = 8;  // blocks per SM the launch bounds ask for: 64 registers
+constexpr int WS_THREADS = 32 * (1 + WS_PRODUCERS);
+// A producer waits for the empty phase of round r - WS_STAGES; with fewer
+// stages than producers it could reach that wait while the consumer has
+// not finished round r - 2 WS_STAGES, whose phase has the same parity.
+static_assert(WS_STAGES >= WS_PRODUCERS, "the ring needs a stage per producer");
+
+template <class Stage>
+__global__ void __launch_bounds__(WS_THREADS, WS_MIN_BLOCKS)
+p2g_ws_kernel(Stage stage, long long pw, const int* __restrict__ s_arr,
+              const int* __restrict__ e_arr, float* __restrict__ out) {
+  __shared__ float4 tile[TILE_SMEM];
+  __shared__ float4 ring[WS_STAGES][32][REC4];
+  __shared__ unsigned long long full[WS_STAGES], empty[WS_STAGES];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int slot = blockIdx.x;
+  // ranges clipped to the state, so a bad range reads nothing outside it
+  const int s = max(s_arr[slot], 0);
+  const int e = (int)min((long long)e_arr[slot], pw);
+  const int rounds = e > s ? (e - s + 31) / 32 : 0;
+  if (threadIdx.x < WS_STAGES) {
+    mbar_init(&full[threadIdx.x], 32);
+    mbar_init(&empty[threadIdx.x], 32);
+  }
+  fence_barrier_init();
+  __syncthreads();
+
+  if (warp == 0) {  // the consumer
+    for (int n = lane; n < TILE_SMEM; n += 32) tile[n] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    __syncwarp();
+    for (int r = 0; r < rounds; ++r) {
+      const int q = r % WS_STAGES;
+      mbar_wait(&full[q], (r / WS_STAGES) & 1);
+      scatter_round(ring[q], min(32, e - s - 32 * r), tile, lane);
+      if (r + WS_STAGES < rounds) mbar_arrive(&empty[q]);
+    }
+    write_tile(tile, out, slot, lane);
+  } else {  // producer warp - 1
+    float rows[Stage::NRAW];
+    for (int r = warp - 1; r < rounds; r += WS_PRODUCERS) {
+      const int base = s + 32 * r;
+      const int cnt = min(32, e - base);
+      float sv[NV];
+      if (lane < cnt) {
+        stage.load(pw, (long long)base + lane, rows);
+        stage.build(rows, sv);
+      }
+      const int q = r % WS_STAGES;
+      if (r >= WS_STAGES) mbar_wait(&empty[q], (r / WS_STAGES - 1) & 1);
+      if (lane < cnt) write_record(sv, ring[q][lane]);
+      mbar_arrive(&full[q]);
+    }
   }
 }
 
@@ -359,6 +468,30 @@ template <class Stage>
 void launch(const Stage& stage, long long pw, const int* s_arr, const int* e_arr, int K,
             float* out, cudaStream_t s) {
   p2g_kernel<<<(K + WARPS - 1) / WARPS, THREADS, 0, s>>>(stage, pw, s_arr, e_arr, K, out);
+}
+
+template <class Stage>
+cudaError_t launch_ws(const Stage& stage, long long pw, const int* s_arr, const int* e_arr,
+                      int K, float* out, cudaStream_t s) {
+  static const cudaError_t carveout = cudaFuncSetAttribute(
+      p2g_ws_kernel<Stage>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (carveout != cudaSuccess) return carveout;
+  p2g_ws_kernel<<<K, WS_THREADS, 0, s>>>(stage, pw, s_arr, e_arr, out);
+  return cudaGetLastError();
+}
+
+// p2g_fused of material set MATS: the Hencky builds warp-specialised, the
+// others as p2g_kernel
+template <int MATS>
+cudaError_t launch_fused(const StageState<MATS>& stage, long long pw, const int* s_arr,
+                         const int* e_arr, int K, float* out, cudaStream_t s) {
+  if constexpr (hencky_build<MATS>()) {
+    return launch_ws(stage, pw, s_arr, e_arr, K, out, s);
+  } else {
+    launch(stage, pw, s_arr, e_arr, K, out, s);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace
@@ -383,11 +516,9 @@ extern "C" int p2g_fused_launch(const float* st, long long pw, const int* s_arr,
   prm.gdt[1] = gdt1;
   prm.gdt[2] = gdt2;
   prm.particle_gravity = particle_gravity;
-  if (K > 0) {
-    launch(StageState<TMT_MATS>{st, prm}, pw, s_arr, e_arr, K, out,
-           static_cast<cudaStream_t>(stream));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (K == 0) return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_fused(StageState<TMT_MATS>{st, prm}, pw, s_arr, e_arr, K, out,
+                                       static_cast<cudaStream_t>(stream)));
 #else
   return WRONG_LIBRARY;
 #endif

@@ -576,7 +576,55 @@ EDGE_RES = 32  # cells per axis: dx = 1/32 keeps the positions exact
 EDGE_HALO = 0.45  # cells a particle strays outside its sort-time block
 
 
-def p2g_edge_inputs(material: str = "jelly", seed: int = 0) -> dict:
+# F at the SVD's edges (math/cmat3.c_svd, csrc/cmat3.cuh): (name, F, F
+# singular), each exact in float32. A zero column gives s2 = 0 exactly;
+# two zero columns reach the Gram-Schmidt fallback of u1 (|b1| <= 1e-12)
+# and F = 0 that of u0 too; det < 0 the flip of V's last column and
+# sign(s2) = sign(det); equal singular values the sort network's ties
+# (strict <); an off-diagonal below 1e-20 the trivial rotation; I all
+# three. Their null spaces lie on the axes, so the SVD's rotations leave
+# them exact: a rank-1 F whose null space does not (say u w^T) turns the
+# Hencky force into rounding noise times 1e6 (1 / s clamped at 1e-6;
+# float32 and float64 part by 8% of |force|), which no bound can hold.
+SVD_EDGE_F = (
+    ("zero_column", ((1.125, 0.0, 0.25), (0.125, 0.0, 0.875), (0.0625, 0.0, 1.0)), True),
+    ("two_zero_columns", ((0.0, 0.75, 0.0), (0.0, -0.5, 0.0), (0.0, 1.25, 0.0)), True),
+    ("zero", ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 0.0, 0.0)), True),
+    ("inverted", ((0.875, 0.125, 0.0), (0.0625, 1.125, 0.03125), (0.0, 0.03125, -1.0)), False),
+    ("equal_pair", ((1.25, 0.0, 0.0), (0.0, 1.25, 0.0), (0.0, 0.0, 0.75)), False),
+    ("equal_pair_permuted", ((0.0, 0.75, 0.0), (1.25, 0.0, 0.0), (0.0, 0.0, 1.25)), False),
+    ("tiny_off_diagonal", ((1.0, 1e-21, 0.0), (0.0, 0.875, 0.0), (0.0, 0.0, 1.125)), False),
+    ("identity", ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0)), False),
+)
+# the materials whose kernels run an SVD on F: the Hencky force (P2G) and
+# the return maps (G2P; visco's |P| inverts F, so it takes no singular F)
+SVD_FORCE_MATERIALS = ("elastic", "sand", "von_mises")
+SVD_PLAST_MATERIALS = ("snow", "sand", "von_mises", "visco")
+# slots the Hencky P2G kernel stages in whole rounds: its producer warps'
+# rounds (3 x 32 particles) and its ring (4 x 32), each and one more
+SVD_EDGE_SLOTS = (96, 97, 128, 129)
+
+
+def _set_svd_edge_f(st, lanes, materials) -> int:
+    """F of SVD_EDGE_F on the lanes `lanes` of `st` whose material is one
+    of `materials` (names), each material's lanes taking them in turn; a
+    singular F only on lanes of a material other than visco. Returns the
+    lanes set."""
+    visco = models.MATERIAL_NAMES["visco"]
+    turn = {}
+    mats = st[RMAT].view(np.int32)
+    for lane in lanes:
+        m = int(mats[lane])
+        if models.MATERIAL_IDS[m] not in materials:
+            continue
+        choices = [F for _, F, singular in SVD_EDGE_F if not (singular and m == visco)]
+        k = turn.get(m, 0)
+        st[RF:RF + 9, lane] = np.asarray(choices[k % len(choices)], np.float32).reshape(9)
+        turn[m] = k + 1
+    return sum(turn.values())
+
+
+def p2g_edge_inputs(material: str = "jelly", seed: int = 0, svd: bool = False) -> dict:
     """Hand-made P2G inputs at the kernels' edges, as numpy arrays: a
     packed state (48, Pw) of `material` (see ``edge_material_names``) on a
     res-32 grid, its slots' sorted particle ranges and their neighbour
@@ -597,7 +645,10 @@ def p2g_edge_inputs(material: str = "jelly", seed: int = 0) -> dict:
       their blocks, on half-cells, and a mix of both;
     * 33 particles (one more than a warp's staging round);
     * a lone block with one particle and no neighbours;
-    * four empty slots at the end, so K = 13 is odd.
+    * with `svd`, slots of SVD_EDGE_SLOTS particles (the Hencky kernel's
+      staging batches and one more), and F of SVD_EDGE_F on lanes of the
+      1,200-particle slot whose material runs the Hencky force;
+    * four empty slots at the end, so K = 13 is odd (17 with `svd`).
 
     Returns dict(st, s_arr, e_arr, nbr, cfg): st float32 (48, n + 5)
     (five inactive lanes past the ranges), s_arr/e_arr int32 (K,), nbr
@@ -628,6 +679,9 @@ def p2g_edge_inputs(material: str = "jelly", seed: int = 0) -> dict:
         ((2, 3, 3), uniform(33)),
         ((6, 6, 6), uniform(1)),
     ]
+    if svd:  # blocks with no neighbour slot, as the lone block's
+        blocks = ((1, 6, 1), (6, 1, 1), (1, 1, 6), (5, 1, 5))
+        slots += [(b, uniform(n)) for b, n in zip(blocks, SVD_EDGE_SLOTS)]
     n_empty_tail = 4
     K = len(slots) + n_empty_tail
 
@@ -644,6 +698,8 @@ def p2g_edge_inputs(material: str = "jelly", seed: int = 0) -> dict:
     nbr = _neighbours([b for b, _ in slots], K)
 
     st, cfg = _edge_state(material, grid, origin, n + 5, rng)
+    if svd:
+        _set_svd_edge_f(st, range(8, 200), SVD_FORCE_MATERIALS)
     return dict(st=st, s_arr=s_arr, e_arr=e_arr, nbr=nbr, cfg=cfg)
 
 
@@ -723,7 +779,7 @@ def _edge_state(material: str, grid, origin, pw: int, rng):
 G2P_EDGE_LANES = 2048  # Pw: a multiple of the JAX kernel's 512-lane chunk
 
 
-def g2p_edge_inputs(material: str = "jelly", seed: int = 0) -> dict:
+def g2p_edge_inputs(material: str = "jelly", seed: int = 0, svd: bool = False) -> dict:
     """Hand-made inputs at the fused G2P kernel's edges, as numpy arrays:
     a sorted packed state (48, Pw) on a res-32 grid, its lanes' slot keys,
     velocity records and the slots' neighbour table; for holding the
@@ -753,6 +809,9 @@ def g2p_edge_inputs(material: str = "jelly", seed: int = 0) -> dict:
       window (block-local positions -1.3, -0.8, 7.6 and 8.9 on one axis:
       base -2 and 7);
     * 6 active lanes with key K (no slot: they gather v = B = 0);
+    * with `svd`, 8 x len(SVD_EDGE_F) more such lanes, whose F is one of
+      SVD_EDGE_F where their material's return map runs an SVD (cdg = I
+      there, so the SVD sees F itself);
     * inactive lanes with key K up to Pw.
 
     Returns dict(st, keys, vrec, nbr, cfg): st float32 (48, Pw), keys
@@ -798,6 +857,13 @@ def g2p_edge_inputs(material: str = "jelly", seed: int = 0) -> dict:
     runs = np.flatnonzero(np.diff(keys[:n]) != 0) + 1  # first lane of each slot but 0
     st[RACT, runs[2:2 + len(small):7] + 1] = 0.0  # inside some small slots
     vrec = (0.3 * rng.standard_normal((K, blocked.VREC_LANES))).astype(np.float32)
+    if svd:  # drawn apart, so that the lanes above keep their values
+        n_svd = 8 * len(SVD_EDGE_F)
+        svd_rng = np.random.default_rng(seed + 1)
+        svd_origin = np.full((n_svd, 3), 8.0, np.float32)
+        svd_grid = svd_origin + svd_rng.uniform(lo, hi, (n_svd, 3)).astype(np.float32)
+        st[:, n:n + n_svd] = _edge_state(material, svd_grid, svd_origin, n_svd, svd_rng)[0]
+        _set_svd_edge_f(st, range(n, n + n_svd), SVD_PLAST_MATERIALS)
     return dict(st=st, keys=keys, vrec=vrec, nbr=_neighbours([b for b, _ in slots], K),
                 cfg=cfg)
 

@@ -39,6 +39,16 @@ torch.set_num_threads(1)
 
 REL = 2e-5
 MATERIALS = diagnostics.EDGE_MATERIALS + ("all",)
+# the same inputs with F at the SVD's edges on the lanes whose kernels run
+# one (diagnostics.SVD_EDGE_F): "<material>/svd"
+FORCE_SVD = tuple(f"{m}/svd" for m in (*diagnostics.SVD_FORCE_MATERIALS, "all"))
+PLAST_SVD = tuple(f"{m}/svd" for m in (*diagnostics.SVD_PLAST_MATERIALS, "all"))
+
+
+def _case(case):
+    """(material, svd) of a parameter "<material>" or "<material>/svd"."""
+    material, _, svd = case.partition("/")
+    return material, svd == "svd"
 BOUNDS = ((RX, 3, 5e-6), (RV, 3, 5e-5), (RF, 9, 5e-6), (RC, 9, 5e-4), (RAUX, 1, 5e-6))
 
 
@@ -73,9 +83,12 @@ def _both(st, cfg, fn_j, fn_t, *extra):
             fn_t(cfg.active_materials, *args(lambda a: torch.as_tensor(np.ascontiguousarray(a)))))
 
 
-@pytest.mark.parametrize("material", MATERIALS)
+@pytest.mark.parametrize("material", MATERIALS + FORCE_SVD)
 def test_force_matches_jax(material):
-    e = diagnostics.p2g_edge_inputs(material)
+    material, svd = _case(material)
+    e = diagnostics.p2g_edge_inputs(material, svd=svd)
+    if svd:
+        assert _svd_edge_lanes(e["st"], diagnostics.SVD_FORCE_MATERIALS) >= 12
     st, cfg = e["st"], e["cfg"]
     vol = st[RVOL, st[RACT] > 0.5]
     fj, ft = _both(st, cfg, lambda *a: jcf.dispatch_force(*a, jnp.asarray(vol)),
@@ -83,9 +96,22 @@ def test_force_matches_jax(material):
     _close(fj, ft)
 
 
-def _g2p_inputs(material):
+def _svd_edge_f(st):
+    """(Pw,) bool: the lanes whose F is one of SVD_EDGE_F."""
+    edge = np.stack([np.asarray(F, np.float32).reshape(9) for _, F, _ in diagnostics.SVD_EDGE_F])
+    return (st[RF:RF + 9].T[:, None, :] == edge[None]).all(-1).any(-1)
+
+
+def _svd_edge_lanes(st, materials):
+    """Active lanes of `materials` whose F is one of SVD_EDGE_F."""
+    mids = [diagnostics.models.MATERIAL_NAMES[m] for m in materials]
+    return int((_svd_edge_f(st) & (st[RACT] > 0.5)
+                & np.isin(st[RMAT].view(np.int32), mids)).sum())
+
+
+def _g2p_inputs(material, svd=False):
     """The G2P edge inputs of `material` with the cdg of their gather."""
-    e = diagnostics.g2p_edge_inputs(material)
+    e = diagnostics.g2p_edge_inputs(material, svd=svd)
     cfg = e["cfg"]
     win = tblocked.windows(torch.as_tensor(e["vrec"]), torch.as_tensor(e["nbr"]))
     acc = tg2p._gather_plain(torch.as_tensor(e["keys"]), torch.as_tensor(e["st"]), win, cfg)
@@ -94,9 +120,13 @@ def _g2p_inputs(material):
     return e, cdg.astype(np.float32)
 
 
-@pytest.fixture(scope="module", params=MATERIALS)
+@pytest.fixture(scope="module", params=MATERIALS + PLAST_SVD)
 def g2p_case(request):
-    return request.param, *_g2p_inputs(request.param)
+    material, svd = _case(request.param)
+    e, cdg = _g2p_inputs(material, svd)
+    if svd:  # cdg = I on those lanes (no slot), so the return map's SVD sees F itself
+        assert _svd_edge_lanes(e["st"], diagnostics.SVD_PLAST_MATERIALS) >= 24
+    return material, e, cdg
 
 
 def test_return_map_matches_jax(g2p_case):
@@ -127,7 +157,9 @@ def test_inputs_reach_the_branches(g2p_case):
     material, e, cdg = g2p_case
     st = e["st"]
     mats = st[RMAT].view(np.int32)
-    act = (st[RACT] > 0.5) & np.isfinite(st[RF:RF + 9]).all(0)
+    # the random lanes (F near I); the lanes with F at the SVD's edges
+    # (svd cases) reach other branches, which is what they are for
+    act = (st[RACT] > 0.5) & np.isfinite(st[RF:RF + 9]).all(0) & ~_svd_edge_f(st)
     names = diagnostics.edge_material_names(material)
     for name in names:
         mid = diagnostics.models.MATERIAL_NAMES[name]

@@ -38,9 +38,12 @@ def _jax_operand(pdata):
     return np.pad(pdata, ((0, 0), (0, ppad - pw)))
 
 
-@pytest.fixture(scope="module", params=["jelly", "water"])
+@pytest.fixture(scope="module", params=["jelly", "water", "sand/svd"])
 def edges(request):
-    e = diagnostics.p2g_edge_inputs(request.param)
+    """"sand/svd": sand with F at the SVD's edges and slots of
+    SVD_EDGE_SLOTS particles (``p2g_edge_inputs(svd=True)``)."""
+    material, _, svd = request.param.partition("/")
+    e = diagnostics.p2g_edge_inputs(material, svd=svd == "svd")
     st = torch.as_tensor(e["st"])
     pdata = tp2g.prep_packed(st, e["cfg"], e["cfg"].base_dt)
     s_arr, e_arr = torch.as_tensor(e["s_arr"]), torch.as_tensor(e["e_arr"])

@@ -3,7 +3,9 @@
 
 Run from the root of a checkout on a machine with an H100 and nvcc:
 
-    python3 tools/g2p_variants.py
+    python3 tools/g2p_variants.py [svd]
+
+(with ``svd``, only the SVD build's variants below).
 
 Each variant is ``taichi_mpm_torch/csrc/g2p.cu`` with a few lines
 replaced, built with the port's nvcc flags (``-Xptxas -v`` among them,
@@ -35,7 +37,19 @@ order A, B, ..., B, A. Every variant but the last two must give the bits
 of the source as written: ``g2p_fused``'s state, vmax and count on a fresh
 copy of the state, and ``g2p_blocked``'s rows. One JSON line per variant
 and state (times, registers, the share of lanes whose window the variant
-stages), then the card's name, clock and power limit.
+stages).
+
+Then the builds with an SVD return map (sand's and visco's libraries) on
+the 8M jelly state made of sand and of visco (``chip_smoke.as_material``),
+timed the same way: ``g2p_kernel`` as written and with launch bounds
+asking for 6-10 blocks per SM (a register budget per build: 80, 72, 64,
+56, 48); the
+split design of ``tools/g2p_split.cu`` (a gather and a return-map
+warpgroup with their own register budgets), with one or two return-map
+warpgroups, and, changing the bits, its gather warpgroup alone (the map
+warpgroup waits and releases, no return map); then the jelly build on
+the jelly state as written and split. Then the card's name, clock and
+power limit.
 """
 
 from __future__ import annotations
@@ -95,8 +109,46 @@ VARIANTS = {
 CHANGES_BITS = ("gather_only", "rows_only")
 
 
-def variant_source(edits) -> str:
-    src = (CSRC / "g2p.cu").read_text()
+def blocks(n):
+    """g2p_kernel's launch bounds asking for n blocks per SM: a register
+    budget of 65536 / (128 n) a thread."""
+    return (("__global__ void __launch_bounds__(THREADS)\ng2p_kernel(",
+             f"__global__ void __launch_bounds__(THREADS, {n})\ng2p_kernel("),)
+
+
+def split_budget(n, gather, maps):
+    return (("  static constexpr int kMinBlocks = kVisco ? 3 : 4;\n"
+             "  static constexpr int kGather = kVisco ? 56 : 48;\n"
+             "  static constexpr int kMap = kVisco ? 104 : 80;\n",
+             f"  static constexpr int kMinBlocks = {n};\n"
+             f"  static constexpr int kGather = {gather};\n"
+             f"  static constexpr int kMap = {maps};\n"),)
+
+
+# the return-map builds' variants, each (source, edits): "g2p" the port's
+# csrc/g2p.cu, "split" tools/g2p_split.cu (its own note); timed on the 8M
+# state made of the materials of SVD_STATES; the last split one changes
+# the bits
+SVD_VARIANTS = {
+    "kernel": ("g2p", ()),
+    **{f"blocks{n}": ("g2p", blocks(n)) for n in (6, 7, 8, 9, 10)},
+    "split": ("split", ()),
+    "split_maps2": ("split", (("constexpr int WS_MAPS = 1;", "constexpr int WS_MAPS = 2;"),)
+                    + split_budget(2, 48, 96)),
+    "split_gather_only": ("split", (
+        ("          material_plasticity<M>(rows.F, cdg, rows.aux, rows.par, prm.dt, pl);\n",
+         "          pl.count = 0;\n          pl.aux = rows.aux;\n"
+         "          for (int k = 0; k < 9; ++k) pl.F[k] = rows.F[k];\n"),)),
+}
+SVD_CHANGES_BITS = ("split_gather_only",)
+SVD_STATES = {"sand": ("kernel", "blocks9", "blocks10", "split", "split_maps2",
+                       "split_gather_only"),
+              "visco": ("kernel", "blocks6", "blocks7", "blocks8", "split", "split_maps2"),
+              "jelly": ("kernel", "split")}
+
+
+def variant_source(edits, source="g2p") -> str:
+    src = (CSRC / "g2p.cu" if source == "g2p" else ROOT / "tools" / "g2p_split.cu").read_text()
     for old, new in edits:
         n = src.count(old)
         if n != 1:
@@ -106,7 +158,9 @@ def variant_source(edits) -> str:
 
 
 KERNEL_NAMES = {"g2p_kernelILi2E": "g2p_fused jelly", "g2p_kernelILi8E": "g2p_fused water",
-                "g2p_kernelILi10E": "g2p_fused both", "g2p_blocked_kernel": "g2p_blocked"}
+                "g2p_kernelILi10E": "g2p_fused both", "g2p_blocked_kernel": "g2p_blocked",
+                "g2p_ws_kernelILi16E": "g2p_fused sand", "g2p_ws_kernelILi128E": "g2p_fused visco",
+                "g2p_kernelILi16E": "g2p_fused sand", "g2p_kernelILi128E": "g2p_fused visco"}
 
 
 def ptxas_registers(log: str) -> dict:
@@ -125,20 +179,26 @@ def ptxas_registers(log: str) -> dict:
 SETS = (0, 1 << 1, 1 << 3)
 
 
-def build_all():
-    """One nvcc per variant and material set, all at once; returns
-    name -> ({set: library}, registers)."""
+def build_all(names):
+    """One nvcc per variant and material set, all at once (the SVD
+    variants for sand's and visco's sets alone); returns name -> ({set:
+    library}, registers)."""
     from taichi_mpm_torch.ops import cuda_build
 
     OUT.mkdir(parents=True, exist_ok=True)
     for header in CSRC.glob("*.cuh"):
         shutil.copy(header, OUT / header.name)
     procs = {}
-    for name, edits in VARIANTS.items():
-        (OUT / f"g2p_{name}.cu").write_text(variant_source(edits))
-        for mats in SETS:
+    variants = {**{n: ("g2p", e) for n, e in VARIANTS.items()}, **SVD_VARIANTS}
+    for name, (source, edits) in variants.items():
+        if name not in names:
+            continue
+        (OUT / f"g2p_{name}.cu").write_text(variant_source(edits, source))
+        svd = [1 << chip_smoke.MATERIALS.index(m) for m, vs in SVD_STATES.items() if name in vs]
+        for mats in (SETS if name in VARIANTS else svd):
             cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, f"-DTMT_MATS={mats}",
-                   "-o", str(OUT / f"g2p_{name}_m{mats}.so"), str(OUT / f"g2p_{name}.cu")]
+                   f"-I{CSRC}", "-o", str(OUT / f"g2p_{name}_m{mats}.so"),
+                   str(OUT / f"g2p_{name}.cu")]
             procs[name, mats] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                  stderr=subprocess.STDOUT)
     built = {}
@@ -152,6 +212,44 @@ def build_all():
     return built
 
 
+def time_svd(sim, built):
+    """The SVD variants on the 8M state of `sim` made of sand and of visco,
+    in the order A, B, ..., B, A; each arithmetic-keeping variant must
+    give the state, vmax and count of the source as written."""
+    import torch
+
+    from taichi_mpm_torch.ops import cuda_build, g2p
+
+    st0, _, pm, _ = sim.packed_carry
+    keys, dt = pm["slot_keys"], sim.cfg.base_dt
+    load = cuda_build.load
+    for material, names in SVD_STATES.items():
+        st = chip_smoke.as_material(st0, material)
+        cfg = sim.cfg.with_materials((chip_smoke.MATERIALS.index(material),))
+        win = chip_smoke.g2p_windows(sim, st, pm)
+        scratch = st.clone()
+        ref, ms = None, {name: [] for name in names}
+        try:
+            for name in [*names, *reversed(names)]:
+                cuda_build.load = lambda _, mats=0, libs=built[name][0]: libs[mats]
+                new = st.clone()
+                outs = [new, *g2p.g2p_fused(keys, new, win, dt, cfg)]
+                torch.cuda.synchronize()
+                bits = [o.view(torch.int32) if o.is_floating_point() else o for o in outs]
+                ref = ref or bits
+                if name not in SVD_CHANGES_BITS and not all(map(torch.equal, bits, ref)):
+                    raise RuntimeError(f"variant {name} changed the bits of {material}")
+                del new, outs, bits
+                ms[name].append(chip_smoke.cuda_ms(
+                    lambda: g2p.g2p_fused(keys, scratch, win, dt, cfg), 10))
+        finally:
+            cuda_build.load = load
+        for name in names:
+            print(json.dumps(dict(state=f"{material}_8m", variant=name, ms=ms[name],
+                                  registers=built[name][1])), flush=True)
+        del st, win, scratch, ref
+
+
 def main():
     import torch
 
@@ -161,9 +259,15 @@ def main():
     if not torch.cuda.is_available():
         print("g2p_variants: no CUDA device", file=sys.stderr)
         return 2
-    built = build_all()
+    only = sys.argv[1:] == ["svd"]
+    built = build_all([*([] if only else VARIANTS), *SVD_VARIANTS])
+    svd = {name: built.pop(name) for name in SVD_VARIANTS}
     load = cuda_build.load
     for label, sim in chip_smoke.kernel_states():
+        if label == "jelly_8m":
+            time_svd(sim, svd)
+        if only:
+            break
         cfg, dt = sim.cfg, sim.cfg.base_dt
         st, _, pm, _ = sim.packed_carry
         keys, win = pm["slot_keys"], chip_smoke.g2p_windows(sim, st, pm)
